@@ -5,11 +5,20 @@
 
 run from the root of a checkout. It builds the port's CUDA kernels from
 ``src/repro_torch/csrc`` with nvcc (into ``build/repro_torch``), holds each
-kernel against its plain-torch twin on the card, drives the fused PAOTA
-round at the paper's size through ``FusedPAOTA.advance`` (K = 100 clients,
-the 784-10-10-10 MLP, 100 rounds per transmit mode) and at K = 1000, times
-the kernels, and prints one JSON record per phase. Its last three lines
-are the ``kernels`` record, the card's name and power limit, and
+kernel against its plain-torch twin on the card, and drives the port's
+paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
+
+- the fused PAOTA round through ``FusedPAOTA.advance`` (100 rounds per
+  transmit mode, and K = 1000);
+- the host-path ``PAOTAServer`` (30 rounds without and 30 with
+  ``use_kernel``, the ``aircomp_sum`` kernel's route), held against the
+  fused round on the same counter draws;
+- ``cosine_similarity(use_kernel=True)`` on that run's delta plane (the
+  ``cosine_partials`` kernel);
+- the Local SGD and COTAF baselines (30 rounds each).
+
+It times the kernels and prints one JSON record per phase. Its last three
+lines are the ``kernels`` record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line; without a GPU, or outside a checkout, it exits 2 at once.
 
@@ -38,6 +47,9 @@ CARDS = (("H200", 4.8e12, 67e12), ("H100 PCIe", 2.0e12, 51e12),
 PARITY_SHAPES = ((1, 1), (3, 511), (100, 8070), (1000, 8070))
 MAIN_ROUNDS = 100
 SCALE_ROUNDS = 20
+HOST_ROUNDS = 30
+PARITY_ROUNDS = 5
+BASELINE_ROUNDS = 30
 TIMING_RUNS = 60
 
 
@@ -72,8 +84,10 @@ def _tol(dtype):
 
 def parity(dev):
     from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import cosine_sim as cs
     from repro_torch.kernels import round_stats as rs
-    worst = {"round_stats": 0.0, "superpose_normalize": 0.0}
+    worst = {"round_stats": 0.0, "superpose_normalize": 0.0,
+             "aircomp_sum": 0.0, "cosine_partials": 0.0}
     main_err = {}
     cases = 0
     for k, d in PARITY_SHAPES:
@@ -121,6 +135,31 @@ def parity(dev):
                                            "partial"):
                     main_err["superpose_normalize"] = err
                 cases += 1
+                # aircomp_sum takes bp already masked
+                bp = p * m
+                got = ac.aircomp_sum_cuda(x, bp, noise)
+                want = ac.aircomp_sum_plain(x, bp, noise)
+                torch.cuda.synchronize()
+                if kind == "zero":          # noise / 1e-12: relative only
+                    torch.testing.assert_close(got, want, rtol=3e-5,
+                                               atol=0.0)
+                else:
+                    torch.testing.assert_close(got, want, **tol)
+                    err = float((got - want).abs().max())
+                    worst["aircomp_sum"] = max(worst["aircomp_sum"], err)
+                if (k, d, dtype, kind) == (100, 8070, torch.float32,
+                                           "partial"):
+                    main_err["aircomp_sum"] = err
+                cases += 1
+            got = cs.cosine_partials_cuda(x, g)
+            want = cs.cosine_partials_plain(x, g)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **_tol(dtype))
+            err = float((got - want).abs().max())
+            worst["cosine_partials"] = max(worst["cosine_partials"], err)
+            if (k, d, dtype) == (100, 8070, torch.float32):
+                main_err["cosine_partials"] = err
+            cases += 1
     log({"phase": "parity", "cases": cases, "all_close": True,
          "max_abs_err_at_main_shape": main_err,
          "max_abs_err_any_case": worst})
@@ -194,7 +233,166 @@ def run_path(dev, data, *, k, sizes, transmit, rounds, tag):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: kernel times
+# phases 6-8: the host-path server, the cosine route, the baselines
+# ---------------------------------------------------------------------------
+
+# Section IV-A: 20 MHz, -174 dBm/Hz, P_max = 15 W; delta_t = 8 s, U(5, 15) s
+CHAN = dict(bandwidth_hz=20e6, n0_dbm_hz=-174.0, p_max_watts=15.0)
+SCHED = dict(delta_t=8.0, lat_lo=5.0, lat_hi=15.0, seed=1)
+
+
+def _federation(dev, data, k, sizes):
+    from repro_torch.data.partition import partition_noniid
+    from repro_torch.data.pipeline import build_federation
+    from repro_torch.fl import FLClient
+    from repro_torch.models.mlp import mlp_loss
+    x, y, xt, yt = data
+    parts = partition_noniid(y, n_clients=k, sizes=sizes, seed=0)
+    clients = [FLClient(c, mlp_loss, batch_size=32, lr=0.1, local_steps=5)
+               for c in build_federation(x, y, parts)]
+    test = {"x": torch.as_tensor(xt, device=dev),
+            "y": torch.as_tensor(yt, device=dev).long()}
+    return clients, test
+
+
+def host_path(dev, data):
+    """PAOTAServer at K = 100 with the paper's sizes, counter draws,
+    solver="waterfill_jnp" (the fused round's), transmit model: HOST_ROUNDS
+    rounds without and HOST_ROUNDS with use_kernel, the launch counters set
+    to 0 just before each run and read just after. Over the first
+    PARITY_ROUNDS rounds both runs agree with FusedPAOTA on the same
+    CounterDraws at the reference's fused-vs-host tolerance."""
+    from repro_torch.core import ChannelConfig, SchedulerConfig
+    from repro_torch.data.partition import PAPER_SIZES
+    from repro_torch.fl import FusedPAOTA, PAOTAConfig, PAOTAServer
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.models.mlp import init_mlp_params, mlp_accuracy
+    clients, test = _federation(dev, data, 100, PAPER_SIZES)
+    fused = FusedPAOTA(init_mlp_params(0), clients, ChannelConfig(**CHAN),
+                       SchedulerConfig(n_clients=100, **SCHED),
+                       PAOTAConfig(transmit="model", seed=0), device=dev)
+    fused.advance(PARITY_ROUNDS)
+    fused_vec = fused.global_vec
+    del fused
+    out = {}
+    for use_kernel in (False, True):
+        srv = PAOTAServer(
+            init_mlp_params(0), clients, ChannelConfig(**CHAN),
+            SchedulerConfig(n_clients=100, rng="counter", **SCHED),
+            PAOTAConfig(solver="waterfill_jnp", use_kernel=use_kernel,
+                        rng="counter", transmit="model", seed=0),
+            device=dev)
+        acc0 = float(mlp_accuracy(srv.global_params(), test))
+        torch.cuda.synchronize()
+        rs.launches = ac.launches = ac.aircomp_sum_launches = 0
+        t0 = time.perf_counter()
+        rows = [srv.round() for _ in range(PARITY_ROUNDS)]
+        vec5 = srv.global_vec
+        rows += [srv.round() for _ in range(HOST_ROUNDS - PARITY_ROUNDS)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = {"round_stats": rs.launches,
+                    "superpose_normalize": ac.launches,
+                    "aircomp_sum": ac.aircomp_sum_launches}
+        acc = float(mlp_accuracy(srv.global_params(), test))
+        busy = sum(r["n_participants"] > 0 for r in rows)
+        agg_launches = ((launches["aircomp_sum"],
+                         launches["superpose_normalize"]) if use_kernel
+                        else (launches["superpose_normalize"],
+                              launches["aircomp_sum"]))
+        checks = {
+            "finite": bool(np.isfinite(srv.global_vec).all()),
+            "accuracy_rose": acc > acc0,
+            "round_stats_once_per_round_with_uploaders":
+                launches["round_stats"] == busy,
+            "aggregation_kernel_once_per_round_with_uploaders":
+                agg_launches == (busy, 0),
+            "tracks_fused_over_first_rounds": bool(np.allclose(
+                vec5, fused_vec, rtol=1e-4, atol=1e-5)),
+        }
+        rec = {"phase": "host_path", "use_kernel": use_kernel,
+               "clients": 100, "rounds": HOST_ROUNDS, "solver":
+               "waterfill_jnp", "rounds_with_uploaders": busy,
+               "ms_per_round": (t1 - t0) * 1e3 / HOST_ROUNDS,
+               "accuracy_round0": acc0, "accuracy_final": acc,
+               "max_abs_diff_vs_fused_at_round_5":
+                   float(np.abs(vec5 - fused_vec).max()),
+               "launches": launches, "checks": checks}
+        log(rec)
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"host_path use_kernel={use_kernel}: "
+                                 f"failed {failed}")
+        out[use_kernel] = (rec, srv)
+    return out
+
+
+def cosine_phase(srv):
+    """cosine_similarity(use_kernel=True) on the host run's delta plane
+    against use_kernel=False: one launch for the one call."""
+    from repro_torch.core.power_control import cosine_similarity
+    from repro_torch.kernels import cosine_sim as cs
+    with torch.no_grad():
+        deltas = srv._pending_models - srv._pending_starts
+        gdir = srv._global - srv._prev
+        torch.cuda.synchronize()
+        cs.launches = 0
+        got = cosine_similarity(deltas, gdir, use_kernel=True)
+        torch.cuda.synchronize()
+        launches = cs.launches
+        want = cosine_similarity(deltas, gdir, use_kernel=False)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    rec = {"phase": "cosine", "shape": list(deltas.shape),
+           "launches": launches,
+           "max_abs_err_vs_plain_route": float((got - want).abs().max()),
+           "cos_range": [float(got.min()), float(got.max())]}
+    log(rec)
+    if launches != 1:
+        raise AssertionError(f"cosine: {launches} launches for one call")
+    return rec
+
+
+def baselines(dev, data):
+    """Local SGD and COTAF at K = 100 with the paper's sizes and 50
+    participants, BASELINE_ROUNDS rounds each."""
+    from repro_torch.core import ChannelConfig, SchedulerConfig
+    from repro_torch.data.partition import PAPER_SIZES
+    from repro_torch.fl import COTAFServer, LocalSGDServer, SyncConfig
+    from repro_torch.models.mlp import init_mlp_params, mlp_accuracy
+    for name, cls in (("local_sgd", LocalSGDServer), ("cotaf", COTAFServer)):
+        clients, test = _federation(dev, data, 100, PAPER_SIZES)
+        args = (init_mlp_params(0), clients,
+                SchedulerConfig(n_clients=100, **SCHED),
+                SyncConfig(n_select=50, seed=0))
+        if cls is COTAFServer:
+            args += (ChannelConfig(**CHAN),)
+        srv = cls(*args, device=dev)
+        acc0 = float(mlp_accuracy(srv.global_params(), test))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = [srv.round() for _ in range(BASELINE_ROUNDS)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        acc = float(mlp_accuracy(srv.global_params(), test))
+        sim_per_round = rows[-1]["time"] / BASELINE_ROUNDS
+        checks = {"finite": bool(np.isfinite(srv.global_vec).all()),
+                  "accuracy_rose": acc > acc0,
+                  "straggler_clock_exceeds_paota_period":
+                      sim_per_round > SCHED["delta_t"]}
+        log({"phase": "baselines", "algo": name, "clients": 100,
+             "n_select": 50, "rounds": BASELINE_ROUNDS,
+             "ms_per_round": (t1 - t0) * 1e3 / BASELINE_ROUNDS,
+             "sim_seconds_per_round": sim_per_round,
+             "accuracy_round0": acc0, "accuracy_final": acc,
+             "checks": checks})
+        failed = [c for c, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"baselines {name}: failed {failed}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: kernel times
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, flush):
@@ -218,6 +416,7 @@ def time_ms(fn, flush):
 
 def kernel_times(dev, bw, flops):
     from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import cosine_sim as cs
     from repro_torch.kernels import round_stats as rs
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
     out = {}
@@ -255,6 +454,30 @@ def kernel_times(dev, bw, flops):
                                     flush),
             "yardstick": "torch.mv(x.t(), bp) (partial: the contraction "
                          "only)",
+            "bound_ms": max(nbytes / bw, nops / flops) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= nops / flops
+            else "operations"}
+        bp = p * m
+        nbytes = 4 * (k * d + k + 2 * d)
+        nops = 2 * k * d + k + 2 * d
+        out[("aircomp_sum", k)] = {
+            "ms": time_ms(lambda: ac.aircomp_sum_cuda(x, bp, noise), flush),
+            "plain_ms": time_ms(lambda: ac.aircomp_sum_plain(x, bp, noise),
+                                flush),
+            "yardstick_ms": time_ms(lambda: torch.mv(x.t(), bp), flush),
+            "yardstick": "torch.mv(x.t(), bp) (partial: the contraction "
+                         "only)",
+            "bound_ms": max(nbytes / bw, nops / flops) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= nops / flops
+            else "operations"}
+        nbytes = 4 * (k * d + d + 2 * k)
+        nops = 4 * k * d
+        out[("cosine_partials", k)] = {
+            "ms": time_ms(lambda: cs.cosine_partials_cuda(x, g), flush),
+            "plain_ms": time_ms(lambda: cs.cosine_partials_plain(x, g),
+                                flush),
+            "yardstick_ms": time_ms(lambda: x @ g, flush),
+            "yardstick": "x @ g (partial: the dot column only)",
             "bound_ms": max(nbytes / bw, nops / flops) * 1e3,
             "bound_by": "bytes" if nbytes / bw >= nops / flops
             else "operations"}
@@ -332,7 +555,7 @@ def main() -> int:
                   torch.backends.cudnn.allow_tf32],
          "hbm_bytes_per_s": bw, "f32_flops": flops})
 
-    # 2. build both kernels from the checkout's sources, in parallel
+    # 2. build the kernels' sources from the checkout, in parallel
     seconds = build.build_all()
     log({"phase": "build", "sources": list(build.SOURCES),
          "seconds": seconds, "arch": "sm_90a"})
@@ -340,7 +563,7 @@ def main() -> int:
     # 3. kernel parity on the card
     main_err = parity(dev)
 
-    # 4. the main path at the paper's size, both transmit modes
+    # 4. the fused round at the paper's size, both transmit modes
     t = time.perf_counter()
     data = make_mnist_like(n_train=60000, n_test=10000, seed=1234)
     log({"phase": "data", "n_train": 60000, "n_test": 10000,
@@ -364,7 +587,19 @@ def main() -> int:
     run_path(dev, data, k=1000, sizes=FAST_SIZES, transmit="delta",
              rounds=SCALE_ROUNDS, tag="scale")
 
-    # 6. kernel and stage times
+    # 6-8. the host-path server (both aggregation routes), the cosine
+    # route on its delta plane, the synchronous baselines
+    host = host_path(dev, data)
+    for use_kernel, (rec, _) in host.items():
+        by_path[f"host_path use_kernel={use_kernel}"] = rec["launches"]
+    launches["aircomp_sum"] = host[True][0]["launches"]["aircomp_sum"]
+    cos = cosine_phase(host[True][1])
+    launches["cosine_partials"] = cos["launches"]
+    by_path["cosine"] = {"cosine_partials": cos["launches"]}
+    del host
+    baselines(dev, data)
+
+    # 9. kernel and stage times
     times = kernel_times(dev, bw, flops)
     stage_times(drv_main,
                 torch.empty(64 * 2**20, dtype=torch.float32, device=dev))
@@ -374,14 +609,21 @@ def main() -> int:
                                "src/repro/kernels/round_stats.py:112"),
                "superpose_normalize": ("superpose_normalize",
                                        "src/repro_torch/csrc/aircomp_sum.cu",
-                                       "src/repro/kernels/aircomp_sum.py:119")}
+                                       "src/repro/kernels/aircomp_sum.py:119"),
+               "aircomp_sum": ("aircomp_sum",
+                               "src/repro_torch/csrc/aircomp_sum.cu",
+                               "src/repro/kernels/aircomp_sum.py:56"),
+               "cosine_partials": ("cosine_partials",
+                                   "src/repro_torch/csrc/round_stats.cu",
+                                   "src/repro/kernels/cosine_sim.py:42")}
     kernels = []
     for kname, (tkey, source, replaces) in sources.items():
         t = times[(tkey, 100)]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
-            "launches_by_path": {p: v[kname] for p, v in by_path.items()},
+            "launches_by_path": {p: v[kname] for p, v in by_path.items()
+                                 if kname in v},
             "max_abs_err": main_err[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,

@@ -4,7 +4,8 @@ Port of the dense, raveled, single-device branch of
 ``repro.core.aggregation``: the params dict <-> flat vector ravel in the
 reference's leaf order, the AirComp superposition of the stacked (K, d)
 payload (sweep 2 of the round, ``repro_torch.kernels.ops
-.superpose_normalize``), and the zero-uploader guarded update.
+.superpose_normalize``, or with ``use_kernel`` the host path's
+``aircomp_sum`` route), and the zero-uploader guarded update.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from repro_torch.core.aircomp import VARSIGMA_MIN
+from repro_torch.core.aircomp import VARSIGMA_MIN, aircomp_aggregate
 from repro_torch.device import f32
 from repro_torch.kernels.ops import superpose_normalize
 
@@ -89,14 +90,20 @@ def guarded_global_update(global_vec, prev_global, agg, varsigma, *,
 
 
 def paota_aggregate_stacked(stacked: torch.Tensor, powers: torch.Tensor,
-                            mask: torch.Tensor, noise: torch.Tensor):
+                            mask: torch.Tensor, noise: torch.Tensor,
+                            use_kernel: bool = False):
     """Eq. (8) over the raveled (K, d) payload: w = (sum_k b_k p_k w_k + n)
     / sum_k b_k p_k, with the AWGN realization ``noise`` (d,) already
     scaled by sigma_n. Returns ((d,) f32 aggregate, clamped varsigma).
 
-    The reference re-sums b*p for varsigma; here the kernel's raw sum
-    comes back with the aggregate and is clamped, so no second reduction
-    runs (an all-zero mask sums to exactly 0 either way)."""
+    ``use_kernel`` takes the reference's ``aircomp_aggregate`` route (the
+    ``aircomp_sum`` kernel). Otherwise sweep 2 runs, and where the reference
+    re-sums b*p for varsigma the kernel's raw sum comes back with the
+    aggregate and is clamped, so no second reduction runs (an all-zero
+    mask sums to exactly 0 either way)."""
+    if use_kernel:
+        return aircomp_aggregate(stacked, powers, mask, noise,
+                                 use_kernel=True)
     agg, raw = superpose_normalize(stacked, powers, mask, noise,
                                    vs_min=VARSIGMA_MIN)
     return agg, torch.clamp_min(raw, f32(VARSIGMA_MIN))

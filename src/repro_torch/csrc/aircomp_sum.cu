@@ -1,12 +1,15 @@
-// Fused superpose-and-normalize: sweep 2 of the PAOTA round (eqs. 6 + 8)
-// over the (K, D) payload plane.
+// AirComp superposition over the (K, D) payload plane (eqs. 6 + 8), two
+// entry points on one kernel body:
 //
-// Replaces the TPU kernel
+// repro_superpose_normalize replaces the TPU kernel
 // repro/kernels/aircomp_sum.py::superpose_normalize_pallas (body
-// _superpose_kernel). With bp_k = p_k * mask_k:
+// _superpose_kernel), sweep 2 of the fused round. With bp_k = p_k * mask_k:
 //     agg[d]   = (sum_k bp_k * x[k, d] + noise[d]) / max(sum_k bp_k, vs_min)
 //     varsigma = sum_k bp_k                                   (raw)
-// x is f32 or bf16; p, mask and noise are f32; every sum is f32.
+// repro_aircomp_sum replaces repro/kernels/aircomp_sum.py::
+// aircomp_sum_pallas (body _kernel), the host-path server's use_kernel
+// route: bp comes already masked, vs_min is 1e-12 and only agg is written.
+// x is f32 or bf16; bp, p, mask and noise are f32; every sum is f32.
 //
 // Bound on the H100: memory. K*D payload elements are read once for one
 // FMA each; the output is one D-vector.
@@ -46,7 +49,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+// kMasked: bp_k = powers[k] * mask[k], and block 0 writes the raw
+// varsigma; otherwise powers holds bp itself and mask/varsigma are unused.
+template <typename T, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
                  const float* __restrict__ mask,
@@ -66,7 +71,8 @@ superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
   float vs = 0.f;   // this thread's share of sum_k bp_k
   for (int64_t k0 = 0; k0 < k; k0 += kThreads) {
     const int64_t kk = k0 + tid;
-    const float bp = kk < k ? __fmul_rn(powers[kk], mask[kk]) : 0.f;
+    float bp = 0.f;
+    if (kk < k) bp = kMasked ? __fmul_rn(powers[kk], mask[kk]) : powers[kk];
     s_bp[tid] = bp;
     vs += bp;
     __syncthreads();
@@ -92,7 +98,7 @@ superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) total += s_acc[w][lane];
     if (live) agg[col] = (total + noise[col]) / fmaxf(raw, vs_min);
-    if (blockIdx.x == 0 && lane == 0) *varsigma = raw;
+    if (kMasked && blockIdx.x == 0 && lane == 0) *varsigma = raw;
   }
 }
 
@@ -114,11 +120,35 @@ extern "C" int repro_superpose_normalize(const void* x, const void* powers,
   float* out = static_cast<float*>(agg);
   float* vs = static_cast<float*>(varsigma);
   if (bf16) {
-    superpose_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    superpose_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), p, m, n, out, vs, k, d, vs_min);
   } else {
-    superpose_kernel<float><<<grid, kThreads, 0, s>>>(
+    superpose_kernel<float, true><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), p, m, n, out, vs, k, d, vs_min);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1). bp: (k,) f32,
+// already masked. noise: (d,) f32. agg: (d,) f32 =
+// (sum_k bp_k x_k + noise) / max(sum_k bp_k, 1e-12). Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
+extern "C" int repro_aircomp_sum(const void* x, const void* bp,
+                                 const void* noise, void* agg, int64_t k,
+                                 int64_t d, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned int>((d + kCols - 1) / kCols));
+  const float* w = static_cast<const float*>(bp);
+  const float* n = static_cast<const float*>(noise);
+  float* out = static_cast<float*>(agg);
+  if (bf16) {
+    superpose_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), w, nullptr, n, out, nullptr, k,
+        d, 1e-12f);
+  } else {
+    superpose_kernel<float, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), w, nullptr, n, out, nullptr, k, d,
+        1e-12f);
   }
   return static_cast<int>(cudaGetLastError());
 }

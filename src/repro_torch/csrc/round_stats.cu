@@ -1,12 +1,17 @@
-// Fused round statistics: sweep 1 of the PAOTA round over the (K, D)
-// delta plane.
+// Per-row statistics of the (K, D) delta plane, two entry points on one
+// kernel body:
 //
-// Replaces the TPU kernel repro/kernels/round_stats.py::round_stats_pallas
-// (bodies _kernel and _kernel_payload). Per row k:
+// repro_round_stats replaces the TPU kernel
+// repro/kernels/round_stats.py::round_stats_pallas (bodies _kernel and
+// _kernel_payload), sweep 1 of the PAOTA round. Per row k:
 //     stats[k, 0] = sum_d delta[k, d] * g[d]
 //     stats[k, 1] = sum_d delta[k, d]^2
 //     stats[k, 2] = sum_d payload[k, d]^2          (payload variant only)
-// and gn2 = sum_d g[d]^2. Inputs are f32 or bf16; every sum is f32.
+// and gn2 = sum_d g[d]^2.
+// repro_cosine_partials replaces repro/kernels/cosine_sim.py::
+// cosine_partials_pallas (body _kernel): the (K, 2) [dot, ||delta||^2]
+// alone, without a payload and without gn2.
+// Inputs are f32 or bf16 (g is f32); every sum is f32.
 //
 // Bound on the H100: memory. The sweep reads K*D elements (2*K*D with a
 // payload) once and does 2-3 FMAs per element, far below the card's
@@ -44,7 +49,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, bool kPayload>
+template <typename T, bool kPayload, bool kGn2>
 __global__ void __launch_bounds__(kThreads)
 round_stats_kernel(const T* __restrict__ deltas, const T* __restrict__ payload,
                    const float* __restrict__ g, float* __restrict__ stats,
@@ -63,7 +68,7 @@ round_stats_kernel(const T* __restrict__ deltas, const T* __restrict__ payload,
       const float p = to_f32(prow[j]);
       acc[2] = fmaf(p, p, acc[2]);
     }
-    acc[3] = fmaf(gj, gj, acc[3]);
+    if (kGn2) acc[3] = fmaf(gj, gj, acc[3]);
   }
 
   __shared__ float partial[4][kWarps];
@@ -85,7 +90,7 @@ round_stats_kernel(const T* __restrict__ deltas, const T* __restrict__ payload,
       stats[row * kCols + 0] = acc[0];
       stats[row * kCols + 1] = acc[1];
       if (kPayload) stats[row * kCols + 2] = acc[2];
-      if (row == 0) *gn2 = acc[3];
+      if (kGn2 && row == 0) *gn2 = acc[3];
     }
   }
 }
@@ -101,11 +106,11 @@ void launch(const void* deltas, const void* payload, const void* g,
   float* sp = static_cast<float*>(stats);
   float* np = static_cast<float*>(gn2);
   if (payload != nullptr) {
-    round_stats_kernel<T, true><<<grid, kThreads, 0, stream>>>(dp, pp, gp, sp,
-                                                               np, d);
+    round_stats_kernel<T, true, true><<<grid, kThreads, 0, stream>>>(
+        dp, pp, gp, sp, np, d);
   } else {
-    round_stats_kernel<T, false><<<grid, kThreads, 0, stream>>>(dp, pp, gp,
-                                                                sp, np, d);
+    round_stats_kernel<T, false, true><<<grid, kThreads, 0, stream>>>(
+        dp, pp, gp, sp, np, d);
   }
 }
 
@@ -123,6 +128,27 @@ extern "C" int repro_round_stats(const void* deltas, const void* payload,
     launch<__nv_bfloat16>(deltas, payload, g, stats, gn2, k, d, s);
   } else {
     launch<float>(deltas, payload, g, stats, gn2, k, d, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// deltas: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1). g: (d,)
+// f32. out: (k, 2) f32 [dot_k, ||delta_k||^2]. Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
+extern "C" int repro_cosine_partials(const void* deltas, const void* g,
+                                     void* out, int64_t k, int64_t d,
+                                     int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned int>(k));
+  const float* gp = static_cast<const float*>(g);
+  float* op = static_cast<float*>(out);
+  if (bf16) {
+    round_stats_kernel<__nv_bfloat16, false, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(deltas), nullptr, gp, op, nullptr,
+        d);
+  } else {
+    round_stats_kernel<float, false, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(deltas), nullptr, gp, op, nullptr, d);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,10 @@
 """Federated client data, stacked for batched local training, torch form.
 
-Port of ``repro.data.pipeline``: ``ClientData`` (one client's dataset),
-``build_federation`` and ``stack_federation`` (pad the ragged per-client
-datasets into (K, n_max, ...) arrays) are numpy, as in the reference.
+Port of ``repro.data.pipeline``: ``ClientData`` (one client's dataset and
+its epoch-shuffled minibatch cursor), ``build_federation`` and
+``stack_federation`` (pad the ragged per-client datasets into
+(K, n_max, ...) arrays) are numpy copies of the reference, bit for bit: the
+host-mode servers plan their minibatches from the epoch cursors.
 ``counter_batch_plan`` replaces the reference's threefry plan: the
 (K, M, B) minibatch indices of one round come from one ``torch.Generator``
 keyed on (seed, round, TAG_BATCH), and row k draws i.i.d. uniform from
@@ -22,20 +24,52 @@ from repro_torch.core.scheduler import TAG_BATCH, round_tag_generator
 
 
 class ClientData:
-    """One client's local dataset D_k. The port plans minibatches with
-    counter plans only (``counter_batch_plan``), so the reference's
-    epoch-cursor iterator has no counterpart here."""
+    """One client's local dataset D_k with an epoch-shuffled batch cursor.
+    The permutation of epoch e is a pure function of (seed, client id, e);
+    the cursor is host state that successive broadcasts resume."""
 
-    def __init__(self, x: np.ndarray, y: np.ndarray, client_id: int):
+    def __init__(self, x: np.ndarray, y: np.ndarray, client_id: int,
+                 seed: int = 0):
         self.x, self.y = x, y
         self.client_id = client_id
+        self._seed = seed
+        self._epoch = 0
+        self._order_cache = (-1, None)   # (epoch, permutation)
 
     def __len__(self):
         return len(self.y)
 
+    def _epoch_order(self) -> np.ndarray:
+        if self._order_cache[0] != self._epoch:
+            rng = np.random.default_rng(
+                (self._seed, self.client_id, self._epoch))
+            self._order_cache = (self._epoch, rng.permutation(len(self.y)))
+        return self._order_cache[1]
 
-def build_federation(x, y, parts):
-    return [ClientData(x[p], y[p], k) for k, p in enumerate(parts)]
+    def batch_indices(self, batch_size: int, n_batches: int):
+        """Yield ``n_batches`` index arrays into (x, y), moving to a freshly
+        shuffled epoch when the current one has fewer than ``batch_size``
+        rows left (the rest of that epoch is skipped, as in the
+        reference)."""
+        order = self._epoch_order()
+        i = 0
+        for _ in range(n_batches):
+            if i + batch_size > len(order):
+                self._epoch += 1
+                order = self._epoch_order()
+                i = 0
+            sel = order[i:i + batch_size]
+            i += batch_size
+            yield sel
+
+    def batches(self, batch_size: int, n_batches: int):
+        """Yield ``n_batches`` minibatches {"x", "y"}."""
+        for sel in self.batch_indices(batch_size, n_batches):
+            yield {"x": self.x[sel], "y": self.y[sel]}
+
+
+def build_federation(x, y, parts, seed: int = 0):
+    return [ClientData(x[p], y[p], k, seed) for k, p in enumerate(parts)]
 
 
 @dataclass

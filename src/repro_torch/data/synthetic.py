@@ -5,9 +5,14 @@ generator: the port keeps its own copy rather than import the reference
 package. Same seed, same arrays, bit for bit (tests/test_torch_data.py).
 Each of 10 classes has a smoothed stroke prototype; samples add a shift of
 up to 2 pixels and Gaussian pixel noise, clipped to [0, 1].
+
+``get_dataset`` reads a local ``mnist.npz`` when one is present and falls
+back to ``make_mnist_like`` otherwise, as the reference does; nothing is
+downloaded.
 """
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -60,3 +65,25 @@ def make_mnist_like(n_train: int = 20000, n_test: int = 4000,
     x_tr, y_tr = gen(n_train)
     x_te, y_te = gen(n_test)
     return x_tr, y_tr, x_te, y_te
+
+
+def load_mnist_npz(path: str = "mnist.npz"):
+    """Real MNIST from a local .npz with x_train/y_train/x_test/y_test (the
+    ``make_mnist_like`` interface), or None if the file is absent."""
+    if not os.path.exists(path):
+        return None
+    z = np.load(path)
+    x_tr = z["x_train"].reshape(len(z["x_train"]), -1).astype(
+        np.float32) / 255.0
+    x_te = z["x_test"].reshape(len(z["x_test"]), -1).astype(
+        np.float32) / 255.0
+    return (x_tr, z["y_train"].astype(np.int32), x_te,
+            z["y_test"].astype(np.int32))
+
+
+def get_dataset(prefer_real: bool = True, **kw):
+    if prefer_real:
+        real = load_mnist_npz()
+        if real is not None:
+            return real
+    return make_mnist_like(**kw)

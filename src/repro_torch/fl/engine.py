@@ -7,11 +7,19 @@ minibatch of every client and takes ``torch.func.vmap(torch.func.grad(
 loss))`` over the client axis, the reference's ``jax.vmap(jax.grad)``.
 Those per-client products are plain matrix products, which XLA owns in the
 reference; here torch runs them, in full f32 (TF32 off).
+
+The host-path servers train through ``local_train_full`` /
+``local_train``: minibatch plans come from the clients' numpy epoch
+cursors (zero rows for clients outside the broadcast), or, once
+``enable_counter_plan`` is set, from a counter plan keyed on the broadcast
+round. The reference's ``LegacyEngine`` (a per-client loop) is not ported:
+``make_engine(kind="legacy")`` refuses it by name.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List, Sequence
 
+import numpy as np
 import torch
 from torch.func import grad, vmap
 
@@ -28,6 +36,7 @@ class BatchedEngine:
                  lr: float = 0.05, local_steps: int = 5, *, device=None):
         self.device = resolve_device(device)
         full_f32_matmul()
+        self.fed = fed          # epoch cursors (host-mode plans) live here
         self.batch_size = batch_size
         self.lr = lr
         self.local_steps = local_steps
@@ -39,6 +48,10 @@ class BatchedEngine:
         self._n_dev = torch.as_tensor(self.n_samples, device=self.device)
         self._rows = torch.arange(self.n_clients, device=self.device)[:, None]
         self._grad = vmap(grad(loss_fn))
+        self._idx = np.zeros((self.n_clients, local_steps, batch_size),
+                             np.int64)
+        self.plan = "host"
+        self._plan_fn = None
 
     @classmethod
     def from_clients(cls, clients: List[FLClient], device=None):
@@ -66,3 +79,62 @@ class BatchedEngine:
                      "y": self._y[self._rows, sel]}
             p = tree_map(lambda t, g: t - lr * g, p, self._grad(p, batch))
         return ravel_stacked(p)
+
+    def enable_counter_plan(self, plan_fn: Callable[[int], torch.Tensor]):
+        """Plan every broadcast with ``plan_fn(round)`` ((K, M, B) indices
+        on this engine's device, e.g. ``CounterDraws.batch_plan``) instead
+        of the epoch cursors, which are then no longer consumed."""
+        self.plan = "counter"
+        self._plan_fn = plan_fn
+
+    def _broadcast_plans(self, ids, round_idx):
+        """(K, M, B) plans of a broadcast to ``ids``: the counter plan of
+        ``round_idx``, or the epoch-cursor plans (zero rows for clients
+        outside ``ids``, whose cursors do not move)."""
+        if self.plan == "counter":
+            if round_idx is None:
+                raise ValueError("counter-plan engine needs the broadcast "
+                                 "round index")
+            return self._plan_fn(int(round_idx))
+        if int(self.n_samples.min()) < self.batch_size:
+            raise ValueError(
+                f"host epoch-cursor plans need n_k >= batch_size for "
+                f"fixed-shape minibatches (min n_k="
+                f"{int(self.n_samples.min())}, batch_size="
+                f"{self.batch_size}); use counter plans "
+                f"(enable_counter_plan)")
+        self._idx[:] = 0
+        for k in ids:
+            self._idx[k] = np.stack(list(
+                self.fed[k].batch_indices(self.batch_size,
+                                          self.local_steps)))
+        return torch.as_tensor(self._idx, device=self.device)
+
+    def local_train_full(self, params, ids: Sequence[int],
+                         round_idx=None) -> torch.Tensor:
+        """Train from ``params`` with every client's row of the broadcast
+        plan: the (K, d) stack, whose rows outside ``ids`` are untrained
+        garbage the caller must mask."""
+        ids = np.asarray(ids, np.int64)
+        return self.train_all(params, self._broadcast_plans(ids, round_idx))
+
+    def local_train(self, params, ids: Sequence[int],
+                    round_idx=None) -> torch.Tensor:
+        """The (len(ids), d) trained rows of ``ids``, in ``ids`` order."""
+        ids = np.asarray(ids, np.int64)
+        flat = self.local_train_full(params, ids, round_idx=round_idx)
+        return flat[torch.as_tensor(ids, device=flat.device)]
+
+
+def make_engine(clients, kind: str = "batched", device=None):
+    """An engine for ``clients``: a ``BatchedEngine`` as given, or one
+    built from a list of FLClient."""
+    if isinstance(clients, BatchedEngine):
+        return clients
+    if kind == "batched":
+        return BatchedEngine.from_clients(list(clients), device=device)
+    if kind == "legacy":
+        raise NotImplementedError(
+            "engine='legacy' selects the reference's per-client loop, which "
+            "the port does not have; the ported engine is engine='batched'")
+    raise ValueError(f"unknown engine kind: {kind!r} (expected 'batched')")

@@ -11,6 +11,8 @@ Randomness comes from a draw source (``repro_torch.fl.runtime``): by
 default ``CounterDraws`` keyed on ``sched_cfg.seed`` (latencies) and
 ``cfg.seed`` (channel, noise, minibatch plans), the roles the reference's
 seeds play; ``draws=ArrayDraws(...)`` replays given draws instead.
+``cfg.rng`` and ``sched_cfg.rng`` are read by the host-path server only, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -70,12 +72,12 @@ class FusedPAOTA:
         _refuse_unported(not_ported)
         if cfg.use_kernel:
             raise ValueError("use_kernel routes through the host-path "
-                             "server; the fused round is already one fused "
-                             "device path")
+                             "server (repro_torch.fl.PAOTAServer); the "
+                             "fused round is already one fused device path")
         if cfg.solver not in ("waterfill", "waterfill_jnp"):
             raise ValueError(f"FusedPAOTA solves P2 by water-filling only; "
                              f"solver={cfg.solver!r} needs the host-path "
-                             f"server")
+                             f"server (repro_torch.fl.PAOTAServer)")
         if cfg.engine != "batched":
             raise NotImplementedError(f"engine={cfg.engine!r}: the port has "
                                       f"the batched engine only")

@@ -37,7 +37,8 @@ from repro_torch.core.aircomp import (VARSIGMA_MIN, ChannelConfig,
                                       effective_power_cap,
                                       sample_channel_gains)
 from repro_torch.core.boxqp import waterfill_beta
-from repro_torch.core.power_control import (power_from_beta,
+from repro_torch.core.power_control import (client_sq_norms,
+                                            power_from_beta,
                                             similarity_factor,
                                             staleness_factor)
 from repro_torch.core.scheduler import (TAG_NOISE, counter_latencies,
@@ -130,12 +131,17 @@ class CounterDraws:
 class ArrayDraws:
     """Replays given draws: ``latencies`` (R+1, K) and ``batch_plan``
     (R+1, K, M, B) for rounds 0..R, ``channel`` (R, K) and ``noise`` (R, d)
-    for rounds 0..R-1 — the noise already scaled by sigma_n."""
+    for rounds 0..R-1 — the noise already scaled by sigma_n. A draw left
+    None is one the run must not ask for (a host-mode server draws its
+    latencies and plans on the host)."""
 
-    def __init__(self, latencies, channel, noise, batch_plan, device=None):
+    def __init__(self, latencies=None, channel=None, noise=None,
+                 batch_plan=None, device=None):
         self.device = resolve_device(device)
 
         def put(a, dtype):
+            if a is None:
+                return None
             return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
         self._lat = put(latencies, torch.float32)
@@ -144,6 +150,8 @@ class ArrayDraws:
         self._plan = put(batch_plan, torch.int64)
 
     def _at(self, arr, r: int, what: str):
+        if arr is None:
+            raise IndexError(f"ArrayDraws was given no {what}")
         if not 0 <= r < arr.shape[0]:
             raise IndexError(f"ArrayDraws holds {what} for rounds "
                              f"0..{arr.shape[0] - 1}, asked for round {r}")
@@ -185,9 +193,24 @@ def round_factors(deltas, payload, global_vec, prev_global, stal, omega,
     return rho, theta, (dn2 if payload is None else pn2)
 
 
-def constraint7_powers(powers, h, p_max: float, w_norm2):
-    """Stage 4: p_k <- min(p_k, |h_k| sqrt(P_max / ||w_k||^2)), with the
-    payload norms from the stage-2 sweep."""
+def eq25_factors(pending, starts, global_vec, prev_global, stal, omega):
+    """Stage 2 on the host server's state (pending, starts): the deltas
+    are pending - starts, then the one-sweep ``round_factors`` (no payload:
+    the server's constraint (7) computes its own norms). Returns
+    (deltas, rho, theta)."""
+    deltas = pending - starts
+    rho, theta, _ = round_factors(deltas, None, global_vec, prev_global,
+                                  stal, omega)
+    return deltas, rho, theta
+
+
+def constraint7_powers(powers, h, p_max: float, w_norm2=None, payload=None):
+    """Stage 4: p_k <- min(p_k, |h_k| sqrt(P_max / ||w_k||^2)). The fused
+    round passes the payload norms of its stage-2 sweep; the host server
+    passes the (K, d) ``payload`` instead, whose norms are computed here
+    (plain torch: the reference's einsum, no kernel)."""
+    if w_norm2 is None:
+        w_norm2 = client_sq_norms(payload)
     return torch.minimum(powers, effective_power_cap(w_norm2, h, p_max))
 
 

@@ -1,7 +1,8 @@
-"""Fused superpose-and-normalize (sweep 2 of the round): CUDA kernel + plain
-twin.
+"""AirComp superposition over the (K, D) payload plane: two CUDA kernels on
+one body (``csrc/aircomp_sum.cu``), each with its plain twin and its launch
+counter.
 
-Replaces the TPU kernel
+Sweep 2 of the fused round, ``superpose_normalize``, replaces the TPU kernel
 ``repro/kernels/aircomp_sum.py::superpose_normalize_pallas`` (Pallas body
 ``_superpose_kernel``). With bp = powers * mask, eqs. (6)+(8) in one pass
 over the (K, D) payload plane:
@@ -18,6 +19,20 @@ is identical from run to run, as the scanned reference round's is.
 ``superpose_normalize_cuda`` launches the kernel and counts its launches in
 the module-level ``launches``; ``superpose_normalize_plain`` is the
 plain-torch twin the CPU path runs and the card holds the kernel against.
+
+``aircomp_sum`` replaces the TPU kernel
+``repro/kernels/aircomp_sum.py::aircomp_sum_pallas`` (Pallas body
+``_kernel``), the host-path server's ``use_kernel=True`` route. With bp
+given (already masked):
+
+    agg = (sum_k bp_k x_k + noise) / max(sum_k bp_k, 1e-12)
+
+Same bound (bytes: 4 (K D + K + 2 D) in f32) and the same design as sweep
+2; the clamped varsigma is computed inside the kernel and only the f32
+aggregate comes back. The Pallas wrapper pads D to 512 with a copy; this
+kernel masks the ragged edge and copies nothing. ``aircomp_sum_cuda``
+counts its launches in ``aircomp_sum_launches``; ``aircomp_sum_plain`` is
+its twin.
 """
 from __future__ import annotations
 
@@ -27,7 +42,8 @@ import torch
 
 from repro_torch.kernels import build
 
-launches = 0
+launches = 0                # superpose_normalize_cuda launches
+aircomp_sum_launches = 0    # aircomp_sum_cuda launches
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -101,3 +117,43 @@ def superpose_normalize_cuda(stacked, powers, mask, noise,
                            f"error {rc}")
     launches += 1
     return agg, raw
+
+
+def aircomp_sum_plain(stacked, bp, noise):
+    """Plain-torch twin: the (D,) f32 aggregate."""
+    check_inputs(stacked, bp, bp, noise)        # bp in the powers' place
+    acc = bp @ stacked.float()
+    return (acc + noise) / torch.clamp_min(bp.sum(), 1e-12)
+
+
+def _aircomp_lib():
+    fn = build.library("aircomp_sum").repro_aircomp_sum
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def aircomp_sum_cuda(stacked, bp, noise):
+    """Launch the aircomp_sum kernel: the (D,) f32 aggregate. Raises on a
+    tensor off the GPU or a failed launch; never falls back."""
+    global aircomp_sum_launches
+    check_inputs(stacked, bp, bp, noise)        # bp in the powers' place
+    if stacked.device.type != "cuda":
+        raise ValueError(f"aircomp_sum_cuda needs CUDA tensors, got "
+                         f"{stacked.device}")
+    k, d = stacked.shape
+    if (d + 31) // 32 > 2**31 - 1:
+        raise ValueError(f"D={d} exceeds the kernel's grid")
+    fn = _aircomp_lib()
+    agg = torch.empty((d,), dtype=torch.float32, device=stacked.device)
+    with torch.cuda.device(stacked.device):
+        stream = torch.cuda.current_stream(stacked.device).cuda_stream
+        rc = fn(stacked.data_ptr(), bp.data_ptr(), noise.data_ptr(),
+                agg.data_ptr(), k, d, int(stacked.dtype == torch.bfloat16),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"aircomp_sum kernel launch failed: CUDA error "
+                           f"{rc}")
+    aircomp_sum_launches += 1
+    return agg

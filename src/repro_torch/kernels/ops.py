@@ -6,7 +6,12 @@ no fallback from a failed launch to the twin.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import aircomp_sum, round_stats as _rs
+import torch
+
+from repro_torch.device import f32
+from repro_torch.kernels import aircomp_sum as _ac
+from repro_torch.kernels import cosine_sim as _cs
+from repro_torch.kernels import round_stats as _rs
 
 
 def _route(device, what: str) -> bool:
@@ -32,7 +37,28 @@ def round_stats(deltas, g, payload=None):
 def superpose_normalize(stacked, powers, mask, noise, vs_min: float = 1e-12):
     """Fused eqs. (6)+(8) for the raveled (K, D) payload:
     ``(agg (D,) f32, raw varsigma f32 scalar)``."""
-    fn = (aircomp_sum.superpose_normalize_cuda
+    fn = (_ac.superpose_normalize_cuda
           if _route(stacked.device, "superpose_normalize")
-          else aircomp_sum.superpose_normalize_plain)
+          else _ac.superpose_normalize_plain)
     return fn(stacked, powers, mask, noise, vs_min=vs_min)
+
+
+def aircomp_sum(stacked, bp, noise):
+    """(sum_k bp_k x_k + noise) / max(sum_k bp_k, 1e-12) over the raveled
+    (K, D) payload with bp already masked: the (D,) f32 aggregate."""
+    fn = (_ac.aircomp_sum_cuda if _route(stacked.device, "aircomp_sum")
+          else _ac.aircomp_sum_plain)
+    return fn(stacked, bp, noise)
+
+
+def cosine_sim(deltas, g, eps: float = 1e-12):
+    """Per-client cos(dw_k, g) of a (K, D) plane, finished as the
+    reference's kernel route finishes it (``repro.kernels.ops.cosine_sim``:
+    both norms clamped at eps, and the product of the norms too)."""
+    fn = (_cs.cosine_partials_cuda if _route(deltas.device, "cosine_sim")
+          else _cs.cosine_partials_plain)
+    parts = fn(deltas, g)
+    eps = f32(eps)
+    gn = torch.sqrt(torch.clamp_min((g * g).sum(), eps))
+    return parts[:, 0] / torch.clamp_min(
+        torch.sqrt(torch.clamp_min(parts[:, 1], eps)) * gn, eps)

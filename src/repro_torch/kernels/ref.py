@@ -31,3 +31,17 @@ def superpose_normalize_ref(stacked, powers, mask, noise,
     acc = bp @ stacked.double()
     agg = (acc + noise.double()) / torch.clamp_min(raw, vs_min)
     return agg.float(), raw.float()
+
+
+def aircomp_sum_ref(stacked, bp, noise):
+    """(sum_k bp_k x_k + noise) / max(sum bp, 1e-12) as f32."""
+    bp64 = bp.double()
+    acc = bp64 @ stacked.double()
+    return ((acc + noise.double())
+            / torch.clamp_min(bp64.sum(), 1e-12)).float()
+
+
+def cosine_partials_ref(deltas, g):
+    """(K, 2) [dot_k, ||delta_k||^2] as f32."""
+    d64 = deltas.double()
+    return torch.stack([d64 @ g.double(), (d64 * d64).sum(1)], 1).float()

@@ -71,18 +71,63 @@ def test_superpose_kernel_matches_twin(cuda, k, d, dtype, mask_kind):
         assert float(raw) == 0.0
 
 
+@pytest.mark.parametrize("k,d", [(1, 1), (4, 64), (37, 1111), (100, 8070),
+                                 (1000, 8070)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_kind", ["zero", "partial", "full"])
+def test_aircomp_sum_kernel_matches_twin(cuda, k, d, dtype, mask_kind):
+    from repro_torch.kernels import aircomp_sum as ac
+    gen = torch.Generator(device=cuda).manual_seed(3 * k + d)
+    x = torch.randn((k, d), generator=gen, device=cuda).to(dtype)
+    m = {"zero": torch.zeros((k,), device=cuda),
+         "full": torch.ones((k,), device=cuda),
+         "partial": (torch.rand((k,), generator=gen, device=cuda)
+                     < 0.5).float()}[mask_kind]
+    bp = (0.1 + 15.0 * torch.rand((k,), generator=gen, device=cuda)) * m
+    n = 1e-3 * torch.randn((d,), generator=gen, device=cuda)
+    before = ac.aircomp_sum_launches
+    got = ac.aircomp_sum_cuda(x, bp, n)
+    torch.cuda.synchronize()
+    assert ac.aircomp_sum_launches == before + 1
+    assert got.dtype == torch.float32
+    want = ac.aircomp_sum_plain(x, bp, n)
+    tol = (_tol(dtype) if dtype == torch.bfloat16
+           else dict(rtol=3e-5, atol=3e-5))
+    if mask_kind == "zero":            # noise / 1e-12
+        tol = dict(rtol=3e-5, atol=0.0)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("k,d", [(1, 1), (3, 511), (100, 8070),
+                                 (1000, 8070)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cosine_partials_kernel_matches_twin(cuda, k, d, dtype):
+    from repro_torch.kernels import cosine_sim as cs
+    gen = torch.Generator(device=cuda).manual_seed(5 * k + d)
+    x = torch.randn((k, d), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((d,), generator=gen, device=cuda)
+    before = cs.launches
+    got = cs.cosine_partials_cuda(x, g)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1
+    torch.testing.assert_close(got, cs.cosine_partials_plain(x, g),
+                               **_tol(dtype))
+
+
 def test_kernels_are_deterministic(cuda):
     from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import cosine_sim as cs
     from repro_torch.kernels import round_stats as rs
     x = torch.randn((1000, 8070), device=cuda)
     g = torch.randn((8070,), device=cuda)
     p, m = torch.rand((1000,), device=cuda), torch.ones((1000,), device=cuda)
     a = [rs.round_stats_cuda(x, g, x)[0] for _ in range(3)]
     b = [ac.superpose_normalize_cuda(x, p, m, g)[0] for _ in range(3)]
-    for r in a[1:]:
-        assert torch.equal(r, a[0])
-    for r in b[1:]:
-        assert torch.equal(r, b[0])
+    c = [ac.aircomp_sum_cuda(x, p, g) for _ in range(3)]
+    e = [cs.cosine_partials_cuda(x, g) for _ in range(3)]
+    for runs in (a, b, c, e):
+        for r in runs[1:]:
+            assert torch.equal(r, runs[0])
 
 
 def _server(transmit="model"):
@@ -126,3 +171,36 @@ def test_rounds_make_no_host_sync(cuda):
             scan_rounds(drv._carry, 3, rcfg=drv._rcfg, streams=drv._streams)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_host_server_launches_once_per_round_with_uploaders(cuda,
+                                                            use_kernel):
+    """The host-path PAOTAServer: round_stats launches once per round with
+    uploaders, and the aggregation kernel (aircomp_sum with use_kernel,
+    superpose_normalize without) once per such round; a zero-uploader round
+    launches nothing."""
+    from repro_torch.core import ChannelConfig, SchedulerConfig
+    from repro_torch.data.partition import partition_noniid
+    from repro_torch.data.pipeline import build_federation
+    from repro_torch.data.synthetic import make_mnist_like
+    from repro_torch.fl import FLClient, PAOTAConfig, PAOTAServer
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.models.mlp import init_mlp_params, mlp_loss
+    x, y, _, _ = make_mnist_like(n_train=2000, n_test=10)
+    parts = partition_noniid(y, n_clients=8, seed=0)
+    clients = [FLClient(d, mlp_loss, 32, 0.1, 5)
+               for d in build_federation(x, y, parts)]
+    srv = PAOTAServer(init_mlp_params(0), clients, ChannelConfig(),
+                      SchedulerConfig(n_clients=8, seed=1, lat_lo=20.0,
+                                      lat_hi=30.0),
+                      PAOTAConfig(use_kernel=use_kernel))
+    rs.launches = ac.launches = ac.aircomp_sum_launches = 0
+    rows = [srv.round() for _ in range(8)]
+    busy = sum(r["n_participants"] > 0 for r in rows)
+    assert 0 < busy < 8
+    agg = (ac.aircomp_sum_launches, ac.launches)
+    assert rs.launches == busy
+    assert agg == ((busy, 0) if use_kernel else (0, busy))
+    assert np.isfinite(srv.global_vec).all()

@@ -130,3 +130,60 @@ def test_counter_batch_plan_bounds_and_keying():
     torch.testing.assert_close(tpipe.counter_batch_plan(4, 2, n, 5, 32), a,
                                rtol=0, atol=0)
     assert not torch.equal(tpipe.counter_batch_plan(4, 3, n, 5, 32), a)
+
+
+def test_epoch_cursor_plans_are_the_reference_bit_for_bit(data):
+    """ClientData's epoch cursors and the engine's host-mode broadcast
+    plans (zero rows for clients outside the broadcast, cursors resumed
+    across broadcasts and epochs) equal the reference's."""
+    x, y = data[0], data[1]
+    parts = jpart.partition_noniid(y, n_clients=K, seed=0)
+    je = JEngine.from_clients([JClient(d, jmlp.mlp_loss, 32, 0.1, 5)
+                               for d in jpipe.build_federation(x, y, parts,
+                                                               seed=4)])
+    te = TEngine.from_clients([TClient(d, tmlp.mlp_loss, 32, 0.1, 5)
+                               for d in tpipe.build_federation(x, y, parts,
+                                                               seed=4)],
+                              device="cpu")
+    rng = np.random.default_rng(1)
+    for _ in range(12):
+        ids = np.flatnonzero(rng.random(K) < 0.6)
+        want = np.asarray(je._broadcast_plans(ids, None))
+        got = te._broadcast_plans(ids, None)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert [c._epoch for c in te.fed] == [c._epoch for c in je.fed]
+    assert any(c._epoch > 0 for c in te.fed)
+    for cj, ct in zip(je.fed, te.fed):
+        for bj, bt in zip(cj.batches(16, 7), ct.batches(16, 7)):
+            np.testing.assert_array_equal(bt["x"], bj["x"])
+            np.testing.assert_array_equal(bt["y"], bj["y"])
+
+
+def test_host_plans_need_full_batches():
+    x = np.zeros((40, 784), np.float32)
+    y = np.zeros(40, np.int32)
+    te = TEngine(tpipe.build_federation(x, y, [np.arange(10),
+                                                np.arange(10, 40)]),
+                 tmlp.mlp_loss, batch_size=16, device="cpu")
+    with pytest.raises(ValueError, match="n_k >= batch_size"):
+        te.local_train_full(tmlp.init_mlp_params(0), [0, 1])
+
+
+def test_get_dataset_falls_back_to_synthetic(tmp_path, monkeypatch):
+    """No mnist.npz in the working directory: get_dataset is
+    make_mnist_like, bit for bit, as the reference's is; a local npz is
+    read instead when present."""
+    monkeypatch.chdir(tmp_path)
+    assert tsyn.load_mnist_npz() is None
+    for want, got in zip(jsyn.get_dataset(n_train=300, n_test=50),
+                         tsyn.get_dataset(n_train=300, n_test=50)):
+        np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(0)
+    np.savez(tmp_path / "mnist.npz",
+             x_train=rng.integers(0, 256, (6, 28, 28), dtype=np.uint8),
+             y_train=np.arange(6), x_test=np.zeros((2, 28, 28), np.uint8),
+             y_test=np.arange(2))
+    for want, got in zip(jsyn.get_dataset(), tsyn.get_dataset()):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)

@@ -191,13 +191,16 @@ def test_reference_host_and_fused_drift_alike_in_delta_mode(data):
                                atol=TOL["delta"]["atol"])
 
 
-def test_cli_runs_on_cpu(capsys):
+def test_cli_runs_on_cpu(capsys, tmp_path):
+    """The paper driver with PAOTA on the fused round (--engine fused) and
+    the baselines on the batched engine, at K = 4 for 3 rounds."""
     from repro_torch.launch import fl_train
     fl_train.main(["--rounds", "3", "--clients", "4", "--device", "cpu",
-                   "--transmit", "delta"])
+                   "--transmit", "delta", "--engine", "fused",
+                   "--out", str(tmp_path / "fl.csv")])
     out = capsys.readouterr().out
-    assert "K=4, d=8070, transmit=delta" in out
-    assert "final acc" in out
-    assert [ln.split()[:2] for ln in out.splitlines()
-            if ln.split() and ln.split()[0] in ("0", "1", "2")] == [
-        ["0", "8.0"], ["1", "16.0"], ["2", "24.0"]]
+    assert "K=4, rounds=3, engine=fused, transmit=delta" in out
+    assert "=== paota === final acc" in out
+    assert [ln.split()[:3] for ln in out.splitlines()
+            if ln.split() and ln.split()[0] == "paota"] == [
+        ["paota", "0", "8.00"], ["paota", "2", "24.00"]]

@@ -52,7 +52,10 @@ def test_importing_the_port_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "fl.fused" in " ".join(names) and "kernels.ops" in " ".join(names)
+    for mod in ("fl.fused", "fl.server", "fl.baselines", "fl.metrics",
+                "core.dinkelbach", "core.milp", "kernels.ops",
+                "kernels.cosine_sim", "launch.fl_train"):
+        assert f"repro_torch.{mod}" in names
 
 
 def _tiny_federation():

@@ -1,6 +1,7 @@
 """Port kernels, CPU side: the plain-torch twins of the two delta-plane
-sweeps held against the reference's Pallas kernels (interpret mode) and
-the float64 oracles, plus the wrappers' input checks. The CUDA kernels
+sweeps, of aircomp_sum and of the cosine partials held against the
+reference's Pallas kernels (interpret mode) and the float64 oracles, plus
+the wrappers' input checks. The CUDA kernels
 themselves are held against the same twins on the card (chip_smoke.py,
 tests/test_torch_cuda.py)."""
 import pytest
@@ -10,9 +11,14 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.kernels.aircomp_sum import superpose_normalize_pallas  # noqa: E402
+from repro.core import power_control as jpc  # noqa: E402
+from repro.kernels.aircomp_sum import (aircomp_sum_pallas,  # noqa: E402
+                                       superpose_normalize_pallas)
+from repro.kernels.cosine_sim import cosine_partials_pallas  # noqa: E402
 from repro.kernels.round_stats import round_stats_pallas  # noqa: E402
+from repro_torch.core import power_control as tpc  # noqa: E402
 from repro_torch.kernels import aircomp_sum, ops, ref  # noqa: E402
+from repro_torch.kernels import cosine_sim as cs  # noqa: E402
 from repro_torch.kernels import round_stats as rs  # noqa: E402
 
 RNG = np.random.default_rng(11)
@@ -95,6 +101,80 @@ def test_superpose_twin_matches_pallas_and_oracle(k, d, dtype, mask_kind):
         np.testing.assert_array_equal(got.numpy(), (nt / 1e-12).numpy())
 
 
+# tests/test_kernels.py:20's aircomp_sum shapes
+AIRCOMP_SHAPES = [(4, 64), (37, 1111), (100, 8070), (1, 513)]
+
+
+@pytest.mark.parametrize("k,d", AIRCOMP_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask_kind", ["zero", "one", "partial", "full"])
+def test_aircomp_sum_twin_matches_pallas_and_oracle(k, d, dtype, mask_kind):
+    """bp = powers * mask arrives already masked; masked rows add nothing."""
+    xj, xt = _pair(RNG.normal(size=(k, d)), dtype)
+    bp = RNG.random(k) * _mask(mask_kind, k)
+    bj, bt = _pair(bp, "float32")
+    nj, nt = _pair(RNG.normal(size=d), "float32")
+    want = aircomp_sum_pallas(xj, bj, nj, interpret=True)
+    got = aircomp_sum.aircomp_sum_plain(xt, bt, nt)
+    oracle = ref.aircomp_sum_ref(xt, bt, nt)
+    assert got.shape == (d,) and got.dtype == torch.float32
+    tol = _tol(dtype) if dtype == "bfloat16" else dict(rtol=3e-5, atol=3e-5)
+    if mask_kind == "zero":     # noise / 1e-12: compare relatively
+        tol = dict(rtol=3e-5, atol=0.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), **tol)
+
+
+def test_aircomp_sum_twin_keeps_bf16_payload_f32_aggregate():
+    """tests/test_kernels.py:32's regression: a bf16 payload comes back as
+    an f32 aggregate with the f32 noise joining the f32 sum un-rounded."""
+    x32 = RNG.normal(size=(24, 1111)).astype(np.float32)
+    xj, xt = _pair(x32, "bfloat16")
+    bj, bt = _pair(RNG.random(24), "float32")
+    nj, nt = _pair(RNG.normal(size=1111), "float32")
+    got = aircomp_sum.aircomp_sum_plain(xt, bt, nt)
+    assert got.dtype == torch.float32
+    want = np.asarray(aircomp_sum_pallas(xj, bj, nj, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    oracle = ref.aircomp_sum_ref(xt.float(), bt, nt)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("k,d", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cosine_partials_twin_matches_pallas_and_oracle(k, d, dtype):
+    dj, dt = _pair(0.1 * RNG.normal(size=(k, d)), dtype)
+    gj, gt = _pair(RNG.normal(size=d), "float32")
+    want = cosine_partials_pallas(dj, gj, interpret=True)
+    got = cs.cosine_partials_plain(dt, gt)
+    oracle = ref.cosine_partials_ref(dt, gt)
+    assert got.shape == (k, 2) and got.dtype == torch.float32
+    tol = (_tol(dtype) if dtype == "bfloat16"
+           else dict(rtol=3e-5, atol=3e-4))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), **tol)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_cosine_similarity_matches_reference(use_kernel):
+    """Both routes of cosine_similarity, each against the reference's
+    same route (their finishing clamps differ), including a zero row and
+    a zero direction."""
+    k, d = 12, 8070
+    x = (0.01 * RNG.normal(size=(k, d))).astype(np.float32)
+    x[3] = 0.0
+    for g in (RNG.normal(size=d).astype(np.float32),
+              np.zeros(d, np.float32)):
+        want = np.asarray(jpc.cosine_similarity(jnp.asarray(x),
+                                                jnp.asarray(g),
+                                                use_kernel=use_kernel))
+        got = tpc.cosine_similarity(torch.from_numpy(x), torch.from_numpy(g),
+                                    use_kernel=use_kernel)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-6)
+
+
 def test_ops_dispatch_cpu_runs_the_twins():
     d = torch.from_numpy(RNG.normal(size=(4, 33)).astype(np.float32))
     g = torch.from_numpy(RNG.normal(size=33).astype(np.float32))
@@ -108,6 +188,14 @@ def test_ops_dispatch_cpu_runs_the_twins():
     want, want_raw = aircomp_sum.superpose_normalize_plain(d, p, p, g)
     torch.testing.assert_close(agg, want, rtol=0, atol=0)
     assert float(raw) == float(want_raw) == 4.0
+    torch.testing.assert_close(ops.aircomp_sum(d, p, g),
+                               aircomp_sum.aircomp_sum_plain(d, p, g),
+                               rtol=0, atol=0)
+    parts = cs.cosine_partials_plain(d, g)
+    gn = torch.sqrt((g * g).sum())
+    torch.testing.assert_close(
+        ops.cosine_sim(d, g), parts[:, 0] / (torch.sqrt(parts[:, 1]) * gn),
+        rtol=0, atol=0)
 
 
 def _good():
@@ -158,17 +246,50 @@ def test_superpose_wrappers_raise_on_bad_inputs(case):
                aircomp_sum.superpose_normalize_cuda):
         with pytest.raises((TypeError, ValueError)):
             fn(x, p, m, n)
+    if case != "mask_shape":        # aircomp_sum takes no mask
+        for fn in (ops.aircomp_sum, aircomp_sum.aircomp_sum_plain,
+                   aircomp_sum.aircomp_sum_cuda):
+            with pytest.raises((TypeError, ValueError)):
+                fn(x, p, n)
+
+
+@pytest.mark.parametrize("case", ["dtype", "g_dtype", "shape", "g_shape",
+                                  "contiguous"])
+def test_cosine_wrappers_raise_on_bad_inputs(case):
+    d, g, *_ = _good()
+    if case == "dtype":
+        d = d.double()
+    elif case == "g_dtype":
+        g = g.to(torch.bfloat16)
+    elif case == "shape":
+        d = d.reshape(15)
+    elif case == "g_shape":
+        g = torch.zeros(4)
+    elif case == "contiguous":
+        d = torch.zeros((5, 3)).t()
+    for fn in (ops.cosine_sim, cs.cosine_partials_plain,
+               cs.cosine_partials_cuda):
+        with pytest.raises((TypeError, ValueError)):
+            fn(d, g)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_without_launching():
     """The CUDA wrappers never run a CPU tensor (no build, no count)."""
     x, g, p, m, n = _good()
-    before = (rs.launches, aircomp_sum.launches)
+
+    def counts():
+        return (rs.launches, aircomp_sum.launches,
+                aircomp_sum.aircomp_sum_launches, cs.launches)
+    before = counts()
     with pytest.raises(ValueError, match="CUDA"):
         rs.round_stats_cuda(x, g)
     with pytest.raises(ValueError, match="CUDA"):
         aircomp_sum.superpose_normalize_cuda(x, p, m, n)
-    assert (rs.launches, aircomp_sum.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        aircomp_sum.aircomp_sum_cuda(x, p, n)
+    with pytest.raises(ValueError, match="CUDA"):
+        cs.cosine_partials_cuda(x, g)
+    assert counts() == before
 
 
 def test_ops_refuse_other_devices():
@@ -179,3 +300,7 @@ def test_ops_refuse_other_devices():
     p = torch.ones(3, device="meta")
     with pytest.raises(ValueError, match="device"):
         ops.superpose_normalize(x, p, p, g)
+    with pytest.raises(ValueError, match="device"):
+        ops.aircomp_sum(x, p, g)
+    with pytest.raises(ValueError, match="device"):
+        ops.cosine_sim(x, g)

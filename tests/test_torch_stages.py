@@ -1,6 +1,7 @@
 """Port stages of one PAOTA period held against their JAX counterparts on
-the same inputs: scheduler transition, eq.-25 factors, water-filling P2,
-channel and power cap (7), the guarded update."""
+the same inputs: scheduler transition and the host scheduler, eq.-25
+factors, water-filling P2 and the host P2 solvers, channel and power cap
+(7), the guarded update."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -12,12 +13,14 @@ import numpy as np  # noqa: E402
 from repro.core import aggregation as jagg  # noqa: E402
 from repro.core import aircomp as jair  # noqa: E402
 from repro.core import boxqp as jbox  # noqa: E402
+from repro.core import dinkelbach as jdink  # noqa: E402
 from repro.core import power_control as jpc  # noqa: E402
 from repro.core import scheduler as jsched  # noqa: E402
 from repro.fl import runtime as jrt  # noqa: E402
 from repro_torch.core import aggregation as tagg  # noqa: E402
 from repro_torch.core import aircomp as tair  # noqa: E402
 from repro_torch.core import boxqp as tbox  # noqa: E402
+from repro_torch.core import dinkelbach as tdink  # noqa: E402
 from repro_torch.core import power_control as tpc  # noqa: E402
 from repro_torch.core import scheduler as tsched  # noqa: E402
 from repro_torch.fl import runtime as trt  # noqa: E402
@@ -97,6 +100,28 @@ def test_waterfill_matches_reference(k, seed):
         pj = _np(jpc.power_from_beta(jnp.asarray(bj), rho, theta, pm)) * b
         pt = _np(jpc.power_from_beta(jnp.asarray(bt), rho, theta, pm)) * b
         np.testing.assert_allclose(pt, pj, rtol=1e-3)
+
+
+def test_waterfill_bit_equal_to_reference_jit():
+    """The port rounds each multiply-add that XLA:CPU compiles into an FMA
+    once, and sums over K in the reference's order (K <= 24): on 40 random
+    P2 instances at K = 8, beta and the objective come out bit-equal to
+    jax.jit(waterfill_beta_jnp) (14 of 40 were before; ROADMAP Queue 3).
+    Every interior t_k equals tau, so beta bit-equal means tau bit-equal."""
+    rng = np.random.default_rng(8)
+    k = 8
+    c1, c0 = jpc.p2_constants(10.0, 0.05, k, 8070,
+                              jair.ChannelConfig().sigma_n2)
+    same_beta = same_obj = 0
+    for _ in range(40):
+        rho, theta, pm, b = _p2_inputs(rng, k)
+        b[0] = 1.0
+        bj, oj, bt, ot = _both_waterfills(rho, theta, pm, b, c1, c0)
+        same_beta += int(np.array_equal(bt, bj))
+        same_obj += int(ot == oj)
+    print(f"\nwater-filling bit-equal at K={k}: beta {same_beta}/40, "
+          f"objective {same_obj}/40")
+    assert (same_beta, same_obj) == (40, 40)
 
 
 def test_waterfill_sharded_test_case():
@@ -220,6 +245,35 @@ def test_channel_matches_reference():
     assert float(h.mean()) == pytest.approx(np.sqrt(np.pi / 2), rel=0.1)
 
 
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_aircomp_aggregate_matches_reference(use_kernel):
+    """aircomp_aggregate on both routes, with the reference's own AWGN
+    realization handed in, and the eq.-8 weights and noise variance."""
+    rng = np.random.default_rng(2)
+    k, d = 12, 8070
+    x = rng.normal(size=(k, d)).astype(np.float32)
+    p = rng.uniform(0.1, 15.0, k).astype(np.float32)
+    m = (rng.random(k) < 0.6).astype(np.float32)
+    chan = jair.ChannelConfig()
+    key = jax.random.PRNGKey(9)
+    aj, vj = jair.aircomp_aggregate(jnp.asarray(x), jnp.asarray(p),
+                                    jnp.asarray(m), key, chan.sigma_n,
+                                    use_kernel=use_kernel)
+    noise = chan.sigma_n * jax.random.normal(key, (d,), jnp.float32)
+    at, vt = tair.aircomp_aggregate(T(x), T(p), T(m), T(_np(noise)),
+                                    use_kernel=use_kernel)
+    np.testing.assert_allclose(at.numpy(), _np(aj), rtol=3e-5, atol=3e-5)
+    assert float(vt) == pytest.approx(float(vj), rel=1e-6)
+    np.testing.assert_allclose(
+        tair.aggregation_weights(T(p), T(m)).numpy(),
+        _np(jair.aggregation_weights(jnp.asarray(p), jnp.asarray(m))),
+        rtol=1e-6)
+    assert float(tair.equivalent_noise_var(
+        chan.sigma_n2, T(p), T(m), d)) == pytest.approx(float(
+            jair.equivalent_noise_var(chan.sigma_n2, jnp.asarray(p),
+                                      jnp.asarray(m), d)), rel=1e-5)
+
+
 @pytest.mark.parametrize("delta", [False, True])
 def test_guarded_update_matches_and_holds(delta):
     rng = np.random.default_rng(1)
@@ -260,3 +314,78 @@ def test_counter_draws_are_keyed_not_sequential():
     assert float(a.min()) >= 5.0 and float(a.max()) <= 15.0
     assert (tsched.round_tag_seed(1, 5, tsched.TAG_LATENCY)
             != tsched.round_tag_seed(1, 5, tsched.TAG_CHANNEL))
+
+
+def _p2_pair(rng, k, p_active=0.7):
+    rho, theta, pm, b = _p2_inputs(rng, k, p_active)
+    b[0] = 1.0
+    kw = dict(smooth_l=10.0, eps_bound=0.05, model_dim=8070,
+              sigma_n2=jair.ChannelConfig().sigma_n2)
+    args = (rho.astype(float), theta.astype(float), pm.astype(float),
+            b.astype(float))
+    return jpc.build_p2(*args, **kw), tpc.build_p2(*args, **kw)
+
+
+@pytest.mark.parametrize("solver,k", [("waterfill", 12), ("prefix", 12),
+                                      ("pgd", 8), ("milp", 4),
+                                      ("exhaustive", 4)])
+def test_host_p2_solvers_match_reference(solver, k):
+    """The numpy solvers are copies: beta and the objective to rtol 1e-9 on
+    the same P2Problem (the prefix evaluator forced at small K)."""
+    rng = np.random.default_rng(k)
+    for _ in range(3):
+        pj, pt = _p2_pair(rng, k)
+        if solver == "prefix":
+            rj = jbox.solve_waterfill(pj, method="prefix")
+            rt = tbox.solve_waterfill(pt, method="prefix")
+        else:
+            rj, rt = jdink.solve_p2(pj, solver), tdink.solve_p2(pt, solver)
+        np.testing.assert_allclose(rt.beta, rj.beta, rtol=1e-9, atol=1e-12)
+        assert rt.objective == pytest.approx(rj.objective, rel=1e-9)
+        assert (rt.iterations, rt.inner) == (rj.iterations, rj.inner)
+    (gj, qj), (gt, qt) = pj.quadratics(), pt.quadratics()
+    for a, b_ in zip(gj + qj, gt + qt):
+        np.testing.assert_allclose(b_, a, rtol=1e-12)
+
+
+def test_waterfill_jnp_solver_name_runs_the_f32_solver():
+    rng = np.random.default_rng(6)
+    pj, pt = _p2_pair(rng, 8)
+    rj = jdink.solve_p2(pj, "waterfill_jnp")
+    rt = tdink.solve_p2(pt, "waterfill_jnp")
+    np.testing.assert_array_equal(rt.beta, rj.beta)
+    assert rt.objective == rj.objective and rt.inner == "waterfill_jnp"
+    with pytest.raises(ValueError, match="solver"):
+        tdink.solve_p2(pt, "cplex")
+
+
+@pytest.mark.parametrize("rng_mode", ["host", "counter"])
+def test_host_scheduler_bit_equal_over_50_rounds(rng_mode):
+    """SemiAsyncScheduler in both rng modes: uploaders, staleness, latency
+    draws (f64 PCG64 / f32 counter), model rounds and the straggler clock
+    bit-equal to the reference's, with partial re-broadcasts. Counter mode
+    hands the reference's keyed latencies to the port."""
+    k = 24
+    cfg = dict(n_clients=k, delta_t=8.0, seed=5, rng=rng_mode)
+    ref = jsched.SemiAsyncScheduler(jsched.SchedulerConfig(**cfg))
+    lat_key = jax.random.PRNGKey(5)
+    port = tsched.SemiAsyncScheduler(
+        tsched.SchedulerConfig(**cfg),
+        latencies=lambda r: _np(jsched.counter_latencies(lat_key, r, k, 5.0,
+                                                         15.0)))
+    pick = np.random.default_rng(0)
+    ids = np.arange(k)
+    for _ in range(50):
+        ref.start_round(ids)
+        port.start_round(ids)
+        uj, sj = ref.advance_to_aggregation()
+        ut, st = port.advance_to_aggregation()
+        np.testing.assert_array_equal(ut, uj)
+        np.testing.assert_array_equal(st, sj)
+        for name in ("busy_lat", "model_round", "ready"):
+            got, want = getattr(port, name), getattr(ref, name)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+        assert (port.round, port.time) == (ref.round, ref.time)
+        ids = uj[pick.random(len(uj)) < 0.7]
+    assert port.sync_round_time(7) == ref.sync_round_time(7)
