@@ -15,7 +15,13 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   fused round on the same counter draws;
 - ``cosine_similarity(use_kernel=True)`` on that run's delta plane (the
   ``cosine_partials`` kernel);
-- the Local SGD and COTAF baselines (30 rounds each).
+- the Local SGD and COTAF baselines (30 rounds each);
+- the active cohort (``FusedPAOTA(cohort_size=64)`` at K = 1000): the
+  uncompressed cohort and compressed payloads (randmask, top-k, int8
+  slots), the ``gather_superpose`` kernel's path, and once more under the
+  availability-cycle + dropout + lognormal + het-steps scenario;
+- the reference's million-client state plane (K = 10^6, m = 256,
+  d = 16384) on the port's runtime with fabricated local updates.
 
 It times the kernels and prints one JSON record per phase. Its last three
 lines are the ``kernels`` record, the card's name and power limit, and
@@ -51,6 +57,12 @@ HOST_ROUNDS = 30
 PARITY_ROUNDS = 5
 BASELINE_ROUNDS = 30
 TIMING_RUNS = 60
+COHORT_K, COHORT_M = 1000, 64
+COHORT_WARM, COHORT_ROUNDS, SCENARIO_ROUNDS = 10, 50, 30
+PLANE_K, PLANE_M, PLANE_D, PLANE_ROUNDS = 10**6, 256, 16384, 10
+# the gather_superpose shapes (m, s, d): the cohort path's randmask 1/16 of
+# the MLP, and the state plane's
+GS_SHAPES = ((64, 504, 8070), (256, 1024, 16384))
 
 
 def log(record: dict) -> None:
@@ -160,10 +172,69 @@ def parity(dev):
             if (k, d, dtype) == (100, 8070, torch.float32):
                 main_err["cosine_partials"] = err
             cases += 1
+    gs_cases, gs_worst = gather_superpose_parity(dev, main_err)
+    cases += gs_cases
+    worst["gather_superpose"] = gs_worst
     log({"phase": "parity", "cases": cases, "all_close": True,
          "max_abs_err_at_main_shape": main_err,
          "max_abs_err_any_case": worst})
     return main_err
+
+
+def gs_inputs(dev, m, s, d, dtype, with_scale, seed):
+    """gather_superpose inputs on the card: distinct support indices in
+    each row (a randmask support per row), every third row dead (bp = 0)
+    holding garbage values, the int8 values the full code range."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.argsort(torch.rand((m, d), generator=gen, device=dev),
+                        dim=1)[:, :s].to(torch.int32).contiguous()
+    if dtype == torch.int8:
+        v = torch.randint(-127, 128, (m, s), generator=gen, device=dev,
+                          dtype=torch.int8)
+    else:
+        v = (1e-2 * torch.randn((m, s), generator=gen, device=dev)).to(dtype)
+    scale = (1e-4 + 1e-3 * torch.rand((m,), generator=gen, device=dev)
+             if with_scale else None)
+    bp = 0.1 + 15.0 * torch.rand((m,), generator=gen, device=dev)
+    bp[1::3] = 0.0
+    noise = 2.8e-7 * torch.randn((d,), generator=gen, device=dev)
+    return v, idx, bp, noise, scale
+
+
+def gather_superpose_parity(dev, main_err):
+    """gather_superpose against its twin at both shapes: f32, bf16 and
+    int8 values, each with and without the scale, dead rows included, the
+    raw varsigma too, and two calls bit-identical (no atomics)."""
+    from repro_torch.kernels import gather_superpose as gs
+    cases, worst = 0, 0.0
+    for m, s, d in GS_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for with_scale in (False, True):
+                v, idx, bp, noise, scale = gs_inputs(
+                    dev, m, s, d, dtype, with_scale, m * s + d + cases)
+                got, raw = gs.gather_superpose_cuda(v, idx, bp, noise, d=d,
+                                                    scale=scale)
+                again, _ = gs.gather_superpose_cuda(v, idx, bp, noise, d=d,
+                                                    scale=scale)
+                want, want_raw = gs.gather_superpose_plain(
+                    v, idx, bp, noise, d=d, scale=scale)
+                torch.cuda.synchronize()
+                # int8 values are exact, so f32's tolerance after the scale
+                tol = (_tol(dtype) if dtype == torch.bfloat16
+                       else dict(rtol=3e-5, atol=3e-5))
+                torch.testing.assert_close(got, want, **tol)
+                torch.testing.assert_close(raw, want_raw, rtol=3e-5,
+                                           atol=0.0)
+                if not torch.equal(got, again):
+                    raise AssertionError("gather_superpose: two calls on "
+                                         "the same inputs differ")
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                if (m, s, d, dtype, with_scale) == (64, 504, 8070,
+                                                    torch.float32, False):
+                    main_err["gather_superpose"] = err
+                cases += 1
+    return cases, worst
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +463,183 @@ def baselines(dev, data):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: kernel times
+# phases 9-11: the active cohort, its scenario run, the state plane
+# ---------------------------------------------------------------------------
+
+COHORT_VARIANTS = (
+    ("uncompressed", {}),
+    ("randmask_f32_ef", dict(compress="randmask", compress_ratio=1 / 16)),
+    ("topk_f32_ef", dict(compress="topk", compress_ratio=1 / 16)),
+    ("randmask_int8_noef", dict(compress="randmask", compress_ratio=1 / 16,
+                                slot_dtype="int8", error_feedback=False)))
+COHORT_SCENARIO = dict(availability="cycle", avail_period=4, avail_duty=0.5,
+                       dropout_prob=0.05, responsiveness="lognormal",
+                       het_steps=(1, 3, 5))
+
+
+def carry_bytes(carry) -> int:
+    """Bytes of every tensor the round carry holds."""
+    return sum(v.numel() * v.element_size() for v in vars(carry).values()
+               if isinstance(v, torch.Tensor))
+
+
+def dense_carry_bytes(k: int, d: int) -> int:
+    """The dense transmit='delta' carry at (K, d): the (K, d) f32 delta
+    plane, two model copies and the (K,) state plane."""
+    return 4 * (k * d + 2 * d) + k * (1 + 4 + 4)
+
+
+def _counters():
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import gather_superpose as gs
+    from repro_torch.kernels import round_stats as rs
+    return rs, ac, gs
+
+
+def _read_counters():
+    rs, ac, gs = _counters()
+    return {"round_stats": rs.launches, "superpose_normalize": ac.launches,
+            "gather_superpose": gs.launches}
+
+
+def _zero_counters():
+    rs, ac, gs = _counters()
+    rs.launches = ac.launches = gs.launches = 0
+
+
+def cohort_run(dev, data, tag, variant, kw, *, warm, rounds, scenario=None):
+    """FusedPAOTA(cohort_size=64) at K = 1000 with FAST_SIZES, the paper's
+    MLP, transmit='delta': ``warm`` rounds, then ``rounds`` timed; the
+    launch counters are set to 0 just before the warm-up and read just
+    after the last round. Compressed, gather_superpose launches once per
+    round and the dense sweeps never; uncompressed, the reverse."""
+    from repro_torch.core import ChannelConfig, ScenarioConfig, SchedulerConfig
+    from repro_torch.data.partition import FAST_SIZES
+    from repro_torch.fl import FusedPAOTA, PAOTAConfig
+    from repro_torch.models.mlp import init_mlp_params, mlp_accuracy
+    clients, test = _federation(dev, data, COHORT_K, FAST_SIZES)
+    drv = FusedPAOTA(init_mlp_params(0), clients, ChannelConfig(**CHAN),
+                     SchedulerConfig(n_clients=COHORT_K, **SCHED),
+                     PAOTAConfig(transmit="delta", seed=0), device=dev,
+                     cohort_size=COHORT_M,
+                     scenario=(None if scenario is None
+                               else ScenarioConfig(**scenario)), **kw)
+    acc0 = float(mlp_accuracy(drv.global_params(), test))
+    torch.cuda.synchronize()
+    _zero_counters()
+    rows = drv.advance(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows += drv.advance(rounds)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = _read_counters()
+    acc = float(mlp_accuracy(drv.global_params(), test))
+    total = warm + rounds
+    want = ({"round_stats": 0, "superpose_normalize": 0,
+             "gather_superpose": total} if kw else
+            {"round_stats": total, "superpose_normalize": total,
+             "gather_superpose": 0})
+    nbytes = carry_bytes(drv._carry)
+    checks = {"finite": bool(np.isfinite(drv.global_vec).all()),
+              "some_uploaders": any(r["n_participants"] > 0 for r in rows),
+              "at_most_m_uploaders": all(r["n_participants"] <= COHORT_M
+                                         for r in rows),
+              "accuracy_rose": acc > acc0,
+              "launches_once_per_round": launches == want}
+    rec = {"phase": tag, "variant": variant, "clients": COHORT_K,
+           "cohort_size": COHORT_M, "model_dim": drv.d,
+           "compress_s": drv.compress_s, "warmup_rounds": warm,
+           "rounds": rounds, "ms_per_round": (t1 - t0) * 1e3 / rounds,
+           "carry_bytes": nbytes,
+           "dense_carry_bytes": dense_carry_bytes(COHORT_K, drv.d),
+           "mean_participants": float(np.mean([r["n_participants"]
+                                               for r in rows])),
+           "accuracy_round0": acc0, "accuracy_final": acc,
+           "launches": launches, "checks": checks}
+    log(rec)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{tag} {variant}: failed {failed}")
+    return rec
+
+
+def state_plane(dev, slot_dtype):
+    """The reference's acceptance harness (benchmarks/cohort_round_bench.py
+    ``_synth_scan``) on the port's runtime: K = 10^6 clients, m = 256
+    slots, d = 16384, fabricated local updates g + 1e-3 N(0, 1) keyed per
+    round, the counter latency / channel / priority draws and the
+    availability-cycle + dropout scenario over all K clients, randmask
+    1/16 without error feedback, PLANE_ROUNDS rounds."""
+    from repro_torch.core import ChannelConfig, ScenarioConfig
+    from repro_torch.core.power_control import p2_constants
+    from repro_torch.core.scheduler import round_tag_generator
+    from repro_torch.fl.runtime import (CounterDraws, RoundCfg, RoundStreams,
+                                        init_cohort_carry, scan_rounds)
+    k, m, d = PLANE_K, PLANE_M, PLANE_D
+    s = round(d / 16)
+    chan = ChannelConfig(**CHAN)
+    sc = ScenarioConfig(availability="cycle", avail_period=4,
+                        avail_duty=0.5, dropout_prob=0.05)
+    draws = CounterDraws(0, 0, dev, k=k, d=d, lat_lo=5.0, lat_hi=15.0,
+                         chan=chan, n_samples=np.ones(1, np.int64),
+                         local_steps=1, batch_size=1, scenario=sc, m=m, s=s)
+    c1, c0 = p2_constants(10.0, 0.05, k, d, chan.sigma_n2)
+    rcfg = RoundCfg(omega=3.0, c1=c1, c0=c0, p_max_watts=chan.p_max_watts,
+                    delta_t=8.0, transmit_delta=True, cohort_size=m,
+                    compress="randmask", compress_s=s, slot_dtype=slot_dtype,
+                    error_feedback=False)
+
+    def fan(g, r, ids):
+        # tag 12: clear of the scheduler's draw tags (0-10)
+        gen = round_tag_generator(0, r, 12, dev)
+        z = torch.randn((ids.shape[0], d), generator=gen, device=dev)
+        return g[None, :] + 1e-3 * z
+
+    streams = RoundStreams(
+        local_train=None, latencies=draws.latencies, channel=draws.channel,
+        noise=draws.noise, scenario=draws.scenario_masks, cohort_train=fan,
+        sched_priority=draws.sched_priority,
+        compress_mask=draws.compress_mask,
+        quant_uniform=(draws.quant_uniform if slot_dtype == "int8"
+                       else None))
+    with torch.no_grad():
+        carry = init_cohort_carry(torch.zeros((d,), device=dev),
+                                  streams=streams, k=k, m=m,
+                                  keep_pending=False, rcfg=rcfg)
+        nbytes = carry_bytes(carry)
+        torch.cuda.synchronize()
+        _zero_counters()
+        t0 = time.perf_counter()
+        carry, outs = scan_rounds(carry, PLANE_ROUNDS, rcfg=rcfg,
+                                  streams=streams)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = _read_counters()
+    n_upl = outs["n_participants"].cpu().numpy()
+    checks = {"finite": bool(torch.isfinite(carry.global_vec).all()),
+              "some_uploaders": bool((n_upl > 0).any()),
+              "gather_superpose_once_per_round":
+                  launches == {"round_stats": 0, "superpose_normalize": 0,
+                               "gather_superpose": PLANE_ROUNDS}}
+    rec = {"phase": "state_plane", "slot_dtype": slot_dtype, "clients": k,
+           "cohort_size": m, "model_dim": d, "compress_s": s,
+           "rounds": PLANE_ROUNDS,
+           "ms_per_round": (t1 - t0) * 1e3 / PLANE_ROUNDS,
+           "carry_bytes": nbytes, "dense_carry_bytes":
+               dense_carry_bytes(k, d),
+           "mean_participants": float(n_upl.mean()),
+           "global_norm": float(carry.global_vec.norm()),
+           "launches": launches, "checks": checks}
+    log(rec)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"state_plane {slot_dtype}: failed {failed}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 12: kernel times
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, flush):
@@ -484,6 +731,29 @@ def kernel_times(dev, bw, flops):
     for (name, k), rec in out.items():
         log({"phase": "kernel_time", "kernel": name, "shape": [k, 8070],
              "dtype": "float32", **rec})
+    from repro_torch.kernels import gather_superpose as gs
+    for m, s, d in GS_SHAPES:
+        v, idx, bp, noise, _ = gs_inputs(dev, m, s, d, torch.float32, False,
+                                         m + d)
+        idx64 = idx.long().reshape(-1)
+        nbytes = m * s * (4 + 4) + 8 * m + 8 * d
+        nops = 2 * m * s + m + 2 * d
+        rec = {
+            "ms": time_ms(lambda: gs.gather_superpose_cuda(
+                v, idx, bp, noise, d=d), flush),
+            "plain_ms": time_ms(lambda: gs.gather_superpose_plain(
+                v, idx, bp, noise, d=d), flush),
+            "yardstick_ms": time_ms(lambda: torch.zeros(
+                (d,), device=dev).index_add_(
+                    0, idx64, (bp[:, None] * v.float()).reshape(-1)), flush),
+            "yardstick": "torch.zeros(d).index_add_(0, idx, (w[:, None] * "
+                         "v).flatten()) (partial: no noise, no varsigma)",
+            "bound_ms": max(nbytes / bw, nops / flops) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= nops / flops
+            else "operations"}
+        out[("gather_superpose", (m, s, d))] = rec
+        log({"phase": "kernel_time", "kernel": "gather_superpose",
+             "shape": [m, s, d], "dtype": "float32", **rec})
     return out
 
 
@@ -599,7 +869,26 @@ def main() -> int:
     del host
     baselines(dev, data)
 
-    # 9. kernel and stage times
+    # 9-11. the active cohort (four payload variants), the same under the
+    # scenario simulator, and the million-client state plane
+    gs_launches = 0
+    for variant, kw in COHORT_VARIANTS:
+        rec = cohort_run(dev, data, "cohort_path", variant, kw,
+                         warm=COHORT_WARM, rounds=COHORT_ROUNDS)
+        by_path[f"cohort_path {variant}"] = rec["launches"]
+        gs_launches += rec["launches"]["gather_superpose"]
+    rec = cohort_run(dev, data, "cohort_scenario", "randmask_f32_ef",
+                     COHORT_VARIANTS[1][1], warm=0, rounds=SCENARIO_ROUNDS,
+                     scenario=COHORT_SCENARIO)
+    by_path["cohort_scenario"] = rec["launches"]
+    gs_launches += rec["launches"]["gather_superpose"]
+    for slot_dtype in ("float32", "int8"):
+        rec = state_plane(dev, slot_dtype)
+        by_path[f"state_plane {slot_dtype}"] = rec["launches"]
+        gs_launches += rec["launches"]["gather_superpose"]
+    launches["gather_superpose"] = gs_launches
+
+    # 12. kernel and stage times
     times = kernel_times(dev, bw, flops)
     stage_times(drv_main,
                 torch.empty(64 * 2**20, dtype=torch.float32, device=dev))
@@ -615,10 +904,14 @@ def main() -> int:
                                "src/repro/kernels/aircomp_sum.py:56"),
                "cosine_partials": ("cosine_partials",
                                    "src/repro_torch/csrc/round_stats.cu",
-                                   "src/repro/kernels/cosine_sim.py:42")}
+                                   "src/repro/kernels/cosine_sim.py:42"),
+               "gather_superpose": ("gather_superpose",
+                                    "src/repro_torch/csrc/gather_superpose.cu",
+                                    "src/repro/kernels/aircomp_sum.py:370")}
     kernels = []
     for kname, (tkey, source, replaces) in sources.items():
-        t = times[(tkey, 100)]
+        shape = GS_SHAPES[0] if kname == "gather_superpose" else (100, 8070)
+        t = times[(tkey, shape if kname == "gather_superpose" else 100)]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
@@ -628,7 +921,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "yardstick_ms": t["yardstick_ms"], "yardstick": t["yardstick"],
-            "shape": [100, 8070], "dtype": "float32"})
+            "shape": list(shape), "dtype": "float32"})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

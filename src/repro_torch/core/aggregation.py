@@ -5,7 +5,9 @@ Port of the dense, raveled, single-device branch of
 reference's leaf order, the AirComp superposition of the stacked (K, d)
 payload (sweep 2 of the round, ``repro_torch.kernels.ops
 .superpose_normalize``, or with ``use_kernel`` the host path's
-``aircomp_sum`` route), and the zero-uploader guarded update.
+``aircomp_sum`` route), the active cohort's superposition of its
+compressed (m, s) plane (``gather_superpose``), and the zero-uploader
+guarded update.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch.core.aircomp import VARSIGMA_MIN, aircomp_aggregate
 from repro_torch.device import f32
-from repro_torch.kernels.ops import superpose_normalize
+from repro_torch.kernels.ops import gather_superpose, superpose_normalize
 
 
 def _leaves(tree, prefix=()):
@@ -106,4 +108,19 @@ def paota_aggregate_stacked(stacked: torch.Tensor, powers: torch.Tensor,
                                  use_kernel=True)
     agg, raw = superpose_normalize(stacked, powers, mask, noise,
                                    vs_min=VARSIGMA_MIN)
+    return agg, torch.clamp_min(raw, f32(VARSIGMA_MIN))
+
+
+def paota_aggregate_compressed(values: torch.Tensor, idx: torch.Tensor,
+                               powers: torch.Tensor, mask: torch.Tensor,
+                               noise: torch.Tensor, d: int, scale=None):
+    """Eq. (8) over the (m, s) compressed cohort plane: each slot's stored
+    values on its own support superpose straight into d-space
+    (``repro_torch.kernels.ops.gather_superpose``), with the same (d,)
+    AWGN realization the dense round takes. ``scale`` folds int8
+    dequantization into the weights; varsigma sums the raw b*p and is
+    clamped here, after the call. Returns ((d,) f32 aggregate, clamped
+    varsigma)."""
+    agg, raw = gather_superpose(values, idx, powers * mask, noise, d=d,
+                                scale=scale, vs_min=VARSIGMA_MIN)
     return agg, torch.clamp_min(raw, f32(VARSIGMA_MIN))

@@ -2,8 +2,11 @@
 
 Port of ``repro.core.scheduler``: the consumer tags, the exact slot
 predicate, the scheduler state transition over (K,) tensors (the fused
-round), and ``SemiAsyncScheduler``, the host-side numpy scheduler of the
-host-path servers, with both of the reference's rng modes. The reference
+round), the client-state scenario simulator (``ScenarioConfig``: its
+masks, static traits and lognormal latencies as pure functions of their
+draws, and the counter draws that feed them), and ``SemiAsyncScheduler``,
+the host-side numpy scheduler of the host-path servers, with both of the
+reference's rng modes and the scenario. The reference
 keys its draws with JAX's threefry ``round_tag_key``; the port
 keys a ``torch.Generator`` on the same (seed, round, tag) triple instead
 (``round_tag_generator``). The two give different numbers from one seed,
@@ -13,7 +16,7 @@ so parity tests hand the reference's own draws to the port
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,21 +40,26 @@ def _splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def round_tag_seed(base_seed: int, round_idx: int, tag: int) -> int:
-    """Counter-based per-round seed: mix the round index, then the tag,
-    into the base seed (the port's ``fold_in(fold_in(key, r), tag)``)."""
+def round_tag_seed(base_seed: int, round_idx: int, tag: int,
+                   fold: Optional[int] = None) -> int:
+    """Counter-based per-round seed: mix the round index, then the tag
+    (then ``fold``, a sub-stream of one tag), into the base seed (the
+    port's ``fold_in(fold_in(key, r), tag)``)."""
     h = _splitmix64(int(base_seed) & _MASK64)
     h = _splitmix64(h ^ (int(round_idx) & _MASK64))
     h = _splitmix64(h ^ int(tag))
+    if fold is not None:
+        h = _splitmix64(h ^ int(fold))
     return h >> 1            # manual_seed takes a non-negative 63-bit int
 
 
 def round_tag_generator(base_seed: int, round_idx: int, tag: int,
-                        device) -> torch.Generator:
+                        device, fold: Optional[int] = None
+                        ) -> torch.Generator:
     """A fresh generator on ``device`` whose stream is a pure function of
-    (seed, round, tag): chunking rounds never changes the draws."""
+    (seed, round, tag, fold): chunking rounds never changes the draws."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(round_tag_seed(base_seed, round_idx, tag))
+    gen.manual_seed(round_tag_seed(base_seed, round_idx, tag, fold))
     return gen
 
 
@@ -62,6 +70,166 @@ def counter_latencies(base_seed: int, round_idx: int, k: int, lo: float,
     gen = round_tag_generator(base_seed, round_idx, TAG_LATENCY, device)
     u = torch.rand((k,), generator=gen, device=device, dtype=torch.float32)
     return f32(lo) + (f32(hi) - f32(lo)) * u
+
+
+def counter_uniform(base_seed: int, round_idx: int, tag: int, shape,
+                    device, fold: Optional[int] = None) -> torch.Tensor:
+    """U[0, 1) f32 draws of ``shape`` keyed on (seed, round, tag, fold)."""
+    gen = round_tag_generator(base_seed, round_idx, tag, device, fold)
+    return torch.rand(shape, generator=gen, device=device,
+                      dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# client-state scenario simulator (vectorized over the (K,) state plane)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ScenarioConfig:
+    """Composable client-state scenario (the reference's ``ScenarioConfig``,
+    same fields and validation): availability cycles, connectivity
+    dropouts, lognormal responsiveness and per-client local-step / batch
+    heterogeneity. The default is the identity scenario, bit-identical to
+    running with none."""
+    availability: str = "always"   # "always" | "cycle" | "bernoulli"
+    avail_period: int = 10         # cycle length in rounds ("cycle")
+    avail_duty: float = 0.5        # available fraction of the cycle
+    avail_prob: float = 0.9        # P(available) ("bernoulli")
+    dropout_prob: float = 0.0      # P(a ready upload is lost in transit)
+    responsiveness: str = "uniform"  # "uniform" | "lognormal"
+    lat_shift: float = 0.0         # lognormal location shift (seconds)
+    lat_sigma: float = 0.25        # lognormal per-draw sigma
+    lat_mu_spread: float = 0.5     # stddev of the static per-client mu_k
+    het_steps: tuple = ()          # per-client local-step choices
+    het_batch: tuple = ()          # per-client batch-size choices
+
+    def __post_init__(self):
+        if self.availability not in ("always", "cycle", "bernoulli"):
+            raise ValueError(f"availability={self.availability!r} (expected "
+                             "'always', 'cycle' or 'bernoulli')")
+        if self.responsiveness not in ("uniform", "lognormal"):
+            raise ValueError(f"responsiveness={self.responsiveness!r} "
+                             "(expected 'uniform' or 'lognormal')")
+        if self.availability == "cycle" and self.avail_period < 1:
+            raise ValueError(f"avail_period={self.avail_period} (expected "
+                             ">= 1)")
+        if not 0.0 <= self.dropout_prob < 1.0:
+            raise ValueError(f"dropout_prob={self.dropout_prob} (expected "
+                             "[0, 1))")
+
+    @property
+    def has_masks(self) -> bool:
+        """True when the scenario can mask uploads at all; the round skips
+        the mask stage otherwise."""
+        return self.availability != "always" or self.dropout_prob > 0.0
+
+
+class ScenarioTraits(NamedTuple):
+    """Static per-client traits, drawn once (the reference draws them at
+    round 0 under ``TAG_TRAIT``): cycle phase, responsiveness offset mu_k,
+    local-step count and batch size (None where the scenario leaves the
+    dimension alone)."""
+    phase: Optional[torch.Tensor]    # (K,) i32
+    mu: Optional[torch.Tensor]       # (K,) f32
+    steps_k: Optional[torch.Tensor]  # (K,) i32
+    batch_k: Optional[torch.Tensor]  # (K,) i32
+
+
+def scenario_traits(sc: ScenarioConfig, phase=None, z=None,
+                    steps_pick=None, batch_pick=None) -> ScenarioTraits:
+    """The static traits from their draws: ``phase`` the (K,) cycle phases
+    as drawn, ``z`` (K,) standard normals (mu = lat_mu_spread * z), and
+    ``steps_pick`` / ``batch_pick`` (K,) indices into the scenario's choice
+    tuples. A trait the scenario does not use comes back None."""
+    def choice(pick, options):
+        return torch.as_tensor(options, dtype=torch.int32,
+                               device=pick.device)[pick.long()]
+
+    return ScenarioTraits(
+        phase.to(torch.int32) if sc.availability == "cycle" else None,
+        (f32(sc.lat_mu_spread) * z if sc.responsiveness == "lognormal"
+         else None),
+        choice(steps_pick, sc.het_steps) if sc.het_steps else None,
+        choice(batch_pick, sc.het_batch) if sc.het_batch else None)
+
+
+def counter_traits(base_seed: int, k: int, sc: ScenarioConfig,
+                   device) -> ScenarioTraits:
+    """``scenario_traits`` on draws keyed on (seed, 0, TAG_TRAIT, fold) with
+    the reference's folds: 0 phase, 1 mu, 2 step choice, 3 batch choice."""
+    def gen(fold):
+        return round_tag_generator(base_seed, 0, TAG_TRAIT, device, fold)
+
+    def pick(fold, n):
+        return torch.randint(0, max(n, 1), (k,), generator=gen(fold),
+                             device=device)
+
+    z = torch.randn((k,), generator=gen(1), device=device,
+                    dtype=torch.float32)
+    return scenario_traits(sc, pick(0, sc.avail_period), z,
+                           pick(2, len(sc.het_steps)),
+                           pick(3, len(sc.het_batch)))
+
+
+def scenario_masks(sc: ScenarioConfig, round_idx: int, k: int, phase=None,
+                   u_avail=None, u_drop=None, device=None):
+    """(available, dropped) (K,) bool masks at the slot of ``round_idx``,
+    a pure function of the static ``phase`` trait ("cycle") and the
+    round's (K,) uniforms (``u_avail`` for "bernoulli", ``u_drop`` when
+    ``dropout_prob > 0``). An unavailable-but-ready client holds its
+    update; a dropped upload is lost and the client restarts."""
+    if sc.availability == "always":
+        avail = torch.ones((k,), dtype=torch.bool, device=device)
+    elif sc.availability == "cycle":
+        on_rounds = int(round(sc.avail_duty * sc.avail_period))
+        pos = torch.remainder(phase + int(round_idx), sc.avail_period)
+        avail = pos < on_rounds
+    else:
+        avail = u_avail < f32(sc.avail_prob)
+    if sc.dropout_prob > 0.0:
+        drop = u_drop < f32(sc.dropout_prob)
+    else:
+        drop = torch.zeros((k,), dtype=torch.bool, device=avail.device)
+    return avail, drop
+
+
+def lognormal_latencies(sc: ScenarioConfig, u, mu, lo: float, hi: float):
+    """"lognormal" responsiveness from the round's (K,) uniforms ``u`` and
+    the static ``mu`` trait: shift + exp(mu_k + log(med) + sigma *
+    ndtri(u_k)), the median session at the midpoint of (lo, hi). Keeps the
+    reference's clip of u to [1e-7, 1 - 1e-7] and its f32 log(med)."""
+    med = max(0.5 * (lo + hi) - sc.lat_shift, 1e-3)
+    z = torch.special.ndtri(torch.clamp(u, f32(1e-7), f32(1.0 - 1e-7)))
+    lat = f32(sc.lat_shift) + torch.exp(mu + f32(np.log(med))
+                                        + f32(sc.lat_sigma) * z)
+    return lat.float()
+
+
+def counter_scenario_latencies(base_seed: int, round_idx: int, k: int,
+                               lo: float, hi: float, sc: ScenarioConfig,
+                               mu, device) -> torch.Tensor:
+    """Latency draws of broadcast round ``round_idx`` under ``sc``:
+    "uniform" is ``counter_latencies`` itself; "lognormal" warps the same
+    per-round uniform draw (``lognormal_latencies``)."""
+    if sc.responsiveness == "uniform":
+        return counter_latencies(base_seed, round_idx, k, lo, hi, device)
+    u = counter_uniform(base_seed, round_idx, TAG_LATENCY, (k,), device)
+    return lognormal_latencies(sc, u, mu, lo, hi)
+
+
+def counter_scenario_masks(base_seed: int, round_idx: int, k: int,
+                           sc: ScenarioConfig, phase, device):
+    """``scenario_masks`` on the (seed, round, TAG_AVAIL / TAG_DROPOUT)
+    uniforms."""
+    u_avail = u_drop = None
+    if sc.availability == "bernoulli":
+        u_avail = counter_uniform(base_seed, round_idx, TAG_AVAIL, (k,),
+                                  device)
+    if sc.dropout_prob > 0.0:
+        u_drop = counter_uniform(base_seed, round_idx, TAG_DROPOUT, (k,),
+                                 device)
+    return scenario_masks(sc, round_idx, k, phase, u_avail, u_drop,
+                          device=device)
 
 
 def slot_ready(lat, model_round, round_idx: int, delta_t: float):
@@ -118,21 +286,34 @@ class SemiAsyncScheduler:
 
     ``rng="host"``: one PCG64 uniform per broadcast client, in id order, kept
     in f64. ``rng="counter"``: all K latencies of broadcast round r come from
-    ``latencies(r)`` (default ``counter_latencies`` keyed on (seed, r)) and
-    the broadcast clients index them, kept in f32 as the fused round keeps
-    them. The synchronous baselines' straggler clock ``sync_round_time``
-    draws from the PCG64 stream."""
+    ``latencies(r)`` and the broadcast clients index them, kept in f32 as the
+    fused round keeps them. The synchronous baselines' straggler clock
+    ``sync_round_time`` draws from the PCG64 stream.
+
+    ``scenario`` (a ``ScenarioConfig``, counter rng only) runs the client-
+    state simulator the fused round runs: ``masks(t)`` gives the (K,)
+    (available, dropped) masks of slot t and gates who uploads, and the
+    default latencies follow the scenario's responsiveness model. After
+    ``advance_to_aggregation``, ``restart_ids`` are the clients to
+    broadcast to (ready and available: a dropped uploader restarts too);
+    without a scenario they are the uploaders. ``latencies`` and ``masks``
+    default to the port's counter draws keyed on ``cfg.seed``; tests pass
+    the reference's."""
 
     def __init__(self, cfg: SchedulerConfig, scenario=None,
-                 latencies: Optional[Callable[[int], np.ndarray]] = None):
-        if scenario is not None:
-            raise NotImplementedError(
-                "scenario= selects the reference's client-state simulator, "
-                "which the port's host scheduler does not have yet")
+                 latencies: Optional[Callable[[int], np.ndarray]] = None,
+                 masks: Optional[Callable[[int], tuple]] = None):
         if cfg.rng not in ("host", "counter"):
             raise ValueError(f"rng={cfg.rng!r} (expected 'host' or "
                              f"'counter')")
+        if scenario is not None and cfg.rng != "counter":
+            raise ValueError("scenario simulation needs counter RNG "
+                             "(SchedulerConfig(rng='counter')): the per-round "
+                             "masks are keyed draws shared with the fused "
+                             "scan, which a sequential PCG64 stream cannot "
+                             "reproduce")
         self.cfg = cfg
+        self.scenario = scenario
         self.rng = np.random.default_rng(cfg.seed)
         self.time = 0.0
         self.round = 0
@@ -140,12 +321,26 @@ class SemiAsyncScheduler:
         lat_dtype = np.float32 if cfg.rng == "counter" else np.float64
         self.busy_lat = np.zeros(cfg.n_clients, dtype=lat_dtype)
         self.model_round = np.zeros(cfg.n_clients, dtype=np.int64)
+        self.restart_ids = np.arange(cfg.n_clients, dtype=np.int64)
+        k = cfg.n_clients
+        traits = (None if scenario is None
+                  else counter_traits(cfg.seed, k, scenario, "cpu"))
         if latencies is None:
-            def latencies(r):
-                return counter_latencies(cfg.seed, r, cfg.n_clients,
-                                         cfg.lat_lo, cfg.lat_hi,
-                                         "cpu").numpy()
+            if scenario is None:
+                def latencies(r):
+                    return counter_latencies(cfg.seed, r, k, cfg.lat_lo,
+                                             cfg.lat_hi, "cpu").numpy()
+            else:
+                def latencies(r):
+                    return counter_scenario_latencies(
+                        cfg.seed, r, k, cfg.lat_lo, cfg.lat_hi, scenario,
+                        traits.mu, "cpu").numpy()
+        if masks is None and scenario is not None:
+            def masks(t):
+                return tuple(m.numpy() for m in counter_scenario_masks(
+                    cfg.seed, t, k, scenario, traits.phase, "cpu"))
         self._latencies = latencies
+        self._masks = masks
 
     def _draw_latency(self, size=None):
         return self.rng.uniform(self.cfg.lat_lo, self.cfg.lat_hi, size)
@@ -167,12 +362,21 @@ class SemiAsyncScheduler:
 
     def advance_to_aggregation(self) -> Tuple[np.ndarray, np.ndarray]:
         """Advance the clock by delta_t. Returns (uploaders, staleness):
-        the ids with b_k = 1 at this slot, and s_k for every client (0 for
-        the busy ones)."""
+        the ids with b_k = 1 at this slot (under a scenario also available
+        and not dropped), and s_k for every client (0 for the others).
+        ``restart_ids`` is refreshed."""
         self.ready |= slot_ready(self.busy_lat, self.model_round, self.round,
                                  self.cfg.delta_t)
-        stal = np.where(self.ready, self.round - self.model_round, 0)
-        uploaders = np.flatnonzero(self.ready).astype(np.int64)
+        if self.scenario is None or not self.scenario.has_masks:
+            upl = restart = self.ready
+        else:
+            avail, drop = (np.asarray(m, dtype=bool)
+                           for m in self._masks(self.round))
+            upl = self.ready & avail & ~drop
+            restart = self.ready & avail
+        stal = np.where(upl, self.round - self.model_round, 0)
+        uploaders = np.flatnonzero(upl).astype(np.int64)
+        self.restart_ids = np.flatnonzero(restart).astype(np.int64)
         self.round += 1
         self.time = self.round * self.cfg.delta_t
         return uploaders, stal.astype(np.int64)

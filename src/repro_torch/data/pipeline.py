@@ -99,10 +99,15 @@ def stack_federation(fed: List[ClientData]) -> StackedFederation:
 
 def counter_batch_plan(base_seed: int, round_idx: int,
                        n_samples: torch.Tensor, n_batches: int,
-                       batch_size: int) -> torch.Tensor:
+                       batch_size: int, batch_sizes=None) -> torch.Tensor:
     """(K, M, B) int64 minibatch indices for broadcast round ``round_idx``:
     client k draws i.i.d. uniform from range(n_samples[k]), on
-    ``n_samples``'s device."""
+    ``n_samples``'s device.
+
+    ``batch_sizes``: optional (K,) per-client batch sizes b_k <= B. The
+    plan keeps its (K, M, B) shape and column j of client k repeats draw
+    j mod b_k (the reference's cyclic fold), so the mean gradient over a
+    row is exactly the b_k-minibatch gradient when b_k divides B."""
     dev = n_samples.device
     gen = round_tag_generator(base_seed, round_idx, TAG_BATCH, dev)
     k = n_samples.shape[0]
@@ -110,4 +115,10 @@ def counter_batch_plan(base_seed: int, round_idx: int,
                    dtype=torch.float64)
     n = n_samples.to(torch.float64)[:, None, None]
     idx = (u * n).to(torch.int64)          # floor: u < 1, so idx < n_k
-    return torch.minimum(idx, n_samples[:, None, None] - 1)
+    idx = torch.minimum(idx, n_samples[:, None, None] - 1)
+    if batch_sizes is None:
+        return idx
+    cols = torch.arange(batch_size, device=dev)
+    fold = torch.remainder(cols[None, :], batch_sizes.long()[:, None])
+    return torch.gather(idx, 2, fold[:, None, :].expand(k, n_batches,
+                                                        batch_size))

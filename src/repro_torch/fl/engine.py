@@ -52,6 +52,8 @@ class BatchedEngine:
                              np.int64)
         self.plan = "host"
         self._plan_fn = None
+        self._steps_k = None
+        self._batch_k = None
 
     @classmethod
     def from_clients(cls, clients: List[FLClient], device=None):
@@ -66,18 +68,64 @@ class BatchedEngine:
                    batch_size=c0.batch_size, lr=c0.lr,
                    local_steps=c0.local_steps, device=device)
 
+    def set_heterogeneity(self, steps_k=None, batch_k=None) -> None:
+        """Install per-client (K,) hyperparameter heterogeneity: local-step
+        counts (1 <= steps_k <= local_steps; plan rows past a client's
+        count take a zero step size, so ``p - 0 * g == p`` bit for bit)
+        and/or batch sizes (1 <= batch_k <= batch_size; the counter plan
+        repeats a client's first b_k draws across the row, which the draw
+        source applies). None leaves a dimension homogeneous."""
+        def check(name, v, hi):
+            if v is None:
+                return None
+            v = torch.as_tensor(v, device=self.device).to(torch.int32)
+            if tuple(v.shape) != (self.n_clients,):
+                raise ValueError(f"{name} shape {tuple(v.shape)} != "
+                                 f"({self.n_clients},)")
+            lo_v, hi_v = int(v.min()), int(v.max())
+            if lo_v < 1 or hi_v > hi:
+                raise ValueError(f"{name} must lie in [1, {hi}]; got "
+                                 f"[{lo_v}, {hi_v}]")
+            return v
+        self._steps_k = check("steps_k", steps_k, self.local_steps)
+        self._batch_k = check("batch_k", batch_k, self.batch_size)
+
+    def steps_for(self, client_ids=None):
+        """The (K,) step counts gathered at ``client_ids`` (None: all
+        rows), or None when homogeneous."""
+        if self._steps_k is None or client_ids is None:
+            return self._steps_k
+        return self._steps_k[client_ids.long()]
+
     def train_all(self, params, idx: torch.Tensor) -> torch.Tensor:
         """Every client runs M SGD steps from the broadcast ``params``
         (a params dict) on its rows of the (K, M, B) plan ``idx``.
         Returns the (K, d) raveled trained models."""
-        k = self.n_clients
-        p = tree_map(lambda t: t.expand((k,) + t.shape), params)
+        return self._train(params, idx, self._rows, self._steps_k)
+
+    def train_rows(self, params, idx: torch.Tensor,
+                   ids: torch.Tensor) -> torch.Tensor:
+        """The active cohort's twin of ``train_all``: only the clients
+        ``ids`` ((m,) global ids) train, on their (m, M, B) rows of the
+        broadcast plan and with their own step counts. Returns the (m, d)
+        trained rows; a client's row equals its ``train_all`` row."""
+        rows = ids.long()[:, None]
+        return self._train(params, idx, rows, self.steps_for(ids))
+
+    def _train(self, params, idx, rows, n_steps):
+        n = rows.shape[0]
+        p = tree_map(lambda t: t.expand((n,) + t.shape), params)
         lr = f32(self.lr)
         for m in range(idx.shape[1]):
             sel = idx[:, m]
-            batch = {"x": self._x[self._rows, sel],
-                     "y": self._y[self._rows, sel]}
-            p = tree_map(lambda t, g: t - lr * g, p, self._grad(p, batch))
+            batch = {"x": self._x[rows, sel], "y": self._y[rows, sel]}
+            if n_steps is None:
+                step = lr
+            else:
+                # an exact 0.0 past a client's step count: p - 0 * g == p
+                step = (lr * (m < n_steps).float()).reshape(n, 1)
+            p = tree_map(lambda t, g: t - _bcast(step, t) * g, p,
+                         self._grad(p, batch))
         return ravel_stacked(p)
 
     def enable_counter_plan(self, plan_fn: Callable[[int], torch.Tensor]):
@@ -124,6 +172,14 @@ class BatchedEngine:
         ids = np.asarray(ids, np.int64)
         flat = self.local_train_full(params, ids, round_idx=round_idx)
         return flat[torch.as_tensor(ids, device=flat.device)]
+
+
+def _bcast(step, t):
+    """A Python step size as is, or an (n, 1) per-row one shaped to
+    broadcast against the (n, ...) leaf ``t``."""
+    if isinstance(step, float):
+        return step
+    return step.reshape((t.shape[0],) + (1,) * (t.dim() - 1))
 
 
 def make_engine(clients, kind: str = "batched", device=None):

@@ -14,14 +14,29 @@ a Python int (it is control state, known without the device), and the
 per-round metrics stay 0-d device tensors until ``scan_rounds`` stacks
 them for one copy per ``advance``.
 
-Randomness comes from a draw source with four methods — ``latencies(r)``,
-``channel(t)``, ``noise(t)``, ``batch_plan(r)``: ``CounterDraws`` keys a
-``torch.Generator`` on (seed, round, tag) for every draw, so chunking an
-``advance`` never changes the trajectory; ``ArrayDraws`` replays given
-tensors, which is how the tests feed the reference's own draws to the port.
+Active-cohort mode (``RoundCfg.cohort_size`` m >= 1,
+``_cohort_round_step``) splits the carry into a dense (K,) client-state
+plane (scheduler bits, latency draws, model rounds, and the scenario
+masks) and an (m, ...) payload plane for the in-flight cohort only
+(``slot_client`` / ``slot_live``); freed slots refill from the available
+idle pool by priority. With ``RoundCfg.compress`` the slots carry an
+(m, s) compressed plane on per-slot supports, with error-feedback
+residuals parked on a (K, s) plane across slot turnover; the stats run
+plain on the compressed rows and AirComp through the ``gather_superpose``
+kernel. At s >= d the compression is statically the identity and the
+dense stages run, bit-identical to the uncompressed cohort.
 
-Left out (the reference's cohort, compressed, scenario, fault, screen,
-rollback, grouped, TP and pytree branches): FusedPAOTA refuses each knob.
+Randomness comes from a draw source: ``latencies(r)``, ``channel(t)``,
+``noise(t)`` and ``batch_plan(r)``, and for the cohort, scenario and
+compressed branches ``sched_priority(r)``, ``scenario_masks(t)``,
+``compress_mask(t)``, ``quant_uniform(t)`` and the static ``traits``.
+``CounterDraws`` keys a ``torch.Generator`` on (seed, round, tag) for every
+draw, so chunking an ``advance`` never changes the trajectory;
+``ArrayDraws`` replays given tensors, which is how the tests feed the
+reference's own draws to the port.
+
+Left out (the reference's fault, screen, rollback, grouped, TP and pytree
+branches): FusedPAOTA refuses each knob.
 """
 from __future__ import annotations
 
@@ -32,21 +47,30 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregation import (guarded_global_update,
+                                          paota_aggregate_compressed,
                                           paota_aggregate_stacked)
 from repro_torch.core.aircomp import (VARSIGMA_MIN, ChannelConfig,
                                       effective_power_cap,
                                       sample_channel_gains)
 from repro_torch.core.boxqp import waterfill_beta
+from repro_torch.core.compress import (dequantize_int8, ef_residual,
+                                       gather_rows, quantize_int8_stochastic,
+                                       scatter_rows, sparsify, topk_support)
 from repro_torch.core.power_control import (client_sq_norms,
                                             power_from_beta,
                                             similarity_factor,
                                             staleness_factor)
-from repro_torch.core.scheduler import (TAG_NOISE, counter_latencies,
-                                        round_tag_generator, sched_advance,
-                                        sched_broadcast)
+from repro_torch.core.scheduler import (TAG_COMPRESS, TAG_NOISE, TAG_QUANT,
+                                        TAG_SCHED, ScenarioConfig,
+                                        ScenarioTraits, counter_latencies,
+                                        counter_scenario_latencies,
+                                        counter_scenario_masks,
+                                        counter_traits, counter_uniform,
+                                        round_tag_generator,
+                                        sched_advance, sched_broadcast)
 from repro_torch.data.pipeline import counter_batch_plan
 from repro_torch.device import f32, resolve_device
-from repro_torch.kernels.ops import round_stats
+from repro_torch.kernels.ops import round_stats, round_stats_compressed
 
 # per-round metrics that live on the device, in the order they are stacked
 DEVICE_METRICS = ("n_participants", "mean_staleness", "beta_mean",
@@ -65,8 +89,24 @@ class RoundCarry:
     global_vec: torch.Tensor    # (d,) f32: w_g^t
     prev_global: torch.Tensor   # (d,) f32: w_g^{t-1}
     pending: Optional[torch.Tensor]  # (K, d) in-flight local models, or
-                                # None under transmit='delta'
-    deltas: torch.Tensor        # (K, d): pending - start model
+                                # None under transmit='delta'; (m, d) slot
+                                # rows in active-cohort mode
+    deltas: torch.Tensor        # (K, d): pending - start model; (m, d) slot
+                                # rows in cohort mode, or the (m, s)
+                                # compressed values (f32 / bf16 / int8)
+    # active-cohort mode only (RoundCfg.cohort_size m >= 1); None otherwise
+    slot_client: Optional[torch.Tensor] = None  # (m,) i32: each slot's
+                                # client (a dead slot keeps its last one)
+    slot_live: Optional[torch.Tensor] = None    # (m,) bool: slot holds a
+                                # client in flight (False: b = 0 throughout)
+    # compressed cohort payloads only (RoundCfg.compress)
+    slot_idx: Optional[torch.Tensor] = None     # (m, s) i32 supports
+    slot_scale: Optional[torch.Tensor] = None   # (m,) f32 int8 scales
+    slot_resid: Optional[torch.Tensor] = None   # (m, s) f32 EF residuals
+    slot_resid_idx: Optional[torch.Tensor] = None  # (m, s) i32 supports
+    resid_val: Optional[torch.Tensor] = None    # (K, s) f32 parked EF
+                                # residuals, indexed by client
+    resid_idx: Optional[torch.Tensor] = None    # (K, s) i32 parked supports
 
 
 class RoundCfg(NamedTuple):
@@ -77,14 +117,35 @@ class RoundCfg(NamedTuple):
     p_max_watts: float          # per-client power budget P_max
     delta_t: float              # aggregation period (seconds)
     transmit_delta: bool        # True: clients transmit dw_k; False: w_k
+    cohort_size: int = 0        # 0: dense carry; m >= 1: at most m clients
+                                # in flight, payload rows for them only
+    compress: str = ""          # "" | "topk" | "randmask" (cohort slots
+                                # carry an (m, s) plane; transmit='delta')
+    compress_s: int = 0         # static compressed width s; s >= d is the
+                                # identity (dense stages, bit-identical)
+    slot_dtype: str = ""        # compressed value storage: "float32" |
+                                # "bfloat16" | "int8" (absmax + dither)
+    error_feedback: bool = False  # carry the EF residual planes
 
 
 class RoundStreams(NamedTuple):
-    """How the federation trains and draws its randomness."""
+    """How the federation trains and draws its randomness. A callback the
+    configuration does not use is None, so a run that asks for it fails."""
     local_train: Callable       # (global (d,), round) -> (K, d) trained
     latencies: Callable         # (round) -> (K,) f32 latency draws
     channel: Callable           # (round) -> (K,) f32 |h_k|
     noise: Callable             # (round) -> (d,) f32 sigma_n * N(0, 1)
+    scenario: Optional[Callable] = None  # (round) -> (K,) bool
+                                # (available, dropped) masks
+    cohort_train: Optional[Callable] = None  # (global, round, (m,) ids)
+                                # -> (m, d) trained rows of those clients
+    sched_priority: Optional[Callable] = None  # (round) -> (K,) f32
+                                # scores; the highest idle available
+                                # clients fill freed slots
+    compress_mask: Optional[Callable] = None  # (round) -> (s,) i32 shared
+                                # randmask support
+    quant_uniform: Optional[Callable] = None  # (round) -> (m, s) f32
+                                # U[0, 1) int8 dither
 
 
 # ---------------------------------------------------------------------------
@@ -94,49 +155,95 @@ class RoundStreams(NamedTuple):
 class CounterDraws:
     """Counter-keyed draws on ``device``: each is a pure function of
     (seed, round, tag) through a fresh ``torch.Generator``; the batch plan's
-    row k is a pure function of (seed, round, k)."""
+    row k is a pure function of (seed, round, k). The scheduler seed keys
+    latencies, scenario masks, slot priorities and the static traits; the
+    server seed keys channel, noise, batch plans, the randmask support and
+    the int8 dither, the roles the reference's two keys play.
+
+    ``scenario`` (a ``ScenarioConfig``) shapes the latencies, adds the
+    masks and draws the static ``traits`` once; ``m`` and ``s`` are the
+    cohort size and compressed width the int8 dither is drawn for."""
 
     def __init__(self, sched_seed: int, srv_seed: int, device, *, k: int,
                  d: int, lat_lo: float, lat_hi: float, chan: ChannelConfig,
-                 n_samples, local_steps: int, batch_size: int):
+                 n_samples, local_steps: int, batch_size: int,
+                 scenario: Optional[ScenarioConfig] = None, m: int = 0,
+                 s: int = 0):
         self.device = resolve_device(device)
         self.sched_seed, self.srv_seed = int(sched_seed), int(srv_seed)
-        self.k, self.d = k, d
+        self.k, self.d, self.m, self.s = k, d, m, s
         self.lat_lo, self.lat_hi = lat_lo, lat_hi
         self.chan = chan
         self.sigma_n = chan.sigma_n
         self.n_samples = torch.as_tensor(np.asarray(n_samples, np.int64),
                                          device=self.device)
         self.local_steps, self.batch_size = local_steps, batch_size
+        self.scenario = scenario
+        self.traits = (None if scenario is None else
+                       counter_traits(self.sched_seed, k, scenario,
+                                      self.device))
 
     def latencies(self, r: int) -> torch.Tensor:
-        return counter_latencies(self.sched_seed, r, self.k, self.lat_lo,
-                                 self.lat_hi, self.device)
+        if self.scenario is None:
+            return counter_latencies(self.sched_seed, r, self.k,
+                                     self.lat_lo, self.lat_hi, self.device)
+        return counter_scenario_latencies(
+            self.sched_seed, r, self.k, self.lat_lo, self.lat_hi,
+            self.scenario, self.traits.mu, self.device)
 
     def channel(self, t: int) -> torch.Tensor:
         return sample_channel_gains(self.srv_seed, t, self.k, self.chan,
                                     self.device)
 
     def noise(self, t: int) -> torch.Tensor:
+        if self.sigma_n == 0.0:                  # a noiseless channel
+            return torch.zeros((self.d,), dtype=torch.float32,
+                               device=self.device)
         gen = round_tag_generator(self.srv_seed, t, TAG_NOISE, self.device)
         z = torch.randn((self.d,), generator=gen, device=self.device,
                         dtype=torch.float32)
         return f32(self.sigma_n) * z
 
     def batch_plan(self, r: int) -> torch.Tensor:
+        batch_k = None if self.traits is None else self.traits.batch_k
         return counter_batch_plan(self.srv_seed, r, self.n_samples,
-                                  self.local_steps, self.batch_size)
+                                  self.local_steps, self.batch_size,
+                                  batch_sizes=batch_k)
+
+    def scenario_masks(self, t: int):
+        return counter_scenario_masks(self.sched_seed, t, self.k,
+                                      self.scenario, self.traits.phase,
+                                      self.device)
+
+    def sched_priority(self, r: int) -> torch.Tensor:
+        return counter_uniform(self.sched_seed, r, TAG_SCHED, (self.k,),
+                               self.device)
+
+    def compress_mask(self, t: int) -> torch.Tensor:
+        gen = round_tag_generator(self.srv_seed, t, TAG_COMPRESS,
+                                  self.device)
+        perm = torch.randperm(self.d, generator=gen, device=self.device)
+        return perm[:self.s].to(torch.int32)
+
+    def quant_uniform(self, t: int) -> torch.Tensor:
+        return counter_uniform(self.srv_seed, t, TAG_QUANT,
+                               (self.m, self.s), self.device)
 
 
 class ArrayDraws:
     """Replays given draws: ``latencies`` (R+1, K) and ``batch_plan``
     (R+1, K, M, B) for rounds 0..R, ``channel`` (R, K) and ``noise`` (R, d)
-    for rounds 0..R-1 — the noise already scaled by sigma_n. A draw left
-    None is one the run must not ask for (a host-mode server draws its
-    latencies and plans on the host)."""
+    for rounds 0..R-1 — the noise already scaled by sigma_n. The cohort,
+    scenario and compressed branches add ``priority`` (R, K), ``avail`` and
+    ``drop`` (R, K) masks, ``compress_mask`` (R+1, s), ``quant_uniform``
+    (R+1, m, s), and the static ``traits`` (a ``ScenarioTraits``). A draw
+    left None is one the run must not ask for (a host-mode server draws
+    its latencies and plans on the host)."""
 
     def __init__(self, latencies=None, channel=None, noise=None,
-                 batch_plan=None, device=None):
+                 batch_plan=None, device=None, *, priority=None,
+                 avail=None, drop=None, compress_mask=None,
+                 quant_uniform=None, traits: Optional[ScenarioTraits] = None):
         self.device = resolve_device(device)
 
         def put(a, dtype):
@@ -148,6 +255,15 @@ class ArrayDraws:
         self._chan = put(channel, torch.float32)
         self._noise = put(noise, torch.float32)
         self._plan = put(batch_plan, torch.int64)
+        self._prio = put(priority, torch.float32)
+        self._avail = put(avail, torch.bool)
+        self._drop = put(drop, torch.bool)
+        self._mask = put(compress_mask, torch.int32)
+        self._quant = put(quant_uniform, torch.float32)
+        self.traits = None if traits is None else ScenarioTraits(
+            *(put(a, dt) for a, dt in zip(
+                traits, (torch.int32, torch.float32, torch.int32,
+                         torch.int32))))
 
     def _at(self, arr, r: int, what: str):
         if arr is None:
@@ -168,6 +284,19 @@ class ArrayDraws:
 
     def batch_plan(self, r: int):
         return self._at(self._plan, r, "batch plans")
+
+    def scenario_masks(self, t: int):
+        return (self._at(self._avail, t, "availability masks"),
+                self._at(self._drop, t, "dropout masks"))
+
+    def sched_priority(self, r: int):
+        return self._at(self._prio, r, "slot priorities")
+
+    def compress_mask(self, t: int):
+        return self._at(self._mask, t, "randmask supports")
+
+    def quant_uniform(self, t: int):
+        return self._at(self._quant, t, "int8 dither uniforms")
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +333,96 @@ def eq25_factors(pending, starts, global_vec, prev_global, stal, omega):
     return deltas, rho, theta
 
 
+def compressed_round_factors(values, idx, resid, resid_idx, global_vec,
+                             prev_global, stal, omega, scale=None,
+                             eps=1e-12):
+    """Stage 2 over the compressed cohort plane: the stats run on the
+    (m, s) transmitted values and the EF residuals on their supports
+    (``ops.round_stats_compressed``), never a dense (m, d) row. theta sees
+    each slot's full reconstruction <v + e, gdir>; the payload norm is
+    ||v||^2, the transmitted energy that (7) caps.
+
+    Returns (rho, theta, w_norm2)."""
+    gdir = global_vec - prev_global
+    dots, dn2, pn2, gn2 = round_stats_compressed(values, idx, resid,
+                                                 resid_idx, gdir,
+                                                 scale=scale)
+    eps = f32(eps)
+    den = torch.sqrt(torch.clamp_min(dn2, eps) * torch.clamp_min(gn2, eps))
+    cos = torch.where(torch.sqrt(gn2) < f32(1e-12), torch.zeros_like(dots),
+                      dots / den)
+    return similarity_factor(cos), staleness_factor(stal, omega), pn2
+
+
+def _compress_plane(comp, *, rcfg: RoundCfg, streams: RoundStreams, t: int):
+    """Compress freshly trained (m, d) f32 rows (EF-compensated deltas)
+    into the slot planes. Support: s >= d is the identity (an arange
+    support, the dense rows kept whole), top-k takes each row's s
+    largest-|.| coordinates, randmask the round's shared mask. Storage:
+    f32, bf16 (round trip) or int8 (per-row absmax, stochastic rounding
+    on the round's dither). The EF residual is the exact f32 complement
+    of the row against its stored reconstruction, re-sparsified to s.
+
+    Returns (stored (m, s), idx (m, s) i32, scale (m,) | None,
+    resid (m, s) | None, resid_idx (m, s) | None)."""
+    m, d = comp.shape
+    s = rcfg.compress_s
+    if s >= d:
+        idx = torch.arange(d, dtype=torch.int32,
+                           device=comp.device).repeat(m, 1)
+        vals = comp
+    elif rcfg.compress == "topk":
+        idx = topk_support(comp, s)
+        vals = gather_rows(comp, idx)
+    else:                                                   # randmask
+        idx = streams.compress_mask(t)[None].repeat(m, 1)
+        vals = gather_rows(comp, idx)
+    scale = None
+    if rcfg.slot_dtype == "int8":
+        stored, scale = quantize_int8_stochastic(vals,
+                                                 streams.quant_uniform(t))
+        v_hat = dequantize_int8(stored, scale)
+    elif rcfg.slot_dtype == "bfloat16":
+        stored = vals.to(torch.bfloat16)
+        v_hat = stored.float()
+    else:
+        stored = v_hat = vals
+    if not rcfg.error_feedback:
+        return stored, idx, scale, None, None
+    e_val, e_idx = sparsify(ef_residual(comp, idx, v_hat), s)
+    return stored, idx, scale, e_val, e_idx
+
+
+def _scatter_any(k: int, rows: torch.Tensor, flags: torch.Tensor):
+    """(K,) bool: client c is set iff some slot j with ``flags[j]`` has
+    ``rows[j] == c`` (the reference's ``zeros.at[rows].max(flags)``). A
+    dead slot may repeat an id, so this reduces with max, never writes."""
+    out = torch.zeros((k,), dtype=torch.int32, device=rows.device)
+    return out.scatter_reduce(0, rows.long(), flags.to(torch.int32),
+                              "amax") > 0
+
+
+def _set_rows(plane: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+              flags: torch.Tensor) -> torch.Tensor:
+    """A copy of the (K, ...) ``plane`` with row ``rows[j]`` set to
+    ``vals[j]`` for every slot j under ``flags`` (the reference's
+    ``plane.at[where(flags, rows, K)].set(vals, mode="drop")``). The
+    flagged rows are distinct; an unflagged slot may repeat a flagged
+    slot's id, so every slot writes the value its row ends with and the
+    duplicate writes agree."""
+    k, m = plane.shape[0], rows.shape[0]
+    rows = rows.long()
+    slot = torch.where(flags, torch.arange(m, device=rows.device),
+                       torch.full_like(rows, -1))
+    owner = torch.full((k,), -1, dtype=torch.int64, device=rows.device)
+    owner = owner.scatter_reduce(0, rows, slot, "amax")[rows]
+    has = (owner >= 0).reshape((m,) + (1,) * (plane.dim() - 1))
+    new = torch.where(has, vals[owner.clamp_min(0)], plane[rows])
+    out = plane.clone()
+    out[rows] = new
+    return out
+
+
 def constraint7_powers(powers, h, p_max: float, w_norm2=None, payload=None):
     """Stage 4: p_k <- min(p_k, |h_k| sqrt(P_max / ||w_k||^2)). The fused
     round passes the payload norms of its stage-2 sweep; the host server
@@ -218,19 +437,55 @@ def constraint7_powers(powers, h, p_max: float, w_norm2=None, payload=None):
 # the round transition
 # ---------------------------------------------------------------------------
 
+def _round_time(t: int, delta_t: float) -> float:
+    """The reference's (t + 1).astype(f32) * f32(delta_t), on the host."""
+    return float(np.float32(t + 1) * np.float32(delta_t))
+
+
+def _upload_masks(ready, streams: RoundStreams, t: int):
+    """(uploaders, restarters, available) at slot t. Without scenario
+    masks all three are the ready set (``available`` None); with them an
+    unavailable-but-ready client holds its update and stays ready, and a
+    dropped upload is lost but the client still restarts."""
+    if streams.scenario is None:
+        return ready, ready, None
+    avail, drop = streams.scenario(t)
+    return ready & avail & ~drop, ready & avail, avail
+
+
+def _metrics(b, stal, beta, varsigma, p2_obj):
+    n_upl = b.sum()
+    denom = torch.clamp_min(n_upl, 1.0)
+    return {
+        "n_participants": n_upl,
+        "mean_staleness": (stal * b).sum() / denom,
+        "beta_mean": (beta * b).sum() / denom,
+        "varsigma": torch.where(varsigma > f32(VARSIGMA_MIN), varsigma,
+                                torch.zeros_like(varsigma)),
+        # a zero-uploader P2 is vacuous: report inf, like the reference
+        "p2_objective": torch.where(n_upl > 0, p2_obj,
+                                    torch.full_like(p2_obj, float("inf"))),
+    }
+
+
 def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
                      streams: RoundStreams):
     """One PAOTA aggregation period. Returns (next carry, metrics), the
-    metrics being 0-d device tensors named in ``DEVICE_METRICS``."""
+    metrics being 0-d device tensors named in ``DEVICE_METRICS``. With
+    ``rcfg.cohort_size`` the active-cohort form runs
+    (``_cohort_round_step``)."""
+    if rcfg.cohort_size:
+        return _cohort_round_step(carry, rcfg=rcfg, streams=streams)
     t = carry.t
-    # the reference's (t + 1).astype(f32) * f32(delta_t), on the host
-    time = float(np.float32(t + 1) * np.float32(rcfg.delta_t))
+    time = _round_time(t, rcfg.delta_t)
 
-    # 1. scheduler advance: who finished inside this period, staleness
+    # 1. scheduler advance: who finished inside this period, staleness;
+    # the scenario masks gate who uploads and who restarts
     ready, stal = sched_advance(carry.ready, carry.busy_lat,
                                 carry.model_round, t, rcfg.delta_t)
-    b = ready.to(torch.float32)
-    stal = stal.to(torch.float32)        # 0 for every client not ready
+    upl, restart, _ = _upload_masks(ready, streams, t)
+    b = upl.to(torch.float32)
+    stal = torch.where(upl, stal, torch.zeros_like(stal)).to(torch.float32)
 
     # 2. eq.-25 factors + payload norms: sweep 1 of 2 over the delta plane
     payload = carry.deltas if rcfg.transmit_delta else carry.pending
@@ -255,37 +510,176 @@ def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
         carry.global_vec, carry.prev_global, agg, varsigma,
         delta=rcfg.transmit_delta)
 
-    # 7. broadcast w^{r+1} to the uploaders, who restart local training;
-    # their delta rows are refreshed as f32 trained - w_g^{r+1}
+    # 7. broadcast w^{r+1} to the restarters (the uploaders, and the
+    # dropped uploaders whose update was lost), who restart local
+    # training; their delta rows are refreshed as f32 trained - w_g^{r+1}
     t_next = t + 1
     n_ready, n_lat, n_model = sched_broadcast(
-        ready, carry.busy_lat, carry.model_round, ready,
+        ready, carry.busy_lat, carry.model_round, restart,
         streams.latencies(t_next), t_next)
     trained = streams.local_train(new_global, t_next)
-    rows = ready[:, None]
-    if carry.pending is not None:
-        pending = torch.where(rows, trained, carry.pending)
-        deltas = torch.where(rows, pending - new_global, carry.deltas)
-    else:
-        pending = None
-        deltas = torch.where(rows, trained - new_global, carry.deltas)
-
-    n_upl = b.sum()
-    denom = torch.clamp_min(n_upl, 1.0)
-    out = {
-        "n_participants": n_upl,
-        "mean_staleness": (stal * b).sum() / denom,
-        "beta_mean": (beta * b).sum() / denom,
-        "varsigma": torch.where(varsigma > f32(VARSIGMA_MIN), varsigma,
-                                torch.zeros_like(varsigma)),
-        # a zero-uploader P2 is vacuous: report inf, like the reference
-        "p2_objective": torch.where(n_upl > 0, p2_obj,
-                                    torch.full_like(p2_obj, float("inf"))),
-    }
+    pending, deltas = _refresh_rows(carry, restart, trained, new_global)
     nxt = RoundCarry(t=t_next, time=time, ready=n_ready, busy_lat=n_lat,
                      model_round=n_model, global_vec=new_global,
                      prev_global=new_prev, pending=pending, deltas=deltas)
-    return nxt, out
+    return nxt, _metrics(b, stal, beta, varsigma, p2_obj)
+
+
+def _refresh_rows(carry: RoundCarry, take, trained, new_global):
+    """The payload rows under ``take`` get the freshly trained models:
+    pending (when carried) and the f32 delta trained - w_g^{r+1}."""
+    rows = take[:, None]
+    if carry.pending is not None:
+        pending = torch.where(rows, trained, carry.pending)
+        return pending, torch.where(rows, pending - new_global,
+                                    carry.deltas)
+    return None, torch.where(rows, trained - new_global, carry.deltas)
+
+
+def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
+                       streams: RoundStreams):
+    """Active-cohort form of the round: the (K,) state plane advances as
+    in the dense round, and the per-row stages (stats, P2, (7), AirComp)
+    run over the m slot rows. Slot turnover: departing occupants
+    (uploaded, or upload dropped) free their slots, and available idle
+    clients fill them in priority order (a stable descending sort, ties to
+    the lower id, as ``lax.top_k``); departed-but-unscheduled clients go
+    idle at ``busy_lat = +inf``. With compression the stats and AirComp
+    run on the (m, s) plane, and the EF residuals are handed off through
+    the (K, s) parked plane: park, then resume, then consume. Stage for
+    stage ``repro.fl.runtime._cohort_round_step``."""
+    t = carry.t
+    time = _round_time(t, rcfg.delta_t)
+    k = carry.ready.shape[0]
+    occ, live = carry.slot_client, carry.slot_live
+    m = occ.shape[0]
+    occ_l = occ.long()
+    dev = occ.device
+
+    # 1. (K,) state plane + scenario masks, gathered to the slots
+    ready, stal_k = sched_advance(carry.ready, carry.busy_lat,
+                                  carry.model_round, t, rcfg.delta_t)
+    upl_k, depart_k, avail = _upload_masks(ready, streams, t)
+    if avail is None:
+        avail = torch.ones((k,), dtype=torch.bool, device=dev)
+    b = (live & upl_k[occ_l]).to(torch.float32)
+    stal = torch.where(live, stal_k[occ_l],
+                       torch.zeros_like(occ)).to(torch.float32)
+
+    # 2-4. stats (compressed: on the (m, s) plane; the identity support
+    # and the uncompressed cohort: the dense stats), P2, (7)
+    payload = carry.deltas if rcfg.transmit_delta else carry.pending
+    d_model = carry.global_vec.shape[0]
+    identity = bool(rcfg.compress) and rcfg.compress_s >= d_model
+    if rcfg.compress:
+        v_id = (carry.deltas if carry.slot_scale is None
+                else dequantize_int8(carry.deltas, carry.slot_scale))
+        if identity:
+            rho, theta, w_norm2 = round_factors(
+                v_id, None, carry.global_vec, carry.prev_global, stal,
+                rcfg.omega)
+        else:
+            rho, theta, w_norm2 = compressed_round_factors(
+                carry.deltas, carry.slot_idx, carry.slot_resid,
+                carry.slot_resid_idx, carry.global_vec, carry.prev_global,
+                stal, rcfg.omega, scale=carry.slot_scale)
+    else:
+        rho, theta, w_norm2 = round_factors(
+            carry.deltas, None if rcfg.transmit_delta else carry.pending,
+            carry.global_vec, carry.prev_global, stal, rcfg.omega)
+    p_max = torch.full((m,), f32(rcfg.p_max_watts), device=dev)
+    beta, p2_obj = waterfill_beta(rho, theta, p_max, b, rcfg.c1, rcfg.c0)
+    powers = power_from_beta(beta, rho, theta, p_max)
+    h = torch.where(live, streams.channel(t)[occ_l],
+                    torch.zeros((m,), device=dev))
+    powers = constraint7_powers(powers, h, rcfg.p_max_watts, w_norm2)
+
+    # 5+6. AirComp over the slot rows (compressed: gather_superpose) and
+    # the zero-uploader-guarded update
+    if rcfg.compress and not identity:
+        agg, varsigma = paota_aggregate_compressed(
+            carry.deltas, carry.slot_idx, powers, b, streams.noise(t),
+            d_model, scale=carry.slot_scale)
+    else:
+        agg, varsigma = paota_aggregate_stacked(
+            v_id if rcfg.compress else payload, powers, b, streams.noise(t))
+    new_global, new_prev = guarded_global_update(
+        carry.global_vec, carry.prev_global, agg, varsigma,
+        delta=rcfg.transmit_delta)
+
+    # 7a. slot turnover: the highest-priority available idle clients fill
+    # the freed slots, in slot order
+    depart = live & depart_k[occ_l]
+    stay = live & ~depart
+    in_flight = _scatter_any(k, occ, stay)
+    score = torch.where(avail & ~in_flight, streams.sched_priority(t),
+                        torch.full((k,), float("-inf"), device=dev))
+    top = torch.sort(score, descending=True, stable=True)
+    top_score, top_ids = top.values[:m], top.indices[:m]
+    n_cand = (top_score > float("-inf")).sum()
+    free = ~stay
+    free_rank = torch.cumsum(free.to(torch.int64), 0) - 1
+    take = free & (free_rank < n_cand)
+    pick = top_ids[free_rank.clamp(0, m - 1)].to(torch.int32)
+    new_occ = torch.where(take, pick, occ)
+    new_live = stay | take
+
+    # 7b. (K,) bookkeeping: departed-but-unscheduled clients go idle,
+    # scheduled ones get the broadcast
+    sched_k = _scatter_any(k, new_occ, take)
+    t_next = t + 1
+    idle = _scatter_any(k, occ, depart) & ~sched_k
+    ready = ready & ~idle
+    busy = torch.where(idle, torch.full_like(carry.busy_lat, float("inf")),
+                       carry.busy_lat)
+    n_ready, n_lat, n_model = sched_broadcast(
+        ready, busy, carry.model_round, sched_k, streams.latencies(t_next),
+        t_next)
+
+    # EF hand-off: park every departing slot's residual on its client's
+    # row, then the scheduled occupants resume their parked rows (a
+    # same-round depart -> reschedule resumes what it just parked), then
+    # the consumed rows zero
+    resid_val = resid_idx = pr_val = pr_idx = None
+    if rcfg.compress and rcfg.error_feedback:
+        resid_val = _set_rows(carry.resid_val, occ, carry.slot_resid, depart)
+        resid_idx = _set_rows(carry.resid_idx, occ, carry.slot_resid_idx,
+                              depart)
+        new_l = new_occ.long()
+        pr_val = torch.where(take[:, None], resid_val[new_l],
+                             torch.zeros((), device=dev))
+        pr_idx = resid_idx[new_l]
+        resid_val = _set_rows(resid_val, new_occ,
+                              torch.zeros_like(carry.slot_resid), take)
+
+    # 7c. cohort training: only the m slot rows; the newly scheduled slots
+    # take their rows, retained slots keep their payload, dead slots keep
+    # masked garbage
+    trained = streams.cohort_train(new_global, t_next, new_occ)
+    nxt = RoundCarry(t=t_next, time=time, ready=n_ready, busy_lat=n_lat,
+                     model_round=n_model, global_vec=new_global,
+                     prev_global=new_prev, pending=None, deltas=carry.deltas,
+                     slot_client=new_occ, slot_live=new_live,
+                     resid_val=resid_val, resid_idx=resid_idx)
+    if rcfg.compress:
+        comp = trained - new_global[None]
+        if pr_val is not None:
+            comp = comp + scatter_rows(pr_val, pr_idx, d_model)
+        stored, idx_new, scale_new, e_val, e_idx = _compress_plane(
+            comp, rcfg=rcfg, streams=streams, t=t_next)
+        rows = take[:, None]
+        nxt.deltas = torch.where(rows, stored, carry.deltas)
+        nxt.slot_idx = torch.where(rows, idx_new, carry.slot_idx)
+        if scale_new is not None:
+            nxt.slot_scale = torch.where(take, scale_new, carry.slot_scale)
+        if e_val is not None:
+            nxt.slot_resid = torch.where(rows, e_val, carry.slot_resid)
+            nxt.slot_resid_idx = torch.where(rows, e_idx,
+                                             carry.slot_resid_idx)
+    else:
+        nxt.pending, nxt.deltas = _refresh_rows(carry, take, trained,
+                                                new_global)
+    return nxt, _metrics(b, stal, beta, varsigma, p2_obj)
 
 
 def init_round_carry(vec, *, streams: RoundStreams,
@@ -303,6 +697,46 @@ def init_round_carry(vec, *, streams: RoundStreams,
         global_vec=vec, prev_global=vec,
         pending=trained if keep_pending else None,
         deltas=trained - vec)
+
+
+def init_cohort_carry(vec, *, streams: RoundStreams, k: int, m: int,
+                      keep_pending: bool = True,
+                      rcfg: Optional[RoundCfg] = None) -> RoundCarry:
+    """Round-0 kick-off of the active-cohort carry: clients 0..m-1 fill the
+    slots and get the broadcast; everyone else idles at busy_lat = +inf
+    until a slot frees. With ``rcfg.compress`` the round-0 deltas go
+    through the same ``_compress_plane`` the rounds use, with empty (K, s)
+    parked-residual planes when error feedback is on."""
+    if not 1 <= m <= k:
+        raise ValueError(f"cohort_size={m} must lie in [1, K={k}]")
+    dev = vec.device
+    occ = torch.arange(m, dtype=torch.int32, device=dev)
+    live = torch.ones((m,), dtype=torch.bool, device=dev)
+    lat = streams.latencies(0)
+    busy = torch.full_like(lat, float("inf"))
+    busy[:m] = lat[:m]
+    trained = streams.cohort_train(vec, 0, occ)
+    carry = RoundCarry(
+        t=0, time=0.0,
+        ready=torch.zeros((k,), dtype=torch.bool, device=dev),
+        busy_lat=busy,
+        model_round=torch.zeros((k,), dtype=torch.int32, device=dev),
+        global_vec=vec, prev_global=vec,
+        pending=trained if keep_pending else None,
+        deltas=trained - vec, slot_client=occ, slot_live=live)
+    if rcfg is None or not rcfg.compress:
+        return carry
+    stored, idx, scale, e_val, e_idx = _compress_plane(
+        trained - vec[None], rcfg=rcfg, streams=streams, t=0)
+    s = stored.shape[1]
+    carry.pending, carry.deltas = None, stored
+    carry.slot_idx, carry.slot_scale = idx, scale
+    carry.slot_resid, carry.slot_resid_idx = e_val, e_idx
+    if rcfg.error_feedback:
+        carry.resid_val = torch.zeros((k, s), dtype=torch.float32,
+                                      device=dev)
+        carry.resid_idx = torch.zeros((k, s), dtype=torch.int32, device=dev)
+    return carry
 
 
 def scan_rounds(carry: RoundCarry, n_rounds: int, *, rcfg: RoundCfg,

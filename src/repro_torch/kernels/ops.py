@@ -11,6 +11,7 @@ import torch
 from repro_torch.device import f32
 from repro_torch.kernels import aircomp_sum as _ac
 from repro_torch.kernels import cosine_sim as _cs
+from repro_torch.kernels import gather_superpose as _gs
 from repro_torch.kernels import round_stats as _rs
 
 
@@ -62,3 +63,23 @@ def cosine_sim(deltas, g, eps: float = 1e-12):
     gn = torch.sqrt(torch.clamp_min((g * g).sum(), eps))
     return parts[:, 0] / torch.clamp_min(
         torch.sqrt(torch.clamp_min(parts[:, 1], eps)) * gn, eps)
+
+
+def gather_superpose(values, idx, bp, noise, *, d: int, scale=None,
+                     vs_min: float = 1e-12):
+    """AirComp over the (m, s) compressed cohort plane: ``(agg (d,) f32,
+    raw varsigma f32 scalar)``. ``scale`` folds int8 dequantization into
+    the weights; varsigma is the raw sum of bp."""
+    fn = (_gs.gather_superpose_cuda
+          if _route(values.device, "gather_superpose")
+          else _gs.gather_superpose_plain)
+    return fn(values, idx, bp, noise, d=d, scale=scale, vs_min=vs_min)
+
+
+def round_stats_compressed(values, idx, resid, resid_idx, g, scale=None):
+    """Round stats over the compressed plane and its EF residuals,
+    ``(dots, dn2, pn2, gn2)``. Plain torch on both devices, as the
+    reference's is plain jnp on every backend (a gather-bound sweep with
+    no stripe contraction): ``round_stats.compressed_round_stats``."""
+    return _rs.compressed_round_stats(values, idx, resid, resid_idx, g,
+                                      scale=scale)

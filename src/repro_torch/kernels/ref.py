@@ -45,3 +45,16 @@ def cosine_partials_ref(deltas, g):
     """(K, 2) [dot_k, ||delta_k||^2] as f32."""
     d64 = deltas.double()
     return torch.stack([d64 @ g.double(), (d64 * d64).sum(1)], 1).float()
+
+
+def gather_superpose_ref(values, idx, bp, noise, d: int, scale=None,
+                         vs_min: float = 1e-12):
+    """((sum_k w_k scatter(v_k) + noise) / max(sum bp, vs_min), sum bp) as
+    f32, with w = bp * scale rounded to f32 first, as the kernels do."""
+    w = (bp if scale is None else bp * scale).double()
+    acc = torch.zeros((d,), dtype=torch.float64, device=values.device)
+    contrib = w[:, None] * values.double()
+    acc.index_add_(0, idx.long().reshape(-1), contrib.reshape(-1))
+    raw = bp.double().sum()
+    agg = (acc + noise.double()) / torch.clamp_min(raw, vs_min)
+    return agg.float(), raw.float()

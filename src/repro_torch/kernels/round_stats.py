@@ -105,3 +105,31 @@ def round_stats_cuda(deltas, g, payload=None):
                            f"{rc}")
     launches += 1
     return stats, gn2
+
+
+def compressed_round_stats(values, idx, resid, resid_idx, g, scale=None):
+    """Round stats over the compressed cohort plane (the reference's
+    ``compressed_round_stats``, plain on every device): (m, s) transmitted
+    values on their supports ``idx`` and the (m, s) error-feedback
+    residuals on theirs, so eq. 25 sees each slot's full reconstruction
+    without a dense (m, d) row:
+
+        dot_k = <v_k, g[idx_k]> + <e_k, g[eidx_k]>
+        dn2_k = ||v_k||^2 + ||e_k||^2
+        pn2_k = ||v_k||^2      (the transmitted energy, what (7) caps)
+        gn2   = ||g||^2
+
+    ``scale`` dequantizes int8 values. Returns ``(dots, dn2, pn2, gn2)``,
+    all f32."""
+    g32 = g.reshape(-1).float()
+    v32 = values.float()
+    if scale is not None:
+        v32 = v32 * scale.float()[:, None]
+    dots = torch.einsum("ms,ms->m", v32, g32[idx.long()])
+    pn2 = torch.einsum("ms,ms->m", v32, v32)
+    dn2 = pn2
+    if resid is not None:
+        r32 = resid.float()
+        dots = dots + torch.einsum("ms,ms->m", r32, g32[resid_idx.long()])
+        dn2 = dn2 + torch.einsum("ms,ms->m", r32, r32)
+    return dots, dn2, pn2, (g32 * g32).sum()

@@ -21,6 +21,14 @@ accuracy) and writes the trajectory CSV with the reference's columns.
 (``FusedPAOTA``, counter draws), with the baselines on the batched engine
 as the reference does. The reference's ``legacy`` and ``sharded`` engines
 are not ported and are refused by name; its other flags are not ported.
+
+With ``--engine fused``, ``--cohort-size m`` runs the active-cohort round
+(model rows only for the m in-flight slots), and ``--compress
+topk|randmask`` with ``--compress-ratio s/d`` sparsifies the slot payloads
+to (m, s) planes with per-client error-feedback residuals
+(``--no-error-feedback`` drops them), stored as ``--slot-dtype
+float32|bfloat16|int8`` and superposed by the ``gather_superpose`` kernel
+(compression rides ``--transmit delta``).
 """
 from __future__ import annotations
 
@@ -64,6 +72,11 @@ class BenchSetting:
     engine: str = "batched"      # batched: host-path PAOTAServer; fused:
                                  # FusedPAOTA (baselines stay batched)
     transmit: str = "model"      # PAOTA payload: "model" | "delta"
+    cohort_size: int = 0         # fused PAOTA: m in-flight slots (0: dense)
+    compress: str = ""           # fused cohort payloads: "" | topk | randmask
+    compress_ratio: float = 1.0  # kept fraction s/d
+    slot_dtype: str = ""         # "" (f32) | float32 | bfloat16 | int8
+    error_feedback: bool = True
 
     @classmethod
     def from_env(cls, **kw):
@@ -104,7 +117,11 @@ def make_server(name: str, s: BenchSetting, clients, params, device):
                           transmit=s.transmit)
         if s.engine == "fused":
             return FusedPAOTA(params, clients, chan, sched, cfg,
-                              device=device)
+                              device=device, cohort_size=s.cohort_size,
+                              compress=s.compress or None,
+                              compress_ratio=s.compress_ratio,
+                              slot_dtype=s.slot_dtype or None,
+                              error_feedback=s.error_feedback)
         return PAOTAServer(params, clients, chan, sched, cfg, device=device)
     sync = SyncConfig(n_select=s.n_select, seed=s.seed)
     if name == "local_sgd":
@@ -158,6 +175,18 @@ def main(argv=None):
                          "whole PAOTA round on the device (counter draws; "
                          "baselines stay batched)")
     ap.add_argument("--transmit", default="model", choices=["model", "delta"])
+    ap.add_argument("--cohort-size", type=int, default=0,
+                    help="fused: active-cohort round with m slots")
+    ap.add_argument("--compress", default="", choices=["", "topk",
+                                                       "randmask"],
+                    help="fused cohort: compressed slot payloads")
+    ap.add_argument("--compress-ratio", type=float, default=1.0,
+                    help="kept fraction s/d of each compressed row")
+    ap.add_argument("--slot-dtype", default="",
+                    choices=["", "float32", "bfloat16", "int8"],
+                    help="storage of the compressed slot values")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="drop the compressed slots' EF residuals")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--out", default="fl_noniid_torch.csv")
     args = ap.parse_args(argv)
@@ -165,16 +194,27 @@ def main(argv=None):
         raise NotImplementedError(
             f"--engine {args.engine} selects a reference engine the port "
             f"does not have; the ported engines are {ENGINES}")
+    if args.engine != "fused" and (args.cohort_size or args.compress
+                                   or args.slot_dtype):
+        raise ValueError("--cohort-size, --compress and --slot-dtype are "
+                         "options of the fused round: pass --engine fused")
     dev = resolve_device(args.device)
 
     s = BenchSetting.from_env(n_rounds=args.rounds, n_clients=args.clients,
                               n0_dbm_hz=args.n0, solver=args.solver,
-                              engine=args.engine, transmit=args.transmit)
+                              engine=args.engine, transmit=args.transmit,
+                              cohort_size=args.cohort_size,
+                              compress=args.compress,
+                              compress_ratio=args.compress_ratio,
+                              slot_dtype=args.slot_dtype,
+                              error_feedback=not args.no_error_feedback)
     clients, params, data = build_world(s)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"PAOTA vs Local SGD vs COTAF on {dev} ({name}): "
           f"K={s.n_clients}, rounds={s.n_rounds}, engine={s.engine}, "
-          f"transmit={s.transmit}")
+          f"transmit={s.transmit}"
+          + (f", cohort={s.cohort_size}, compress={s.compress or 'none'}"
+             if s.cohort_size else ""))
     all_rows = []
     for algo in ALGORITHMS:
         rows = run_algorithm(algo, s, clients, params, data, dev)

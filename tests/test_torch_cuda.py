@@ -204,3 +204,96 @@ def test_host_server_launches_once_per_round_with_uploaders(cuda,
     assert rs.launches == busy
     assert agg == ((busy, 0) if use_kernel else (0, busy))
     assert np.isfinite(srv.global_vec).all()
+
+
+def _gs_case(dev, m, s, d, dtype, with_scale, dead=False):
+    """(values, idx, bp, noise, scale) on the card: distinct indices in each
+    row, dead rows with weight 0 holding garbage."""
+    gen = torch.Generator(device=dev).manual_seed(m * 7919 + s * 31 + d)
+    idx = torch.stack([torch.randperm(d, generator=gen, device=dev)[:s]
+                       for _ in range(m)]).to(torch.int32)
+    v = 1e-2 * torch.randn((m, s), generator=gen, device=dev)
+    scale = None
+    if dtype == torch.int8:
+        v = torch.randint(-127, 128, (m, s), generator=gen,
+                          device=dev).to(torch.int8)
+    else:
+        v = v.to(dtype)
+    if with_scale:
+        scale = 1e-4 + 1e-3 * torch.rand((m,), generator=gen, device=dev)
+    bp = 0.1 + 15.0 * torch.rand((m,), generator=gen, device=dev)
+    if dead:
+        bp[1::3] = 0.0
+    noise = 2.8e-7 * torch.randn((d,), generator=gen, device=dev)
+    return v.contiguous(), idx, bp, noise, scale
+
+
+@pytest.mark.parametrize("m,s,d", [(1, 1, 1), (3, 37, 1000), (5, 129, 257),
+                                   (64, 504, 8070), (256, 1024, 16384)])
+@pytest.mark.parametrize("dtype,with_scale", [
+    (torch.float32, False), (torch.float32, True), (torch.bfloat16, False),
+    (torch.int8, True)])
+def test_gather_superpose_kernel_matches_twin(cuda, m, s, d, dtype,
+                                              with_scale):
+    """Each value type, ragged d (not a multiple of the 128-column stripe)
+    and m*s not a multiple of the block's 256 threads, dead rows
+    included: against the twin at the kernel tolerances, varsigma the raw
+    sum of bp."""
+    from repro_torch.kernels import gather_superpose as gs
+    v, idx, bp, noise, scale = _gs_case(cuda, m, s, d, dtype, with_scale,
+                                        dead=m > 2)
+    before = gs.launches
+    got, raw = gs.gather_superpose_cuda(v, idx, bp, noise, d=d, scale=scale)
+    torch.cuda.synchronize()
+    assert gs.launches == before + 1
+    want, want_raw = gs.gather_superpose_plain(v, idx, bp, noise, d=d,
+                                               scale=scale)
+    tol = (_tol(dtype) if dtype == torch.bfloat16
+           else dict(rtol=3e-5, atol=3e-5))
+    torch.testing.assert_close(got, want, **tol)
+    torch.testing.assert_close(raw, want_raw, rtol=3e-5, atol=0.0)
+    again, _ = gs.gather_superpose_cuda(v, idx, bp, noise, d=d, scale=scale)
+    assert torch.equal(again, got)            # no atomics: bit-identical
+
+
+def test_gather_superpose_all_dead_rows_give_noise_over_vs_min(cuda):
+    from repro_torch.kernels import gather_superpose as gs
+    v, idx, bp, noise, _ = _gs_case(cuda, 4, 50, 300, torch.float32, False)
+    got, raw = gs.gather_superpose_cuda(v, idx, torch.zeros_like(bp), noise,
+                                        d=300)
+    torch.cuda.synchronize()
+    assert float(raw) == 0.0
+    torch.testing.assert_close(got, noise / 1e-12, rtol=3e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(compress="randmask", compress_ratio=1 / 16),
+    dict(compress="topk", compress_ratio=1 / 16),
+    dict(compress="randmask", compress_ratio=1 / 16, slot_dtype="int8",
+         error_feedback=False)],
+    ids=["uncompressed", "randmask", "topk", "int8"])
+def test_cohort_round_launches(cuda, kw):
+    """The cohort round on the card: compressed, gather_superpose launches
+    once per round and the dense sweeps never; uncompressed, the reverse."""
+    from repro_torch.core import ChannelConfig, SchedulerConfig
+    from repro_torch.data.partition import partition_noniid
+    from repro_torch.data.pipeline import build_federation
+    from repro_torch.data.synthetic import make_mnist_like
+    from repro_torch.fl import FLClient, FusedPAOTA, PAOTAConfig
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import gather_superpose as gs
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.models.mlp import init_mlp_params, mlp_loss
+    x, y, _, _ = make_mnist_like(n_train=2000, n_test=10)
+    parts = partition_noniid(y, n_clients=12, seed=0)
+    clients = [FLClient(d, mlp_loss, 32, 0.1, 5)
+               for d in build_federation(x, y, parts)]
+    drv = FusedPAOTA(init_mlp_params(0), clients, ChannelConfig(),
+                     SchedulerConfig(n_clients=12, seed=1),
+                     PAOTAConfig(transmit="delta"), cohort_size=4, **kw)
+    drv.advance(1)
+    rs.launches = ac.launches = gs.launches = 0
+    drv.advance(8)
+    counts = (rs.launches, ac.launches, gs.launches)
+    assert counts == ((0, 0, 8) if kw else (8, 8, 0))
+    assert np.isfinite(drv.global_vec).all()

@@ -189,8 +189,9 @@ def test_host_server_hygiene(data):
         make(tfl.PAOTAConfig(solver="cplex"))
     with pytest.raises(ValueError, match="counter"):
         make(tfl.PAOTAConfig(rng="counter"))
-    with pytest.raises(NotImplementedError, match="scenario"):
-        tcore.SemiAsyncScheduler(tcore.SchedulerConfig(), scenario=object())
+    with pytest.raises(ValueError, match="scenario simulation needs counter"):
+        tcore.SemiAsyncScheduler(tcore.SchedulerConfig(),
+                                 scenario=tcore.ScenarioConfig())
     srv = make(tfl.PAOTAConfig(rng="counter", solver="waterfill_jnp"),
                rng="counter")
     assert srv.round()["round"] == 0

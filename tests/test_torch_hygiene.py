@@ -53,8 +53,9 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     for mod in ("fl.fused", "fl.server", "fl.baselines", "fl.metrics",
-                "core.dinkelbach", "core.milp", "kernels.ops",
-                "kernels.cosine_sim", "launch.fl_train"):
+                "core.dinkelbach", "core.milp", "core.compress",
+                "kernels.ops", "kernels.cosine_sim",
+                "kernels.gather_superpose", "launch.fl_train"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -91,8 +92,8 @@ def test_default_device_is_the_gpu_and_never_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("knob,value", [
     ("params_mode", "pytree"), ("pending_dtype", "bfloat16"),
-    ("cohort_size", 4), ("scenario", object()), ("compress", "topk"),
-    ("slot_dtype", "int8"), ("faults", object()), ("screen", True),
+    ("screen_max_norm", 1.0), ("checkpoint_dir", "ckpt"),
+    ("faults", object()), ("screen", True),
     ("divergence_factor", 2.0), ("checkpoint_every", 5)])
 def test_unported_branches_are_refused_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
@@ -101,7 +102,8 @@ def test_unported_branches_are_refused_by_name(knob, value):
 
 def test_off_values_of_unported_knobs_are_accepted():
     drv = _server(device="cpu", params_mode="raveled", cohort_size=0,
-                  compress=None, screen=False, checkpoint_every=0)
+                  compress=None, screen=False, checkpoint_every=0,
+                  faults=None, divergence_factor=0.0)
     assert drv.advance(2)[-1]["round"] == 1
 
 
