@@ -21,10 +21,18 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   slots), the ``gather_superpose`` kernel's path, and once more under the
   availability-cycle + dropout + lognormal + het-steps scenario;
 - the reference's million-client state plane (K = 10^6, m = 256,
-  d = 16384) on the port's runtime with fabricated local updates.
+  d = 16384) on the port's runtime with fabricated local updates;
+- the LM slice: the SSD intra-chunk and sliding-window attention kernels
+  against their twins (the reference's sweeps, the full-width mamba2 layer
+  shape, mixtral-8x22b's and zamba2-7b's attention at T = 4608,
+  W = 4096), the attention kernel through its own entry point
+  ``ops.swa_attention``, and mamba2-370m serving at full width (48
+  layers, f32, random weights from a seed): batch 8, a 1,024-token prompt
+  through the prefill step, 64 greedy decode steps, prefill -> decode
+  continuity against a full forward, and a 300-token prompt.
 
-It times the kernels and prints one JSON record per phase. Its last three
-lines are the ``kernels`` record, the card's name and power limit, and
+It times the seven kernels and prints one JSON record per phase. Its last
+three lines are the ``kernels`` record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line; without a GPU, or outside a checkout, it exits 2 at once.
 
@@ -63,6 +71,23 @@ PLANE_K, PLANE_M, PLANE_D, PLANE_ROUNDS = 10**6, 256, 16384, 10
 # the gather_superpose shapes (m, s, d): the cohort path's randmask 1/16 of
 # the MLP, and the state plane's
 GS_SHAPES = ((64, 504, 8070), (256, 1024, 16384))
+# ssd_intra_chunk (G, Q, N, P): the reference's sweep and the full-width
+# layer's G = batch 8 x 4 chunks x 32 heads at mamba2-370m's Q, N, P
+SSD_MAIN = (1024, 256, 128, 64)
+SSD_SHAPES = ((4, 32, 16, 32), (8, 64, 128, 64), (2, 256, 64, 64),
+              (3, 128, 64, 32), SSD_MAIN)
+# swa_attention: the reference's sweep (T, S, D, W, causal) and two
+# attention shapes of the zoo (H, Hkv, D) with their window
+SWA_SWEEP = ((128, 128, 64, None, True), (200, 200, 32, 64, True),
+             (256, 256, 64, 96, True), (256, 256, 128, 128, True),
+             (64, 64, 16, None, False), (96, 96, 64, 32, True),
+             (130, 130, 64, 64, True))
+SWA_ZOO = {"mixtral-8x22b": (48, 8, 128), "zamba2-7b": (32, 32, 112)}
+SWA_WINDOW, SWA_PARITY_T, SWA_TIME_T = 4096, 4608, 8192
+# mamba2-370m serving: batch, prompt, decode steps, cache, short prompt,
+# teacher-forced continuity steps
+LM_BATCH, LM_PROMPT, LM_STEPS, LM_CACHE, LM_SHORT, CONT_STEPS = (
+    8, 1024, 64, 2048, 300, 5)
 
 
 def log(record: dict) -> None:
@@ -489,22 +514,35 @@ def dense_carry_bytes(k: int, d: int) -> int:
     return 4 * (k * d + 2 * d) + k * (1 + 4 + 4)
 
 
-def _counters():
+def _counters() -> dict:
+    """Each kernel's launch counter: (module, attribute)."""
     from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import cosine_sim as cs
     from repro_torch.kernels import gather_superpose as gs
     from repro_torch.kernels import round_stats as rs
-    return rs, ac, gs
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels import swa_attention as sw
+    return {"round_stats": (rs, "launches"),
+            "superpose_normalize": (ac, "launches"),
+            "aircomp_sum": (ac, "aircomp_sum_launches"),
+            "cosine_partials": (cs, "launches"),
+            "gather_superpose": (gs, "launches"),
+            "ssd_chunk": (sc, "launches"),
+            "swa_attention": (sw, "launches")}
 
 
-def _read_counters():
-    rs, ac, gs = _counters()
-    return {"round_stats": rs.launches, "superpose_normalize": ac.launches,
-            "gather_superpose": gs.launches}
+COHORT_KERNELS = ("round_stats", "superpose_normalize", "gather_superpose")
 
 
-def _zero_counters():
-    rs, ac, gs = _counters()
-    rs.launches = ac.launches = gs.launches = 0
+def read_counters(names=None) -> dict:
+    """The launch counts of the named kernels (all seven by default)."""
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()
+            if names is None or k in names}
+
+
+def zero_counters() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
 
 
 def cohort_run(dev, data, tag, variant, kw, *, warm, rounds, scenario=None):
@@ -526,14 +564,14 @@ def cohort_run(dev, data, tag, variant, kw, *, warm, rounds, scenario=None):
                                else ScenarioConfig(**scenario)), **kw)
     acc0 = float(mlp_accuracy(drv.global_params(), test))
     torch.cuda.synchronize()
-    _zero_counters()
+    zero_counters()
     rows = drv.advance(warm)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rows += drv.advance(rounds)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = _read_counters()
+    launches = read_counters(COHORT_KERNELS)
     acc = float(mlp_accuracy(drv.global_params(), test))
     total = warm + rounds
     want = ({"round_stats": 0, "superpose_normalize": 0,
@@ -609,13 +647,13 @@ def state_plane(dev, slot_dtype):
                                   keep_pending=False, rcfg=rcfg)
         nbytes = carry_bytes(carry)
         torch.cuda.synchronize()
-        _zero_counters()
+        zero_counters()
         t0 = time.perf_counter()
         carry, outs = scan_rounds(carry, PLANE_ROUNDS, rcfg=rcfg,
                                   streams=streams)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-    launches = _read_counters()
+    launches = read_counters(COHORT_KERNELS)
     n_upl = outs["n_participants"].cpu().numpy()
     checks = {"finite": bool(torch.isfinite(carry.global_vec).all()),
               "some_uploaders": bool((n_upl > 0).any()),
@@ -635,6 +673,322 @@ def state_plane(dev, slot_dtype):
     failed = [c for c, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"state_plane {slot_dtype}: failed {failed}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 12-15: the LM slice (mamba2-370m serving; SSD and SWA kernels)
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(dev, g, q, n, p, dtype, seed):
+    """The reference's sweep inputs (tests/test_kernels.py): cum a
+    decreasing cumulative log-decay, B, C, xdt standard normal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cum = -torch.cumsum(0.05 + 0.2 * torch.rand((g, q), generator=gen,
+                                                device=dev), dim=1)
+    b = torch.randn((g, q, n), generator=gen, device=dev).to(dtype)
+    c = torch.randn((g, q, n), generator=gen, device=dev).to(dtype)
+    xdt = torch.randn((g, q, p), generator=gen, device=dev).to(dtype)
+    return cum, b, c, xdt
+
+
+def ssd_parity(dev, main_err):
+    """ssd_intra_chunk against its twin: the reference's four sweep shapes
+    and the full-width layer shape, f32 at the reference's 2e-5 and bf16 at
+    2e-2, every output, two calls bit-identical."""
+    from repro_torch.kernels import ssd_chunk as sc
+    cases, worst = 0, 0.0
+    for g, q, n, p in SSD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(dev, g, q, n, p, dtype, g + q + n + p)
+            got = sc.ssd_intra_chunk_cuda(*args)
+            again = sc.ssd_intra_chunk_cuda(*args)
+            want = sc.ssd_intra_chunk_plain(*args)
+            torch.cuda.synchronize()
+            tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+                   else dict(rtol=2e-5, atol=2e-5))
+            err = 0.0
+            for a, b, w in zip(got, again, want):
+                torch.testing.assert_close(a, w, **tol)
+                if not torch.equal(a, b):
+                    raise AssertionError("ssd_intra_chunk: two calls on the "
+                                         "same inputs differ")
+                err = max(err, float((a.float() - w.float()).abs().max()))
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            if (g, q, n, p, dtype) == SSD_MAIN + (torch.float32,):
+                main_err["ssd_chunk"] = err
+            cases += 1
+    log({"phase": "ssd_parity", "cases": cases, "all_close": True,
+         "bit_identical_on_repeat": True,
+         "max_abs_err_at_main_shape": main_err["ssd_chunk"],
+         "max_abs_err_any_f32_case": worst})
+
+
+def _gqa_flat(q, k, v):
+    """ops.swa_attention's layout restated: the kv heads repeated over
+    their query heads, (B, T, H, D) -> (B H, T, D)."""
+    b, t, h, d = q.shape
+    rep = h // k.shape[2]
+    k, v = (torch.repeat_interleave(x, rep, dim=2) for x in (k, v))
+    return [x.transpose(1, 2).reshape(b * h, x.shape[1], d).contiguous()
+            for x in (q, k, v)]
+
+
+def swa_inputs(dev, b, t, h, hkv, d, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, hkv, d), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def swa_parity(dev, main_err):
+    """swa_attention against its twin: the reference's seven sweep shapes
+    (windowed, full, bidirectional, ragged) and its bf16 case, then two
+    attention shapes of the zoo at T = 4608, W = 4096 through
+    ops.swa_attention (mixtral-8x22b's 48 query heads over 8 kv heads,
+    D = 128; zamba2-7b's 32/32 heads, D = 112), at the reference's 3e-5
+    (f32) and 3e-2 (bf16), two calls bit-identical. Returns the mixtral
+    case's inputs and kernel output for the path phase."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    cases, worst = 0, 0.0
+    for t, s, d, window, causal in SWA_SWEEP:
+        gen = torch.Generator(device=dev).manual_seed(t + s + d)
+        q, k, v = (torch.randn((3, n, d), generator=gen, device=dev)
+                   for n in (t, s, s))
+        got = sw.swa_attention_cuda(q, k, v, window=window, causal=causal)
+        again = sw.swa_attention_cuda(q, k, v, window=window, causal=causal)
+        want = sw.swa_attention_plain(q, k, v, window=window, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+        if not torch.equal(got, again):
+            raise AssertionError("swa_attention: two calls differ")
+        worst = max(worst, float((got - want).abs().max()))
+        cases += 1
+    gen = torch.Generator(device=dev).manual_seed(64)
+    q, k, v = (torch.randn((2, 128, 64), generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    got = sw.swa_attention_cuda(q, k, v, window=64)
+    want = sw.swa_attention_plain(q, k, v, window=64)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+    cases += 1
+    zoo = {}
+    for name, (h, hkv, d) in SWA_ZOO.items():
+        q, k, v = swa_inputs(dev, 1, SWA_PARITY_T, h, hkv, d, torch.float32,
+                             h + d)
+        got = ops.swa_attention(q, k, v, window=SWA_WINDOW)
+        again = ops.swa_attention(q, k, v, window=SWA_WINDOW)
+        want = sw.swa_attention_plain(*_gqa_flat(q, k, v), window=SWA_WINDOW)
+        want = want.reshape(1, h, SWA_PARITY_T, d).transpose(1, 2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+        if not torch.equal(got, again):
+            raise AssertionError(f"swa_attention {name}: two calls differ")
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        zoo[name] = err
+        cases += 1
+        if name == "mixtral-8x22b":
+            main_err["swa_attention"] = err
+            path_case = (q, k, v, got)
+        del want, again
+    log({"phase": "swa_parity", "cases": cases, "all_close": True,
+         "bit_identical_on_repeat": True, "zoo_shapes_t": SWA_PARITY_T,
+         "zoo_window": SWA_WINDOW, "max_abs_err_zoo": zoo,
+         "max_abs_err_any_f32_case": worst})
+    return path_case
+
+
+def swa_path(path_case):
+    """The kernel's own entry point, ops.swa_attention, once at
+    mixtral-8x22b's attention shape (no model reaches it in the
+    reference): counters set to 0 just before and read just after; the
+    output is the one held against the twin in swa_parity."""
+    from repro_torch.kernels import ops
+    q, k, v, held = path_case
+    torch.cuda.synchronize()
+    zero_counters()
+    out = ops.swa_attention(q, k, v, window=SWA_WINDOW)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    checks = {"swa_attention_once": launches == dict(
+                  {k: 0 for k in launches}, swa_attention=1),
+              "equals_the_output_held_against_the_twin":
+                  bool(torch.equal(out, held)),
+              "finite": bool(torch.isfinite(out).all())}
+    rec = {"phase": "swa_path", "shape": list(q.shape),
+           "kv_heads": k.shape[2], "window": SWA_WINDOW,
+           "launches": launches, "checks": checks}
+    log(rec)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"swa_path: failed {failed}")
+    return rec
+
+
+def _prefill_decode(model, prompt, steps, cache):
+    """The serving path as the CLI drives it (steps.prefill, the hand-off,
+    steps.serve), timed, with the ssd counts of the prefill and of the
+    decode read apart."""
+    from repro_torch.launch.steps import prefill, serve
+    b, t = prompt.shape
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    prefill_counts = read_counters()
+    state = model.cache_from_prefill(caches, b, cache, t)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    toks = [tok]
+    zero_counters()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for i in range(steps):
+        tok, state = serve(model, toks[-1], state, t + i)
+        toks.append(tok)
+        if i == 0:
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    decode_counts = read_counters()
+    return {"logits": logits, "tokens": torch.cat(toks, 1),
+            "prefill_ms": (t1 - t0) * 1e3,
+            "first_decode_ms": (t3 - t2) * 1e3,
+            "decode_ms_per_step": (t4 - t3) * 1e3 / (steps - 1),
+            "prefill_counts": prefill_counts,
+            "decode_counts": decode_counts}
+
+
+def layer_stage_times(model, dev):
+    """ms of one Mamba2 layer and of its two projections at the main run's
+    shapes (CUDA events, L2 flushed before each call): the prefill layer
+    over 8 x 1,024 tokens, the decode layer over 8 tokens."""
+    cfg = model.cfg
+    layer = model.layers[0]
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen,
+                    device=dev)
+    y = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_inner), generator=gen,
+                    device=dev)
+    u1, y1 = u[:, :1].contiguous(), y[:, :1].contiguous()
+    state = {k: v[0] for k, v in model.init_decode_state(
+        LM_BATCH, LM_CACHE).items()}
+    w_in, w_out = layer.mamba["in_proj"], layer.mamba["out_proj"]
+    with torch.inference_mode():
+        return {"prefill_layer": time_ms(lambda: layer(u, cfg), flush),
+                "prefill_in_proj": time_ms(lambda: u @ w_in, flush),
+                "prefill_out_proj": time_ms(lambda: y @ w_out, flush),
+                "decode_layer": time_ms(lambda: layer.decode(u1, state, cfg),
+                                        flush),
+                "decode_in_proj": time_ms(lambda: u1 @ w_in, flush),
+                "decode_out_proj": time_ms(lambda: y1 @ w_out, flush)}
+
+
+def lm_serve(dev):
+    """mamba2-370m at full width (48 layers, d_model 1024, 32 SSM heads of
+    P = 64, N = 128, chunk 256, vocab 50,280), f32, random init from a
+    seeded generator: a warm-up prefill, then batch 8 through the prefill
+    step on a 1,024-token random prompt (4 chunks) and 64 greedy decode
+    steps; prefill -> decode continuity against a 1,024-token forward; a
+    300-token prompt (the chunk padding)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import decode_step, forward, init_model, \
+        param_count
+    cfg = get_config("mamba2-370m")
+    torch.cuda.synchronize()
+    mem_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(2024)
+
+    def prompt(t):
+        return torch.randint(0, cfg.vocab_size, (LM_BATCH, t), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    warm = _prefill_decode(model, prompt(LM_PROMPT), 2, LM_CACHE)
+    run = _prefill_decode(model, prompt(LM_PROMPT), LM_STEPS, LM_CACHE)
+
+    # (b) continuity: 5 teacher-forced decode steps after a prefill of
+    # T - 5 tokens against the T-token forward
+    toks = prompt(LM_PROMPT)
+    t_pre = LM_PROMPT - CONT_STEPS
+    with torch.inference_mode():
+        full, _, _ = forward(model, {"tokens": toks})
+        ref_rows = full[:, t_pre - 1:].clone()
+        del full
+        last, caches = prefill(model, {"tokens": toks[:, :t_pre]})
+        state = model.cache_from_prefill(caches, LM_BATCH, LM_CACHE, t_pre)
+        outs = []
+        for i in range(CONT_STEPS):
+            lg, state = decode_step(model, toks[:, t_pre + i:t_pre + i + 1],
+                                    state, t_pre + i)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, 1)
+    cont_err = float((dec - ref_rows[:, 1:]).abs().max())
+    pre_err = float((last[:, -1] - ref_rows[:, 0]).abs().max())
+    continuity = (bool(torch.allclose(dec, ref_rows[:, 1:], rtol=3e-3,
+                                      atol=3e-3))
+                  and bool(torch.allclose(last[:, -1], ref_rows[:, 0],
+                                          rtol=3e-3, atol=3e-3)))
+
+    # (c) a prompt that is not a multiple of the chunk
+    short = _prefill_decode(model, prompt(LM_SHORT), 2, LM_CACHE)
+    peak = torch.cuda.max_memory_allocated()
+    stages = layer_stage_times(model, dev)
+
+    zero = {k: 0 for k in run["prefill_counts"]}
+    per_prefill = dict(zero, ssd_chunk=cfg.num_layers)
+    checks = {
+        "ssd_once_per_layer_per_prefill": all(
+            r["prefill_counts"] == per_prefill for r in (warm, run, short)),
+        "no_kernel_in_decode": all(r["decode_counts"] == zero
+                                   for r in (warm, run, short)),
+        "continuity_3e-3": continuity,
+        "finite_logits": all(bool(torch.isfinite(r["logits"]).all())
+                             for r in (warm, run, short)),
+        "tokens_in_vocab": bool(((run["tokens"] >= 0)
+                                 & (run["tokens"] < cfg.vocab_size)).all()),
+    }
+    n_params = param_count(model)
+    rec = {"phase": "lm_serve", "arch": cfg.name, "dtype": cfg.param_dtype,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params": n_params, "init_s": init_s, "batch": LM_BATCH,
+           "prompt_len": LM_PROMPT, "decode_steps": LM_STEPS,
+           "prefill_ms": run["prefill_ms"],
+           "prefill_ms_first_call": warm["prefill_ms"],
+           "prefill_tok_per_s": LM_BATCH * LM_PROMPT * 1e3 / run["prefill_ms"],
+           "first_decode_ms": run["first_decode_ms"],
+           "decode_ms_per_step": run["decode_ms_per_step"],
+           "decode_tok_per_s": LM_BATCH * 1e3 / run["decode_ms_per_step"],
+           "short_prompt_len": LM_SHORT,
+           "short_prefill_ms": short["prefill_ms"],
+           "continuity_prefill_len": t_pre,
+           "continuity_max_abs_diff": cont_err,
+           "continuity_prefill_logits_max_abs_diff": pre_err,
+           "mem_at_start_mb": mem_at_start / 2**20,
+           "peak_mem_mb": peak / 2**20,
+           "layer_stage_ms": stages,
+           "sampled_ids": run["tokens"][:2, :10].tolist(),
+           "launches": {"prefill": run["prefill_counts"]["ssd_chunk"],
+                        "decode": run["decode_counts"]["ssd_chunk"],
+                        "prefill_all": run["prefill_counts"],
+                        "decode_all": run["decode_counts"]},
+           "checks": checks}
+    log(rec)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"lm_serve: failed {failed}")
     return rec
 
 
@@ -754,6 +1108,88 @@ def kernel_times(dev, bw, flops):
         out[("gather_superpose", (m, s, d))] = rec
         log({"phase": "kernel_time", "kernel": "gather_superpose",
              "shape": [m, s, d], "dtype": "float32", **rec})
+    return out
+
+
+def _bound(nbytes, nops, bw, flops):
+    return {"bound_ms": max(nbytes / bw, nops / flops) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= nops / flops
+            else "operations"}
+
+
+def lm_kernel_times(dev, bw, flops):
+    """The LM slice's kernels at their main shapes, f32: ssd_intra_chunk at
+    the full-width layer shape, swa_attention at T = 8192, W = 4096 with
+    mixtral-8x22b's 48 heads of D = 128 (the GQA repeat done once, outside
+    the timing). Operations are counted as the inputs need them: the
+    causal half (i >= j) of the two (Q, Q) products plus the state
+    product; the (query, key) pairs inside the band, 4 D each. Bytes:
+    each input read once, each output written once."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels import swa_attention as sw
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    out = {}
+    g, q, n, p = SSD_MAIN
+    cum, b, c, xdt = ssd_inputs(dev, g, q, n, p, torch.float32, 1)
+    bt = b.transpose(1, 2)
+    pairs = q * (q + 1) // 2
+    nops = g * (pairs * (2 * n + 2 * p + 1) + q * n + 2 * q * n * p)
+    nbytes = 4 * (g * q + 2 * g * q * n + 2 * g * q * p + g * n * p + g)
+    out["ssd_chunk"] = {
+        "ms": time_ms(lambda: sc.ssd_intra_chunk_cuda(cum, b, c, xdt),
+                      flush),
+        "plain_ms": time_ms(lambda: sc.ssd_intra_chunk_plain(cum, b, c, xdt),
+                            flush),
+        "library_ms": None,
+        "yardstick_ms": time_ms(lambda: torch.bmm(c, bt), flush),
+        "yardstick": "torch.bmm(C, B^T) (partial: the full (Q, Q) scores "
+                     "only)",
+        "flops_counted": nops, "bytes_counted": nbytes,
+        **_bound(nbytes, nops, bw, flops)}
+    log({"phase": "kernel_time", "kernel": "ssd_chunk",
+         "shape": list(SSD_MAIN), "dtype": "float32", **out["ssd_chunk"]})
+    del cum, b, c, xdt, bt
+
+    h, hkv, d = SWA_ZOO["mixtral-8x22b"]
+    t = SWA_TIME_T
+    qf, kf, vf = _gqa_flat(*swa_inputs(dev, 1, t, h, hkv, d, torch.float32,
+                                       3))
+    mask = sw.band_mask(t, t, SWA_WINDOW, True, dev)
+    nops = 4 * d * h * int(mask.sum())
+    nbytes = 4 * 4 * h * t * d
+    q4, k4, v4 = (x.view(1, h, t, d) for x in (qf, kf, vf))
+
+    def library():
+        # the fused memory-efficient backend, which takes a mask and f32;
+        # sdpa_kernel makes the call raise if that backend is refused
+        # rather than fall back to the unfused math path
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    got = sw.swa_attention_cuda(qf, kf, vf, window=SWA_WINDOW)
+    err = float((got - sw.swa_attention_plain(qf, kf, vf,
+                                              window=SWA_WINDOW)).abs().max())
+    lib_err = float((library().view(h, t, d) - got).abs().max())
+    del got
+    out["swa_attention"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: sw.swa_attention_cuda(qf, kf, vf,
+                                                    window=SWA_WINDOW),
+                      flush),
+        "plain_ms": time_ms(lambda: sw.swa_attention_plain(
+            qf, kf, vf, window=SWA_WINDOW), flush),
+        "library_ms": time_ms(library, flush),
+        "library": "F.scaled_dot_product_attention(q, k, v, attn_mask=band) "
+                   "on (1, H, T, D)",
+        "library_backend": "EFFICIENT_ATTENTION",
+        "library_max_abs_diff_vs_kernel": lib_err,
+        "flops_counted": nops, "bytes_counted": nbytes,
+        **_bound(nbytes, nops, bw, flops)}
+    log({"phase": "kernel_time", "kernel": "swa_attention",
+         "shape": [h, t, d], "kv_heads": hkv, "window": SWA_WINDOW,
+         "dtype": "float32", **out["swa_attention"]})
     return out
 
 
@@ -888,10 +1324,22 @@ def main() -> int:
         gs_launches += rec["launches"]["gather_superpose"]
     launches["gather_superpose"] = gs_launches
 
-    # 12. kernel and stage times
+    # 12-15. the LM slice: both kernels against their twins, the SWA
+    # kernel's own entry point, mamba2-370m serving at full width
+    ssd_parity(dev, main_err)
+    swa = swa_path(swa_parity(dev, main_err))
+    by_path["swa_path"] = swa["launches"]
+    launches["swa_attention"] = swa["launches"]["swa_attention"]
+    lm = lm_serve(dev)
+    by_path["lm_serve prefill"] = lm["launches"]["prefill_all"]
+    by_path["lm_serve decode"] = lm["launches"]["decode_all"]
+    launches["ssd_chunk"] = lm["launches"]["prefill"]
+
+    # 16. kernel and stage times
     times = kernel_times(dev, bw, flops)
     stage_times(drv_main,
                 torch.empty(64 * 2**20, dtype=torch.float32, device=dev))
+    lm_times = lm_kernel_times(dev, bw, flops)
 
     sources = {"round_stats": ("round_stats+payload",
                                "src/repro_torch/csrc/round_stats.cu",
@@ -922,6 +1370,27 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": None,
             "yardstick_ms": t["yardstick_ms"], "yardstick": t["yardstick"],
             "shape": list(shape), "dtype": "float32"})
+    lm_rows = {"ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
+                             "src/repro/kernels/ssd_chunk.py:58",
+                             list(SSD_MAIN)),
+               "swa_attention": ("src/repro_torch/csrc/swa_attention.cu",
+                                 "src/repro/kernels/swa_attention.py:92",
+                                 [SWA_ZOO["mixtral-8x22b"][0], SWA_TIME_T,
+                                  SWA_ZOO["mixtral-8x22b"][2]])}
+    for kname, (source, replaces, shape) in lm_rows.items():
+        t = lm_times[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kname],
+            "launches_by_path": {p: v[kname] for p, v in by_path.items()
+                                 if kname in v},
+            "max_abs_err": t.get("max_abs_err", main_err[kname]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "yardstick_ms": t.get("yardstick_ms"),
+            "yardstick": t.get("yardstick"), "shape": shape,
+            "dtype": "float32"})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,43 @@
+"""Registry of the architectures the port runs, as ``repro.configs`` names
+them.
+
+``get_config("mamba2-370m")`` returns the published config and
+``get_reduced`` its smoke-test variant. The reference's other arch ids are
+known but not ported yet: asking for one raises ``NotImplementedError``
+naming it; an id the reference does not know raises ``KeyError``.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+}
+
+# the reference's other arch ids (repro/configs/__init__.py), not ported
+_UNPORTED = ("llama4-maverick-400b-a17b", "smollm-135m", "olmo-1b",
+             "internvl2-1b", "minicpm-2b", "mixtral-8x22b", "hubert-xlarge",
+             "zamba2-7b", "granite-3-8b")
+
+ARCH_IDS: List[str] = list(_MODULES)
+
+
+def _module(name: str):
+    key = name.replace("_", "-")
+    if key in _UNPORTED:
+        raise NotImplementedError(
+            f"arch {key!r} is not ported yet; the port runs {ARCH_IDS}")
+    if key not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
+    return importlib.import_module(_MODULES[key])
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return _module(name).REDUCED

@@ -21,7 +21,8 @@ import tempfile
 import time
 from pathlib import Path
 
-SOURCES = ("round_stats", "aircomp_sum", "gather_superpose")
+SOURCES = ("round_stats", "aircomp_sum", "gather_superpose", "ssd_chunk",
+           "swa_attention")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

@@ -1,4 +1,4 @@
-"""The round's kernel seam: dispatch by the tensors' device, and nothing else.
+"""The port's kernel seam: dispatch by the tensors' device, and nothing else.
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor goes to the plain-torch twin. There is no environment switch and
@@ -13,6 +13,8 @@ from repro_torch.kernels import aircomp_sum as _ac
 from repro_torch.kernels import cosine_sim as _cs
 from repro_torch.kernels import gather_superpose as _gs
 from repro_torch.kernels import round_stats as _rs
+from repro_torch.kernels import ssd_chunk as _ssd
+from repro_torch.kernels import swa_attention as _swa
 
 
 def _route(device, what: str) -> bool:
@@ -83,3 +85,30 @@ def round_stats_compressed(values, idx, resid, resid_idx, g, scale=None):
     no stripe contraction): ``round_stats.compressed_round_stats``."""
     return _rs.compressed_round_stats(values, idx, resid, resid_idx, g,
                                       scale=scale)
+
+
+def ssd_intra_chunk(cum, b, c, xdt):
+    """The Mamba2 SSD intra-chunk part over G = batch * chunks * heads
+    cells: ``(y (G, Q, P), state (G, N, P) f32, chunk_decay (G,) f32)``."""
+    fn = (_ssd.ssd_intra_chunk_cuda if _route(cum.device, "ssd_intra_chunk")
+          else _ssd.ssd_intra_chunk_plain)
+    return fn(cum, b, c, xdt)
+
+
+def swa_attention(q, k, v, *, window=None, causal: bool = True):
+    """Sliding-window attention in the (B, T, H, D) / (B, S, Hkv, D)
+    layout: GQA repeats each kv head over its H / Hkv query heads, as the
+    reference's ``repro.kernels.ops.swa_attention`` does; (B, T, H, D)
+    out."""
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if hkv != h:
+        k = torch.repeat_interleave(k, h // hkv, dim=2)
+        v = torch.repeat_interleave(v, h // hkv, dim=2)
+    qf = q.transpose(1, 2).reshape(b * h, t, d).contiguous()
+    kf = k.transpose(1, 2).reshape(b * h, s, d).contiguous()
+    vf = v.transpose(1, 2).reshape(b * h, s, d).contiguous()
+    fn = (_swa.swa_attention_cuda if _route(q.device, "swa_attention")
+          else _swa.swa_attention_plain)
+    out = fn(qf, kf, vf, window=window, causal=causal)
+    return out.reshape(b, h, t, d).transpose(1, 2)

@@ -58,3 +58,39 @@ def gather_superpose_ref(values, idx, bp, noise, d: int, scale=None,
     raw = bp.double().sum()
     agg = (acc + noise.double()) / torch.clamp_min(raw, vs_min)
     return agg.float(), raw.float()
+
+
+def ssd_intra_chunk_ref(cum, b, c, xdt):
+    """(y (G, Q, P) in xdt's dtype, state (G, N, P) f32, chunk_decay (G,)
+    f32) of the SSD intra-chunk part, accumulated in float64."""
+    q = cum.shape[1]
+    c64 = cum.double()
+    b64, x64 = b.double(), xdt.double()
+    decay = torch.exp(torch.clamp(c64[:, :, None] - c64[:, None, :],
+                                  -60.0, 0.0))
+    causal = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
+    scores = torch.where(causal, torch.bmm(c.double(), b64.transpose(1, 2))
+                         * decay, 0.0)
+    tail = torch.exp(torch.clamp(c64[:, -1:] - c64, -60.0, 0.0))
+    state = torch.bmm((b64 * tail[..., None]).transpose(1, 2), x64)
+    return (torch.bmm(scores, x64).to(xdt.dtype), state.float(),
+            torch.exp(torch.clamp(c64[:, -1], -60.0, 0.0)).float())
+
+
+def swa_attention_ref(q, k, v, *, window=None, causal: bool = True):
+    """(BH, T, D) in q's dtype: full-softmax attention with the causal and
+    window masks, softmax scale 1/sqrt(D), fully masked rows 0, in
+    float64."""
+    t, s = q.shape[1], k.shape[1]
+    qp = torch.arange(t, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    logits = torch.bmm(q.double(), k.double().transpose(1, 2))
+    logits = logits / q.shape[-1] ** 0.5
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)   # rows with no key
+    return torch.bmm(probs, v.double()).to(q.dtype)

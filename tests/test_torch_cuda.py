@@ -297,3 +297,126 @@ def test_cohort_round_launches(cuda, kw):
     counts = (rs.launches, ac.launches, gs.launches)
     assert counts == ((0, 0, 8) if kw else (8, 8, 0))
     assert np.isfinite(drv.global_vec).all()
+
+
+def _ssd_case(dev, g, q, n, p, dtype, seed):
+    """The reference's sweep inputs (tests/test_kernels.py): cum a
+    decreasing cumulative log-decay, B, C, xdt standard normal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cum = -torch.cumsum(0.05 + 0.2 * torch.rand((g, q), generator=gen,
+                                                device=dev), dim=1)
+    b, c = (torch.randn((g, q, n), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    xdt = torch.randn((g, q, p), generator=gen, device=dev).to(dtype)
+    return cum, b, c, xdt
+
+
+@pytest.mark.parametrize("g,q,n,p", [(4, 32, 16, 32), (8, 64, 128, 64),
+                                     (2, 256, 64, 64), (3, 128, 64, 32),
+                                     (1024, 256, 128, 64), (3, 100, 40, 70),
+                                     (2, 1, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_kernel_matches_twin(cuda, g, q, n, p, dtype):
+    """The reference's four sweep shapes, the full-width layer shape and
+    ragged ones (Q not a multiple of the 64-row tile, P over one tile, N
+    not a multiple of the 32-column stage): against the twin at the
+    reference's 2e-5 (f32) and 2e-2 (bf16), and bit-identical on repeat."""
+    from repro_torch.kernels import ssd_chunk as sc
+    cum, b, c, xdt = _ssd_case(cuda, g, q, n, p, dtype, g * q + n + p)
+    before = sc.launches
+    got = sc.ssd_intra_chunk_cuda(cum, b, c, xdt)
+    torch.cuda.synchronize()
+    assert sc.launches == before + 1
+    want = sc.ssd_intra_chunk_plain(cum, b, c, xdt)
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+           else dict(rtol=2e-5, atol=2e-5))
+    assert got[0].dtype == dtype
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **tol)
+    again = sc.ssd_intra_chunk_cuda(cum, b, c, xdt)
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+
+
+def _swa_case(dev, bh, t, s, d, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((bh, n, d), generator=gen, device=dev).to(dtype)
+            for n in (t, s, s)]
+
+
+@pytest.mark.parametrize("t,s,d,window,causal", [
+    (128, 128, 64, None, True), (200, 200, 32, 64, True),
+    (256, 256, 64, 96, True), (256, 256, 128, 128, True),
+    (64, 64, 16, None, False), (96, 96, 64, 32, True),
+    (130, 130, 64, 64, True),
+    # beyond the reference's sweep: zamba2's head dim, ragged T != S,
+    # a windowed encoder, the widest head, an empty band
+    (300, 300, 112, 100, True), (100, 170, 48, 40, True),
+    (150, 150, 40, 33, False), (70, 70, 256, None, True),
+    (65, 65, 32, 0, True)])
+def test_swa_attention_kernel_matches_twin(cuda, t, s, d, window, causal):
+    from repro_torch.kernels import swa_attention as sw
+    q, k, v = _swa_case(cuda, 3, t, s, d, torch.float32, t + s + d)
+    before = sw.launches
+    got = sw.swa_attention_cuda(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert sw.launches == before + 1
+    want = sw.swa_attention_plain(q, k, v, window=window, causal=causal)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+    assert torch.equal(got, sw.swa_attention_cuda(q, k, v, window=window,
+                                                  causal=causal))
+
+
+def test_swa_attention_kernel_bf16(cuda):
+    from repro_torch.kernels import swa_attention as sw
+    q, k, v = _swa_case(cuda, 2, 128, 128, 64, torch.bfloat16, 7)
+    got = sw.swa_attention_cuda(q, k, v, window=64)
+    assert got.dtype == torch.bfloat16
+    want = sw.swa_attention_plain(q, k, v, window=64)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_swa_attention_gqa_route(cuda):
+    """ops.swa_attention on the card: (B, T, H, D) / (B, S, Hkv, D) with the
+    GQA repeat, against the same call on the CPU twin."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, 96, 8, 32), generator=gen, device=cuda)
+    k = torch.randn((2, 96, 2, 32), generator=gen, device=cuda)
+    v = torch.randn((2, 96, 2, 32), generator=gen, device=cuda)
+    before = sw.launches
+    got = ops.swa_attention(q, k, v, window=48)
+    assert sw.launches == before + 1
+    want = ops.swa_attention(q.cpu(), k.cpu(), v.cpu(), window=48)
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-5, atol=3e-5)
+
+
+def test_mamba2_prefill_runs_the_ssd_kernel_per_layer(cuda):
+    """The reduced mamba2 on the card: the prefill step launches the ssd
+    kernel once per layer, decode never, and prefill -> decode continues
+    the full forward's logits (tests/test_serving.py's hand-off)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import decode_step, forward, init_model
+    cfg = get_reduced("mamba2-370m")
+    model = init_model(cfg, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    with torch.inference_mode():
+        full, _, _ = forward(model, {"tokens": toks})
+        sc.launches = 0
+        _, caches = prefill(model, {"tokens": toks[:, :11]})
+        assert sc.launches == cfg.num_layers
+        state = model.cache_from_prefill(caches, 2, 64, 11)
+        outs = []
+        for i in range(5):
+            lg, state = decode_step(model, toks[:, 11 + i:12 + i], state,
+                                    11 + i)
+            outs.append(lg[:, 0])
+    assert sc.launches == cfg.num_layers
+    torch.testing.assert_close(torch.stack(outs, 1), full[:, 11:16],
+                               rtol=3e-3, atol=3e-3)

@@ -55,7 +55,11 @@ def test_importing_the_port_loads_no_jax():
     for mod in ("fl.fused", "fl.server", "fl.baselines", "fl.metrics",
                 "core.dinkelbach", "core.milp", "core.compress",
                 "kernels.ops", "kernels.cosine_sim",
-                "kernels.gather_superpose", "launch.fl_train"):
+                "kernels.gather_superpose", "launch.fl_train",
+                "kernels.ssd_chunk", "kernels.swa_attention", "configs",
+                "configs.mamba2_370m", "models.config", "models.layers",
+                "models.ssm", "models.transformer", "launch.steps",
+                "launch.serve"):
         assert f"repro_torch.{mod}" in names
 
 
