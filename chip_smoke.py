@@ -24,7 +24,8 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   d = 16384) on the port's runtime with fabricated local updates;
 - the LM slice: the SSD intra-chunk and sliding-window attention kernels
   against their twins (the reference's sweeps, the full-width mamba2 layer
-  shape, mixtral-8x22b's and zamba2-7b's attention at T = 4608,
+  through the SSD kernel's grouped entry, on contiguous and on strided
+  B and C, mixtral-8x22b's and zamba2-7b's attention at T = 4608,
   W = 4096), the attention kernel through its own entry point
   ``ops.swa_attention``, and mamba2-370m serving at full width (48
   layers, f32, random weights from a seed): batch 8, a 1,024-token prompt
@@ -53,10 +54,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# data-sheet HBM bandwidth (bytes/s) and f32 rate outside the tensor cores
-# (FLOP/s) at the full power limit, matched on the device name in order
-CARDS = (("H200", 4.8e12, 67e12), ("H100 PCIe", 2.0e12, 51e12),
-         ("H100 NVL", 3.9e12, 60e12), ("H100", 3.35e12, 67e12))
+# data-sheet HBM bandwidth (bytes/s), f32 rate outside the tensor cores and
+# dense TF32 tensor-core rate (FLOP/s) at the full power limit, matched on
+# the device name in order
+CARDS = (("H200", 4.8e12, 67e12, 495e12),
+         ("H100 PCIe", 2.0e12, 51e12, 378e12),
+         ("H100 NVL", 3.9e12, 60e12, 418e12),
+         ("H100", 3.35e12, 67e12, 495e12))
 
 PARITY_SHAPES = ((1, 1), (3, 511), (100, 8070), (1000, 8070))
 MAIN_ROUNDS = 100
@@ -76,6 +80,13 @@ GS_SHAPES = ((64, 504, 8070), (256, 1024, 16384))
 SSD_MAIN = (1024, 256, 128, 64)
 SSD_SHAPES = ((4, 32, 16, 32), (8, 64, 128, 64), (2, 256, 64, 64),
               (3, 128, 64, 32), SSD_MAIN)
+# the grouped entry (Bz, NC, H, G, Q, N, P, offset of B in the conv output
+# or None for contiguous B, C): mamba2-370m's prefill layer (8 x 1,024
+# tokens, 32 heads sharing one group), and strided views of a conv output
+# as the model hands them over
+SSD_GROUPED = (8, 4, 32, 1, 256, 128, 64)
+SSD_GROUPED_CASES = (SSD_GROUPED + (None,), SSD_GROUPED + (2048,),
+                     (2, 3, 8, 2, 100, 40, 64, 3))
 # swa_attention: the reference's sweep (T, S, D, W, causal) and two
 # attention shapes of the zoo (H, Hkv, D) with their window
 SWA_SWEEP = ((128, 128, 64, None, True), (200, 200, 32, 64, True),
@@ -95,9 +106,9 @@ def log(record: dict) -> None:
 
 
 def card_rates(name: str):
-    for key, bw, flops in CARDS:
+    for key, bw, flops, tf32 in CARDS:
         if key in name:
-            return bw, flops
+            return bw, flops, tf32
     raise RuntimeError(f"no data-sheet rates for {name!r}")
 
 
@@ -692,12 +703,48 @@ def ssd_inputs(dev, g, q, n, p, dtype, seed):
     return cum, b, c, xdt
 
 
+def ssd_grouped_inputs(dev, bz, nc, h, g, q, n, p, offset, dtype, seed):
+    """Grouped SSD inputs: cum (Bz, NC, Q, H), xdt (Bz, NC, Q, H, P), and B,
+    C (Bz, NC, Q, G, N), contiguous, or with ``offset`` strided views of a
+    (Bz, NC*Q, offset + 2 G N) conv-output-like tensor as ``apply_mamba2``
+    hands them over."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cum = -torch.cumsum(0.05 + 0.2 * torch.rand((bz, nc, q, h), generator=gen,
+                                                device=dev), dim=2)
+    xdt = torch.randn((bz, nc, q, h, p), generator=gen, device=dev).to(dtype)
+    if offset is None:
+        b, c = (torch.randn((bz, nc, q, g, n), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+    else:
+        xbc = torch.randn((bz, nc * q, offset + 2 * g * n), generator=gen,
+                          device=dev).to(dtype)
+        b = xbc[..., offset:offset + g * n].reshape(bz, nc, q, g, n)
+        c = xbc[..., offset + g * n:].reshape(bz, nc, q, g, n)
+    return cum, b, c, xdt
+
+
+def _check_ssd(got, again, want, dtype, what):
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+           else dict(rtol=2e-5, atol=2e-5))
+    err = 0.0
+    for a, b, w in zip(got, again, want):
+        torch.testing.assert_close(a, w, **tol)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: two calls on the same inputs "
+                                 f"differ")
+        err = max(err, float((a.float() - w.float()).abs().max()))
+    return err
+
+
 def ssd_parity(dev, main_err):
-    """ssd_intra_chunk against its twin: the reference's four sweep shapes
-    and the full-width layer shape, f32 at the reference's 2e-5 and bf16 at
-    2e-2, every output, two calls bit-identical."""
+    """The SSD kernel against its twin: through the reference-shaped entry
+    at the reference's four sweep shapes and the full-width per-head shape,
+    and through the grouped entry at mamba2-370m's prefill layer (32 heads
+    on one group), on strided views of a conv output, and at a ragged
+    shape; f32 at the reference's 2e-5 and bf16 at 2e-2, every output, two
+    calls bit-identical."""
     from repro_torch.kernels import ssd_chunk as sc
-    cases, worst = 0, 0.0
+    cases, worst, errs = 0, 0.0, {}
     for g, q, n, p in SSD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             args = ssd_inputs(dev, g, q, n, p, dtype, g + q + n + p)
@@ -705,24 +752,35 @@ def ssd_parity(dev, main_err):
             again = sc.ssd_intra_chunk_cuda(*args)
             want = sc.ssd_intra_chunk_plain(*args)
             torch.cuda.synchronize()
-            tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
-                   else dict(rtol=2e-5, atol=2e-5))
-            err = 0.0
-            for a, b, w in zip(got, again, want):
-                torch.testing.assert_close(a, w, **tol)
-                if not torch.equal(a, b):
-                    raise AssertionError("ssd_intra_chunk: two calls on the "
-                                         "same inputs differ")
-                err = max(err, float((a.float() - w.float()).abs().max()))
+            err = _check_ssd(got, again, want, dtype, "ssd_intra_chunk")
             if dtype == torch.float32:
                 worst = max(worst, err)
             if (g, q, n, p, dtype) == SSD_MAIN + (torch.float32,):
-                main_err["ssd_chunk"] = err
+                errs["reference_shape"] = err
             cases += 1
+    for case in SSD_GROUPED_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_grouped_inputs(dev, *case, dtype, sum(case[:7]))
+            got = sc.ssd_intra_chunk_grouped_cuda(*args)
+            again = sc.ssd_intra_chunk_grouped_cuda(*args)
+            want = sc.ssd_intra_chunk_grouped_plain(*args)
+            torch.cuda.synchronize()
+            err = _check_ssd(got, again, want, dtype,
+                             "ssd_intra_chunk_grouped")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            if case == SSD_GROUPED + (None,) and dtype == torch.float32:
+                errs["grouped_main_shape"] = err
+            if case == SSD_GROUPED + (2048,) and dtype == torch.float32:
+                errs["grouped_strided_views"] = err
+            del args, got, again, want
+            cases += 1
+    main_err["ssd_chunk"] = errs["grouped_main_shape"]
+    main_err["ssd_chunk_reference_shape"] = errs["reference_shape"]
     log({"phase": "ssd_parity", "cases": cases, "all_close": True,
          "bit_identical_on_repeat": True,
          "max_abs_err_at_main_shape": main_err["ssd_chunk"],
-         "max_abs_err_any_f32_case": worst})
+         "max_abs_err": errs, "max_abs_err_any_f32_case": worst})
 
 
 def _gqa_flat(q, k, v):
@@ -1117,27 +1175,76 @@ def _bound(nbytes, nops, bw, flops):
             else "operations"}
 
 
-def lm_kernel_times(dev, bw, flops):
-    """The LM slice's kernels at their main shapes, f32: ssd_intra_chunk at
-    the full-width layer shape, swa_attention at T = 8192, W = 4096 with
-    mixtral-8x22b's 48 heads of D = 128 (the GQA repeat done once, outside
-    the timing). Operations are counted as the inputs need them: the
-    causal half (i >= j) of the two (Q, Q) products plus the state
-    product; the (query, key) pairs inside the band, 4 D each. Bytes:
-    each input read once, each output written once."""
+def ssd_work(cells, h, g, q, n, p, itemsize):
+    """The SSD intra-chunk part's work as its inputs need it: (operations
+    on the CUDA cores, operations of the state product on the tensor
+    cores, bytes). C B^T once per group and cell over the causal half
+    (i >= j), the decay product and scores @ xdt per head over the same
+    half, b * tail and the state product per head; each input read once,
+    each output written once."""
+    pairs = q * (q + 1) // 2
+    cuda_ops = cells * (g * pairs * 2 * n + h * (pairs * (2 * p + 1) + q * n))
+    mma_ops = cells * h * 2 * q * n * p
+    nbytes = (4 * cells * q * h + itemsize * cells * (2 * q * g * n
+                                                      + 2 * q * h * p)
+              + 4 * cells * h * (p * n + 1))
+    return cuda_ops, mma_ops, nbytes
+
+
+def ssd_bounds(cuda_ops, mma_ops, nbytes, bw, flops, tf32):
+    """bound_ms for the kernel's split (the y products as f32 FMAs on the
+    CUDA cores, the state product in three TF32 passes), beside the all-f32
+    CUDA-core and the all-3xTF32 readings."""
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = (cuda_ops / flops + 3 * mma_ops / tf32) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms_kernel_split": ops_ms,
+            "ops_ms_all_f32_cuda_cores": (cuda_ops + mma_ops) / flops * 1e3,
+            "ops_ms_all_3xtf32": 3 * (cuda_ops + mma_ops) / tf32 * 1e3,
+            "flops_counted": cuda_ops + mma_ops,
+            "flops_tensor_cores": mma_ops, "bytes_counted": nbytes}
+
+
+def lm_kernel_times(dev, bw, flops, tf32):
+    """The LM slice's kernels at their main shapes, f32: the SSD kernel at
+    mamba2-370m's prefill layer through the grouped entry (on strided views
+    of a conv output, as the model calls it) and at the reference's
+    per-head (G, Q, N, P) = (1024, 256, 128, 64); swa_attention at
+    T = 8192, W = 4096 with mixtral-8x22b's 48 heads of D = 128 (the GQA
+    repeat done once, outside the timing). Attention operations are the
+    (query, key) pairs inside the band, 4 D each; bytes: each input read
+    once, each output written once."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels import swa_attention as sw
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     out = {}
-    g, q, n, p = SSD_MAIN
-    cum, b, c, xdt = ssd_inputs(dev, g, q, n, p, torch.float32, 1)
+    bz, nc, h, g, q, n, p = SSD_GROUPED
+    cum, b, c, xdt = ssd_grouped_inputs(dev, *SSD_GROUPED, 2048,
+                                        torch.float32, 1)
+    cg = c.permute(0, 1, 3, 2, 4).reshape(bz * nc * g, q, n)
+    bgt = b.permute(0, 1, 3, 4, 2).reshape(bz * nc * g, n, q)
+    grouped = {
+        "ms": time_ms(lambda: sc.ssd_intra_chunk_grouped_cuda(cum, b, c, xdt),
+                      flush),
+        "plain_ms": time_ms(lambda: sc.ssd_intra_chunk_grouped_plain(
+            cum, b, c, xdt), flush),
+        "library_ms": None,
+        "yardstick_ms": time_ms(lambda: torch.bmm(cg, bgt), flush),
+        "yardstick": "torch.bmm(C, B^T) per group (partial: the full (Q, Q) "
+                     "scores only)",
+        **ssd_bounds(*ssd_work(bz * nc, h, g, q, n, p, 4), bw, flops, tf32)}
+    log({"phase": "kernel_time", "kernel": "ssd_chunk", "entry": "grouped",
+         "shape": {"Bz": bz, "NC": nc, "H": h, "G": g, "Q": q, "N": n,
+                   "P": p}, "dtype": "float32", **grouped})
+    del cum, b, c, xdt, cg, bgt
+
+    gr, q, n, p = SSD_MAIN
+    cum, b, c, xdt = ssd_inputs(dev, gr, q, n, p, torch.float32, 1)
     bt = b.transpose(1, 2)
-    pairs = q * (q + 1) // 2
-    nops = g * (pairs * (2 * n + 2 * p + 1) + q * n + 2 * q * n * p)
-    nbytes = 4 * (g * q + 2 * g * q * n + 2 * g * q * p + g * n * p + g)
-    out["ssd_chunk"] = {
+    per_head = {
         "ms": time_ms(lambda: sc.ssd_intra_chunk_cuda(cum, b, c, xdt),
                       flush),
         "plain_ms": time_ms(lambda: sc.ssd_intra_chunk_plain(cum, b, c, xdt),
@@ -1146,11 +1253,12 @@ def lm_kernel_times(dev, bw, flops):
         "yardstick_ms": time_ms(lambda: torch.bmm(c, bt), flush),
         "yardstick": "torch.bmm(C, B^T) (partial: the full (Q, Q) scores "
                      "only)",
-        "flops_counted": nops, "bytes_counted": nbytes,
-        **_bound(nbytes, nops, bw, flops)}
+        **ssd_bounds(*ssd_work(gr, 1, 1, q, n, p, 4), bw, flops, tf32)}
     log({"phase": "kernel_time", "kernel": "ssd_chunk",
-         "shape": list(SSD_MAIN), "dtype": "float32", **out["ssd_chunk"]})
+         "entry": "reference-shaped", "shape": list(SSD_MAIN),
+         "dtype": "float32", **per_head})
     del cum, b, c, xdt, bt
+    out["ssd_chunk"] = dict(grouped, reference_shape=per_head)
 
     h, hkv, d = SWA_ZOO["mixtral-8x22b"]
     t = SWA_TIME_T
@@ -1252,14 +1360,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
-    bw, flops = card_rates(name)
+    bw, flops, tf32 = card_rates(name)
     full_f32_matmul()
     log({"phase": "environment", "nvidia_smi": smi, "device": name,
          "torch": torch.__version__, "cuda": torch.version.cuda,
          "python": sys.version.split()[0],
          "tf32": [torch.backends.cuda.matmul.allow_tf32,
                   torch.backends.cudnn.allow_tf32],
-         "hbm_bytes_per_s": bw, "f32_flops": flops})
+         "hbm_bytes_per_s": bw, "f32_flops": flops, "tf32_flops": tf32})
 
     # 2. build the kernels' sources from the checkout, in parallel
     seconds = build.build_all()
@@ -1339,7 +1447,7 @@ def main() -> int:
     times = kernel_times(dev, bw, flops)
     stage_times(drv_main,
                 torch.empty(64 * 2**20, dtype=torch.float32, device=dev))
-    lm_times = lm_kernel_times(dev, bw, flops)
+    lm_times = lm_kernel_times(dev, bw, flops, tf32)
 
     sources = {"round_stats": ("round_stats+payload",
                                "src/repro_torch/csrc/round_stats.cu",
@@ -1372,7 +1480,8 @@ def main() -> int:
             "shape": list(shape), "dtype": "float32"})
     lm_rows = {"ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                              "src/repro/kernels/ssd_chunk.py:58",
-                             list(SSD_MAIN)),
+                             dict(zip("Bz NC H G Q N P".split(),
+                                      SSD_GROUPED))),
                "swa_attention": ("src/repro_torch/csrc/swa_attention.cu",
                                  "src/repro/kernels/swa_attention.py:92",
                                  [SWA_ZOO["mixtral-8x22b"][0], SWA_TIME_T,
@@ -1391,6 +1500,13 @@ def main() -> int:
             "yardstick_ms": t.get("yardstick_ms"),
             "yardstick": t.get("yardstick"), "shape": shape,
             "dtype": "float32"})
+        if "reference_shape" in t:
+            ref = t["reference_shape"]
+            kernels[-1]["reference_shape"] = {
+                "shape": list(SSD_MAIN), "max_abs_err": main_err.get(
+                    "ssd_chunk_reference_shape"),
+                **{k: ref[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "yardstick_ms")}}
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core.dinkelbach import SolveResult
 from repro_torch.core.power_control import P2Problem
-from repro_torch.device import f32
+from repro_torch.device import f32, resolve_device
 
 # pick the LOWEST-index grid cell within this relative band of the minimum:
 # the objective is flat near its optimum, so a bare argmin would depend on
@@ -244,12 +244,15 @@ def waterfill_beta(rho, theta, p_max, b, c1: float, c0: float,
     return beta, ratio(p)
 
 
-def solve_waterfill_jnp(prob: P2Problem, device="cpu") -> SolveResult:
-    """``waterfill_beta`` on ``device`` behind the host solvers' interface
-    (the reference's ``solver="waterfill_jnp"``): the f32 solver the fused
-    round runs, so the host path and the fused round solve P2 alike."""
+def solve_waterfill_jnp(prob: P2Problem, device=None) -> SolveResult:
+    """``waterfill_beta`` on ``device`` (``None`` is the card) behind the
+    host solvers' interface (the reference's ``solver="waterfill_jnp"``):
+    the f32 solver the fused round runs, so the host path and the fused
+    round solve P2 alike."""
+    dev = resolve_device(device)
+
     def put(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     beta, obj = waterfill_beta(put(prob.rho), put(prob.theta),
                                put(prob.p_max), put(prob.b),

@@ -136,10 +136,10 @@ def dinkelbach(prob: P2Problem, inner: str = "pgd", tol: float = 1e-8,
 SOLVERS = ("waterfill", "waterfill_jnp", "pgd", "milp", "exhaustive")
 
 
-def solve_p2(prob: P2Problem, method: str = "pgd", device="cpu",
+def solve_p2(prob: P2Problem, method: str = "pgd", device=None,
              **kw) -> SolveResult:
     """Entry point. method in ``SOLVERS``; "waterfill_jnp" runs the f32
-    solver of the fused round on ``device``."""
+    solver of the fused round on ``device`` (``None`` is the card)."""
     if method == "waterfill":
         from repro_torch.core.boxqp import solve_waterfill
         return solve_waterfill(prob)

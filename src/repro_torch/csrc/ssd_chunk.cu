@@ -1,38 +1,72 @@
-// Mamba2 SSD intra-chunk part. Replaces the TPU kernel
+// Mamba2 SSD intra-chunk part, grouped. Replaces the TPU kernel
 // repro/kernels/ssd_chunk.py::ssd_intra_chunk_pallas (body _kernel). For
-// each cell g of G = batch * chunks * heads, with cum (G, Q) f32:
+// each chunk cell (batch b, chunk c) and head h of group g = h / rep, with
+// cum_h (Q,) the head's cumulative log-decay and B_g, C_g (Q, N) the
+// group's:
 //     decay[i, j] = exp(clip(cum_i - cum_j, -60, 0))   where i >= j, else 0
-//     y           = ((C B^T) * decay) @ xdt                 (Q, P)
+//     y_h         = ((C_g B_g^T) * decay) @ xdt_h           (Q, P)
 //     tail[j]     = exp(clip(cum_{Q-1} - cum_j, -60, 0))
-//     state       = (B * tail)^T @ xdt                      (N, P) f32
+//     state_h     = ((B_g * tail)^T @ xdt_h)^T              (P, N) f32
 //     chunk_decay = exp(clip(cum_{Q-1}, -60, 0))            f32
-// B, C (G, Q, N) and xdt (G, Q, P) are f32 or bf16 (one type); y is
-// xdt's type. Every product and sum is f32 on the CUDA cores: the port
-// runs its contractions in full f32 (no TF32).
+// B, C and xdt are f32 or bf16 (one type); y is xdt's type. The
+// reference's (G, Q, N) per-head layout is the case H = G = 1.
 //
-// Bound on the H100: f32 operations. At the full-width layer shape
-// (1024, 256, 128, 64) the causal half of C B^T and of scores @ xdt plus
-// the state product are 17.3 GFLOP, 0.26 ms at 67 TFLOP/s, against 437 MB
-// moved, 0.13 ms at 3.35 TB/s.
+// Layouts: cum (Bz, NC, Q, H) f32 and xdt (Bz, NC, Q, H, P) contiguous;
+// B and C (Bz, NC, Q, G, N) strided views (any strides, N contiguous), so
+// the conv output is read in place. y (Bz, NC, Q, H, P), state
+// (Bz, NC, H, P, N) and decay (Bz, NC, H) are written in the layouts the
+// cross-chunk recurrence reads.
 //
-// Design. A Pallas grid cell held B, C, xdt and the (Q, Q) scores in
-// VMEM; at Q = 256, N = 128 that is 512 KB of f32, more than a block's
-// 227 KB of shared memory, so the cell is tiled. One launch, grid
-// (G, tiles): per cell, q_tiles * p_tiles blocks each own a 64 x 64 tile
-// of y, and n_tiles * p_tiles blocks a 64 x 64 tile of the state.
-// - A y block walks the 64-key tiles up to its diagonal (later tiles are
-//   all masked). For each, it forms its 64 x 64 rows of C B^T in
-//   registers (16 x 16 threads, 4 x 4 each, N staged 32 columns at a
-//   time), multiplies each by its decay after the product and zeroes the
-//   masked entries, as the reference orders it, parks the tile in shared
-//   memory and adds tile @ xdt to its f32 accumulator while the xdt tile
-//   is resident. The (Q, Q) scores never exist in full.
-// - A state block walks the key tiles, stages B * tail (the product
-//   rounded before the contraction, as the reference's b * tail) and xdt,
-//   and accumulates its 64 x 64 tile; the first one writes chunk_decay.
-// Every sum runs in one fixed order and there are no atomics, so
-// repeated calls are bit-identical. Ragged Q, N and P are masked and
-// zero-filled in shared memory; nothing is padded in device memory.
+// Bound on the H100. At mamba2-370m's prefill layer (Bz 8, NC 4, H 32,
+// G 1, Q 256, N 128, P 64) the work is 8.94 GFLOP (0.27 of it C B^T, once
+// per group; 4.31 the causal half of scores @ xdt; 4.29 the state)
+// against 177 MB moved (0.053 ms at 3.35 TB/s). The y products on the
+// CUDA cores at 67 TFLOP/s take at least 0.069 ms and the state product
+// in 3xTF32 (three passes at 495 TFLOP/s) 0.026 ms: about 0.095 ms.
+//
+// Design.
+// - Which unit runs which product, and why. The state product runs on
+//   the tensor cores in 3xTF32: mma.sync.m16n8k8 tf32, each operand split
+//   as x = hi + lo (hi = cvt.rna.tf32(x), lo = x - hi passed as its f32
+//   bits, which the tensor cores read to TF32), lo*hi + hi*lo + hi*hi
+//   per 8-deep step (lo*lo dropped): about 2^-22 relative error per
+//   product. It holds the twin at 3.8e-6 (2e-5 allowed). The two y
+//   products (C B^T and scores @ xdt) were 3xTF32 too and were closer to
+//   an f64 oracle than the f32 twin (2.7e-5 against 4.4e-5 at
+//   (8, 64, 128, 64)), but differed from the twin by up to 4.7e-5 at
+//   (1024, 256, 128, 64), over its 2e-5: at |y| ~ 30 two f32 summation
+//   orders differ by that much. So they run on f32 FMA chains in key
+//   order (and n order for C B^T), the order of the twin's batched
+//   products, with 8 x 4 register tiles and 16-byte shared loads; y then
+//   equals the twin's bit for bit. A single TF32 pass (2^-11) is never
+//   used.
+// - One C B^T per group, shared by its heads. A y block owns (cell,
+//   group, one 64-row query tile, hs heads of the group, one 64-column P
+//   tile). It forms its rows of C B^T for the key tiles up to its diagonal
+//   once and parks them, transposed, in shared memory (68 KB at Q = 256).
+//   Then for each of its heads and key tiles it starts the xdt tile's
+//   copy, forms the decayed, masked scores tile (the product rounded
+//   before the contraction, as the reference orders it; one exp per
+//   unmasked entry, a third of the phase's time) while the copy is in
+//   flight, and multiplies.
+// - A state block owns (cell, group, hs heads, a 64-column N tile, a P
+//   tile). It stages its whole (Q, 64) slab of B once and reuses it for
+//   every head; the head's tail is applied to each B element as its
+//   fragment is loaded (b * tail rounded before the contraction), and the
+//   accumulator comes out as (P, N), the recurrence's layout. Its xdt
+//   tiles come through a two-deep cp.async ring.
+// - Loads are 16-byte cp.async, zero-filling the ragged edge. Shapes
+//   whose strides are not 16-byte multiples take a synchronous
+//   element-wise staging loop (a template variant chosen from the
+//   strides; mamba2's shapes all take cp.async).
+// - Head subset hs = 8 (or the largest divisor of rep <= 8): a y block
+//   then spends 2 of every 10 tile-products on C B^T, and at the prefill
+//   layer the launch has 512 y blocks and 256 state blocks, about three
+//   waves of two 109 KB blocks per SM. Blocks are ordered heaviest first
+//   along blockIdx.y (state blocks, then query tiles from the diagonal's
+//   far end down), so the light low-qt tiles fill the last wave.
+// Every sum runs in one fixed order with no atomics, so repeated calls are
+// bit-identical. Ragged Q, N and P are zero-filled and masked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,21 +74,32 @@
 
 namespace {
 
-constexpr int kThreads = 256;        // 16 x 16, a 4 x 4 micro-tile each
-constexpr int kTile = 64;            // rows / columns of a block's tile
-constexpr int kDepth = 32;           // N columns staged per C B^T step
-constexpr int kLdCB = kDepth + 1;    // padded rows: no bank conflicts
-constexpr int kLdS = kTile + 1;
-// y part: C and B stages (aliased later by the score tile), xdt, cums
-constexpr int kSmemY = 2 * kTile * kLdCB + kTile * kTile + 2 * kTile;
-// state part: B * tail, xdt, tail
-constexpr int kSmemS = 2 * kTile * kTile + kTile;
-constexpr int kSmem = kSmemY > kSmemS ? kSmemY : kSmemS;
-static_assert(kTile * kLdS <= 2 * kTile * kLdCB, "score tile must fit");
+constexpr int kThreads = 128;   // 4 warps
+constexpr int kTile = 64;       // query rows, key rows, P and N columns
+constexpr int kDepth = 32;      // N columns staged per C B^T step
+constexpr int kMaxQ = 512;      // the score rows and the B slab fit
+
+struct Params {
+  const float* cum;
+  const void* b;
+  const void* c;
+  const void* xdt;
+  void* y;
+  float* state;
+  float* decay;
+  int64_t sb[4];   // B strides in elements: batch, chunk, row, group
+  int64_t sc[4];   // C strides
+  int nc, q, h, g, n, p, rep, hs, h_sub, q_tiles, n_tiles, p_tiles, q_pad;
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
 }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
@@ -66,223 +111,478 @@ __device__ __forceinline__ float clipped_exp(float x) {
   return expf(fminf(fmaxf(x, -60.f), 0.f));
 }
 
-template <typename T>
-__device__ void y_tile(float* smem, const float* __restrict__ cum,
-                       const T* __restrict__ b, const T* __restrict__ c,
-                       const T* __restrict__ xdt, T* __restrict__ y, int q,
-                       int n, int p, int qt, int pt) {
-  float* cs = smem;                              // [kTile][kLdCB]
-  float* bs = smem + kTile * kLdCB;              // [kTile][kLdCB]
-  float* ss = smem;                              // [kTile][kLdS], aliases
-  float* xs = smem + 2 * kTile * kLdCB;          // [kTile][kTile]
-  float* cq = xs + kTile * kTile;                // [kTile] query cums
-  float* ck = cq + kTile;                        // [kTile] key cums
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int i0 = qt * kTile, p0 = pt * kTile;
+// Row strides in elements such that fragment loads hit 32 distinct banks:
+// "A" tiles are read as (row + g) * ld + t, "B" tiles as t * ld + g
+// (g = lane / 4, t = lane % 4), so ld is 4 words past a multiple of 32
+// for A and 8 words past for B; both keep rows 16-byte aligned.
+template <typename T> __host__ __device__ constexpr int ld_a(int cols) {
+  return ((cols * static_cast<int>(sizeof(T)) + 127) / 128 * 128 + 16) /
+         static_cast<int>(sizeof(T));
+}
+template <typename T> __host__ __device__ constexpr int ld_b(int cols) {
+  return ((cols * static_cast<int>(sizeof(T)) + 127) / 128 * 128 + 32) /
+         static_cast<int>(sizeof(T));
+}
 
-  if (tid < kTile) cq[tid] = i0 + tid < q ? cum[i0 + tid] : 0.f;
-  float acc[4][4] = {};
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int j0 = kt * kTile;
-    __syncthreads();            // the last tile's ss, xs, ck are consumed
-    if (tid < kTile) ck[tid] = j0 + tid < q ? cum[j0 + tid] : 0.f;
-    for (int r = ty; r < kTile; r += 16) {
-      for (int col = tx; col < kTile; col += 16) {
-        const bool ok = j0 + r < q && p0 + col < p;
-        xs[r * kTile + col] =
-            ok ? to_f32(xdt[static_cast<int64_t>(j0 + r) * p + p0 + col])
-               : 0.f;
-      }
+// The y block's first region: the C/B ring, later the xdt tile and the
+// decayed scores tile (row stride kTile + 4)
+template <typename T> __host__ __device__ constexpr size_t region1() {
+  return 2 * 2 * kTile * ld_a<T>(kDepth) * sizeof(T) >
+                 kTile * ld_b<T>(kTile) * sizeof(T) +
+                     kTile * (kTile + 4) * sizeof(float)
+             ? 2 * 2 * kTile * ld_a<T>(kDepth) * sizeof(T)
+             : kTile * ld_b<T>(kTile) * sizeof(T) +
+                   kTile * (kTile + 4) * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage a rows x cols tile (cols a multiple of 16 bytes) of src, row
+// stride rs, into dst (row stride ld); entries outside rv x cv are 0.
+template <typename T, bool V16>
+__device__ __forceinline__ void stage(T* dst, int ld, const T* src,
+                                      int64_t rs, int rows, int rv, int cols,
+                                      int cv) {
+  if constexpr (V16) {
+    constexpr int E = 16 / sizeof(T);
+    const int cpr = cols / E;
+    for (int i = threadIdx.x; i < rows * cpr; i += kThreads) {
+      const int r = i / cpr, c = (i % cpr) * E;
+      const int valid = r < rv ? min(max(cv - c, 0), E) : 0;
+      const T* s = valid ? src + r * rs + c : src;
+      cp_async16(dst + r * ld + c, s, valid * static_cast<int>(sizeof(T)));
     }
-    float s[4][4] = {};
-    for (int k0 = 0; k0 < n; k0 += kDepth) {
-      __syncthreads();          // the last depth step's cs, bs are consumed
-      for (int r = ty; r < kTile; r += 16) {
-        for (int col = tx; col < kDepth; col += 16) {
-          const bool okn = k0 + col < n;
-          cs[r * kLdCB + col] =
-              i0 + r < q && okn
-                  ? to_f32(c[static_cast<int64_t>(i0 + r) * n + k0 + col])
-                  : 0.f;
-          bs[r * kLdCB + col] =
-              j0 + r < q && okn
-                  ? to_f32(b[static_cast<int64_t>(j0 + r) * n + k0 + col])
-                  : 0.f;
-        }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i % cols;
+      dst[r * ld + c] = r < rv && c < cv ? src[r * rs + c] : zero<T>();
+    }
+  }
+}
+
+// x = hi + lo: hi = x rounded to TF32; lo = x - hi (exact in f32) goes to
+// the tensor cores as its f32 bits, of which they read the TF32 part
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  uint32_t h;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One 8-deep step of a warp's 32 x 32 tile: lo*hi + hi*lo + hi*hi
+__device__ __forceinline__ void mma3x(float (&acc)[2][4][4],
+                                      const float (&a)[2][4],
+                                      const float (&b)[4][2]) {
+  uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(a[i][e], ah[i][e], al[i][e]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) split(b[j][e], bh[j][e], bl[j][e]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mma(acc[i][j], al[i], bh[j]);
+      mma(acc[i][j], ah[i], bl[j]);
+      mma(acc[i][j], ah[i], bh[j]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// Four consecutive elements as f32 (16-byte or 8-byte aligned loads)
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+  v[0] = __low2float(lo);
+  v[1] = __high2float(lo);
+  v[2] = __low2float(hi);
+  v[3] = __high2float(hi);
+}
+
+// y block: (cell, group, query tile qt, head subset, P tile). Both of its
+// products are f32 FMA chains in key order (see the note at the top). The
+// C B^T rows and the decayed scores tile are kept transposed ([key][row])
+// so a thread reads its 8 rows with two 16-byte loads. Thread (rg, cg) of
+// 8 x 16 owns rows rg * 8 + {0..7} and, in phase 1, keys cg + 16 u
+// (u < 4), in phase 2 P columns cg * 4 + {0..3}: 32 FMAs per step, and in
+// phase 2 three shared loads per step.
+template <typename T, bool V16>
+__device__ void y_block(const Params& pr, unsigned char* smem, int64_t cell,
+                        int grp, int qt, int hsub, int pt) {
+  constexpr int LDA = ld_a<T>(kDepth), LDX = ld_b<T>(kTile);
+  constexpr int LDT = kTile + 4;
+  T* ring = reinterpret_cast<T*>(smem);           // phase 1: C/B ring
+  T* xs = ring;                                   // phase 2: xdt tile
+  float* sst = reinterpret_cast<float*>(xs + kTile * LDX);  // scores^T
+  float* st = reinterpret_cast<float*>(smem + region1<T>());  // (C B^T)^T
+  float* vec = st + pr.q_pad * LDT;               // the head's cum
+  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
+  const int q = pr.q, n = pr.n, p = pr.p, q0 = qt * kTile, p0 = pt * kTile;
+  const int64_t bi = cell / pr.nc, ci = cell % pr.nc;
+  const T* cgp = static_cast<const T*>(pr.c) + bi * pr.sc[0] +
+                 ci * pr.sc[1] + grp * pr.sc[3];
+  const T* bgp = static_cast<const T*>(pr.b) + bi * pr.sb[0] +
+                 ci * pr.sb[1] + grp * pr.sb[3];
+  const int kq = qt + 1;
+  float acc[8][4];
+
+  // phase 1: S = C[q0:q0+64] B[0:(qt+1)*64]^T, one FMA chain over n per
+  // entry (zero-filled past N), parked transposed in shared memory
+  const int nch = (n + kDepth - 1) / kDepth, steps1 = kq * nch;
+  auto stage1 = [&](int s) {
+    const int kt = s / nch, k0 = (s % nch) * kDepth;
+    T* cs = ring + (s & 1) * 2 * kTile * LDA;
+    stage<T, V16>(cs, LDA, cgp + q0 * pr.sc[2] + k0, pr.sc[2], kTile,
+                  q - q0, kDepth, n - k0);
+    stage<T, V16>(cs + kTile * LDA, LDA, bgp + kt * kTile * pr.sb[2] + k0,
+                  pr.sb[2], kTile, q - kt * kTile, kDepth, n - k0);
+  };
+  stage1(0);
+  cp_commit();
+  for (int s = 0; s < steps1; ++s) {
+    if (s + 1 < steps1) {
+      stage1(s + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int kt = s / nch, ch = s % nch;
+    const T* cs = ring + (s & 1) * 2 * kTile * LDA;
+    const T* bs = cs + kTile * LDA;
+    if (ch == 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      float cv[8], bv[4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) cv[r] = to_f32(cs[(rg * 8 + r) * LDA + kk]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) bv[u] = to_f32(bs[(cg + 16 * u) * LDA + kk]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(cv[r], bv[u], acc[r][u]);
+    }
+    if (ch == nch - 1) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          st[(kt * kTile + cg + 16 * u) * LDT + rg * 8 + r] = acc[r][u];
+    }
+    __syncthreads();
+  }
+
+  // phase 2: for each head, y = (S * decay, masked) @ xdt, one FMA chain
+  // over the keys per output. The xdt tile's copy is in flight while the
+  // block forms the decayed, masked scores tile.
+  const int head0 = grp * pr.rep + hsub * pr.hs;
+  const int64_t xrs = static_cast<int64_t>(pr.h) * p;
+  const T* xcell = static_cast<const T*>(pr.xdt) + cell * q * xrs + p0;
+  for (int s = 0; s < pr.hs * kq; ++s) {
+    const int hd = head0 + s / kq, kt = s % kq, j0 = kt * kTile;
+    if (s > 0) __syncthreads();        // the last step's tiles are read
+    stage<T, V16>(xs, LDX, xcell + j0 * xrs + hd * p, xrs, kTile, q - j0,
+                  kTile, p - p0);
+    cp_commit();
+    if (kt == 0) {
+      for (int j = tid; j < kq * kTile; j += kThreads) {
+        vec[j] = j < q ? pr.cum[(cell * q + j) * pr.h + hd] : 0.f;
       }
       __syncthreads();
-      const int depth = n - k0 < kDepth ? n - k0 : kDepth;
-      for (int kk = 0; kk < depth; ++kk) {
-        float cv[4], bv[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = cs[(ty + 16 * r) * kLdCB + kk];
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) bv[u] = bs[(tx + 16 * u) * kLdCB + kk];
+        for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
+    }
+    {
+      const int i = tid % kTile;       // each thread keeps one row
+      const float ci = vec[q0 + i];
+#pragma unroll 8
+      for (int j = tid / kTile; j < kTile; j += kThreads / kTile) {
+        float v = 0.f;
+        if (j0 + j <= q0 + i) {        // masked entries take no exp
+          v = st[(j0 + j) * LDT + i] * clipped_exp(ci - vec[j0 + j]);
+        }
+        sst[j * LDT + i] = v;
+      }
+    }
+    cp_wait<0>();
+    __syncthreads();
+#pragma unroll 8
+    for (int jj = 0; jj < kTile; ++jj) {
+      float sv[8], xv[4];
+      const float4 s0 = *reinterpret_cast<const float4*>(
+          sst + jj * LDT + rg * 8);
+      const float4 s1 = *reinterpret_cast<const float4*>(
+          sst + jj * LDT + rg * 8 + 4);
+      sv[0] = s0.x; sv[1] = s0.y; sv[2] = s0.z; sv[3] = s0.w;
+      sv[4] = s1.x; sv[5] = s1.y; sv[6] = s1.z; sv[7] = s1.w;
+      load4(xs + jj * LDX + cg * 4, xv);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-          for (int u = 0; u < 4; ++u) s[r][u] = fmaf(cv[r], bv[u], s[r][u]);
+        for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(sv[r], xv[u], acc[r][u]);
+    }
+    if (kt == qt) {
+      T* yb = static_cast<T*>(pr.y);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int qi = q0 + rg * 8 + r;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int pp = p0 + cg * 4 + u;
+          if (qi < q && pp < p) {
+            store(&yb[((cell * q + qi) * pr.h + hd) * p + pp], acc[r][u]);
+          }
         }
       }
     }
-    __syncthreads();            // cs, bs are read; ss may overwrite them
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = ty + 16 * r, j = tx + 16 * u;
-        const bool keep = j0 + j <= i0 + i && j0 + j < q;
-        ss[i * kLdS + j] = keep ? s[r][u] * clipped_exp(cq[i] - ck[j]) : 0.f;
+  }
+  __syncthreads();
+}
+
+// state block: (cell, group, head subset, N tile, P tile)
+template <typename T, bool V16>
+__device__ void state_block(const Params& pr, unsigned char* smem,
+                            int64_t cell, int grp, int hsub, int nt, int pt) {
+  constexpr int LDB = ld_b<T>(kTile);
+  T* slab = reinterpret_cast<T*>(smem);                 // [q_pad][LDB]
+  T* ring = slab + pr.q_pad * LDB;                      // 2 x [64][LDB]
+  float* tl = reinterpret_cast<float*>(ring + 2 * kTile * LDB);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp >> 1, wn = warp & 1, gid = lane >> 2, tig = lane & 3;
+  const int q = pr.q, n = pr.n, p = pr.p, n0 = nt * kTile, p0 = pt * kTile;
+  const int64_t bi = cell / pr.nc, ci = cell % pr.nc;
+  const T* bg = static_cast<const T*>(pr.b) + bi * pr.sb[0] + ci * pr.sb[1] +
+                grp * pr.sb[3];
+  stage<T, V16>(slab, LDB, bg + n0, pr.sb[2], pr.q_pad, q, kTile, n - n0);
+  cp_commit();
+
+  const int qtl = pr.q_tiles, steps = pr.hs * qtl;
+  const int head0 = grp * pr.rep + hsub * pr.hs;
+  const int64_t xrs = static_cast<int64_t>(pr.h) * p;
+  const T* xcell = static_cast<const T*>(pr.xdt) + cell * q * xrs + p0;
+  auto stage2 = [&](int s) {
+    const int hd = head0 + s / qtl, kt = s % qtl;
+    stage<T, V16>(ring + (s & 1) * kTile * LDB, LDB,
+                  xcell + kt * kTile * xrs + hd * p, xrs, kTile,
+                  q - kt * kTile, kTile, p - p0);
+  };
+  stage2(0);
+  cp_commit();
+  float acc[2][4][4];
+  for (int s = 0; s < steps; ++s) {
+    const int hd = head0 + s / qtl, kt = s % qtl;
+    if (s + 1 < steps) {
+      stage2(s + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    if (kt == 0) {
+      const float last = pr.cum[(cell * q + q - 1) * pr.h + hd];
+      for (int j = threadIdx.x; j < pr.q_pad; j += kThreads) {
+        tl[j] = j < q ? clipped_exp(last - pr.cum[(cell * q + j) * pr.h + hd])
+                      : 0.f;
       }
+      if (nt == 0 && pt == 0 && threadIdx.x == 0) {
+        pr.decay[cell * pr.h + hd] = clipped_exp(last);
+      }
+      zero_acc(acc);
     }
     __syncthreads();
-    const int width = q - j0 < kTile ? q - j0 : kTile;
-    for (int jj = 0; jj < width; ++jj) {
-      float sv[4], xv[4];
+    const T* xs = ring + (s & 1) * kTile * LDB;
+    const T* bs = slab + kt * kTile * LDB;
+    const float* tk = tl + kt * kTile;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) sv[r] = ss[(ty + 16 * r) * kLdS + jj];
+    for (int kk = 0; kk < kTile; kk += 8) {
+      float a[2][4], b[4][2];
+      const T* xr = xs + (kk + tig) * LDB + wm * 32 + gid;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) xv[u] = xs[jj * kTile + tx + 16 * u];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(sv[r], xv[u], acc[r][u]);
+      for (int i = 0; i < 2; ++i) {
+        a[i][0] = to_f32(xr[i * 16]);
+        a[i][1] = to_f32(xr[i * 16 + 8]);
+        a[i][2] = to_f32(xr[4 * LDB + i * 16]);
+        a[i][3] = to_f32(xr[4 * LDB + i * 16 + 8]);
       }
-    }
-  }
+      const float t0 = tk[kk + tig], t1 = tk[kk + tig + 4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int gi = i0 + ty + 16 * r, gp = p0 + tx + 16 * u;
-      if (gi < q && gp < p) {
-        store(&y[static_cast<int64_t>(gi) * p + gp], acc[r][u]);
+      for (int j = 0; j < 4; ++j) {
+        const T* r = bs + (kk + tig) * LDB + wn * 32 + j * 8 + gid;
+        b[j][0] = to_f32(r[0]) * t0;
+        b[j][1] = to_f32(r[4 * LDB]) * t1;
       }
+      mma3x(acc, a, b);
     }
+    if (kt == qtl - 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int pp = p0 + wm * 32 + i * 16 + gid + (e >= 2 ? 8 : 0);
+            const int nn = n0 + wn * 32 + j * 8 + 2 * tig + (e & 1);
+            if (pp < p && nn < n) {
+              pr.state[((cell * pr.h + hd) * p + pp) * n + nn] =
+                  acc[i][j][e];
+            }
+          }
+    }
+    __syncthreads();
   }
 }
 
-template <typename T>
-__device__ void state_tile(float* smem, const float* __restrict__ cum,
-                           const T* __restrict__ b,
-                           const T* __restrict__ xdt,
-                           float* __restrict__ state,
-                           float* __restrict__ decay, int q, int n, int p,
-                           int nt, int pt) {
-  float* bt = smem;                        // [kTile j][kTile n]
-  float* xs = smem + kTile * kTile;        // [kTile j][kTile p]
-  float* tl = xs + kTile * kTile;          // [kTile]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = nt * kTile, p0 = pt * kTile;
-  const float last = cum[q - 1];
-
-  float acc[4][4] = {};
-  for (int j0 = 0; j0 < q; j0 += kTile) {
-    __syncthreads();            // the last tile's bt, xs, tl are consumed
-    if (tid < kTile) {
-      tl[tid] = j0 + tid < q ? clipped_exp(last - cum[j0 + tid]) : 0.f;
-    }
-    __syncthreads();
-    for (int r = ty; r < kTile; r += 16) {
-      const bool okj = j0 + r < q;
-      const int64_t row = j0 + r;
-      for (int col = tx; col < kTile; col += 16) {
-        bt[r * kTile + col] = okj && n0 + col < n
-                                  ? to_f32(b[row * n + n0 + col]) * tl[r]
-                                  : 0.f;
-        xs[r * kTile + col] =
-            okj && p0 + col < p ? to_f32(xdt[row * p + p0 + col]) : 0.f;
-      }
-    }
-    __syncthreads();
-    const int width = q - j0 < kTile ? q - j0 : kTile;
-    for (int jj = 0; jj < width; ++jj) {
-      float bv[4], xv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) bv[r] = bt[jj * kTile + ty + 16 * r];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) xv[u] = xs[jj * kTile + tx + 16 * u];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[r][u] = fmaf(bv[r], xv[u], acc[r][u]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int gn = n0 + ty + 16 * r, gp = p0 + tx + 16 * u;
-      if (gn < n && gp < p) state[static_cast<int64_t>(gn) * p + gp] = acc[r][u];
-    }
-  }
-  if (nt == 0 && pt == 0 && tid == 0) *decay = clipped_exp(last);
-}
-
-template <typename T>
+template <typename T, bool V16>
 __global__ void __launch_bounds__(kThreads)
-ssd_intra_chunk_kernel(const float* __restrict__ cum,
-                       const T* __restrict__ b, const T* __restrict__ c,
-                       const T* __restrict__ xdt, T* __restrict__ y,
-                       float* __restrict__ state, float* __restrict__ decay,
-                       int q, int n, int p, int q_tiles, int p_tiles) {
-  __shared__ float smem[kSmem];
-  const int64_t g = blockIdx.x;
-  const int tile = blockIdx.y;
-  const float* cum_g = cum + g * q;
-  const T* b_g = b + g * q * n;
-  const T* x_g = xdt + g * q * p;
-  if (tile < q_tiles * p_tiles) {
-    y_tile<T>(smem, cum_g, b_g, c + g * q * n, x_g, y + g * q * p, q, n, p,
-              tile / p_tiles, tile % p_tiles);
+ssd_grouped_kernel(const Params pr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t cell = blockIdx.x / pr.g;
+  const int grp = static_cast<int>(blockIdx.x % pr.g);
+  int role = blockIdx.y;
+  const int n_state = pr.n_tiles * pr.h_sub * pr.p_tiles;
+  if (role < n_state) {
+    const int pt = role % pr.p_tiles;
+    role /= pr.p_tiles;
+    state_block<T, V16>(pr, smem, cell, grp, role % pr.h_sub,
+                        role / pr.h_sub, pt);
   } else {
-    const int st = tile - q_tiles * p_tiles;
-    state_tile<T>(smem, cum_g, b_g, x_g, state + g * n * p, decay + g, q, n,
-                  p, st / p_tiles, st % p_tiles);
+    role -= n_state;
+    const int pt = role % pr.p_tiles;
+    role /= pr.p_tiles;
+    const int qt = pr.q_tiles - 1 - role / pr.h_sub;   // heaviest first
+    y_block<T, V16>(pr, smem, cell, grp, qt, role % pr.h_sub, pt);
   }
+}
+
+template <typename T>
+size_t smem_bytes(int q_pad) {
+  constexpr int LDB = ld_b<T>(kTile);
+  const size_t y = region1<T>() +
+                   sizeof(float) * (q_pad * (kTile + 4) + q_pad);
+  const size_t st = (q_pad + 2 * kTile) * LDB * sizeof(T) +
+                    sizeof(float) * q_pad;
+  return y > st ? y : st;
+}
+
+template <typename T, bool V16>
+int launch(const Params& pr, int64_t cells, cudaStream_t st) {
+  const size_t bytes = smem_bytes<T>(pr.q_pad);
+  auto kern = ssd_grouped_kernel<T, V16>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int roles = (pr.n_tiles + pr.q_tiles) * pr.h_sub * pr.p_tiles;
+  const dim3 grid(static_cast<unsigned int>(cells * pr.g),
+                  static_cast<unsigned int>(roles));
+  kern<<<grid, kThreads, bytes, st>>>(pr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// cum: (g, q) f32. b, c: (g, q, n) and xdt: (g, q, p), row-major, dtype
-// 0 = f32, 1 = bf16. y: (g, q, p) in xdt's dtype; state: (g, n, p) f32;
-// decay: (g,) f32. Launches on `stream`, allocates nothing, returns
-// cudaGetLastError() (or cudaErrorInvalidValue for a shape the grid
-// cannot hold).
-extern "C" int repro_ssd_intra_chunk(const void* cum, const void* b,
-                                     const void* c, const void* xdt, void* y,
-                                     void* state, void* decay, int64_t g,
-                                     int64_t q, int64_t n, int64_t p,
-                                     int dtype, void* stream) {
+// cum: (bz, nc, q, h) f32; xdt: (bz, nc, q, h, p); b, c: (bz, nc, q, g, n)
+// with element strides sb*, sc* (N contiguous); dtype 0 = f32, 1 = bf16
+// for b, c, xdt and y. y: (bz, nc, q, h, p); state: (bz, nc, h, p, n) f32;
+// decay: (bz, nc, h) f32. hs heads per block (hs divides h / g); vec16 = 1
+// when every base pointer and row stride is a multiple of 16 bytes.
+// Launches on `stream`, allocates nothing, returns cudaGetLastError() (or
+// cudaErrorInvalidValue for a shape the grid or shared memory cannot hold).
+extern "C" int repro_ssd_grouped(
+    const void* cum, const void* b, const void* c, const void* xdt, void* y,
+    void* state, void* decay, int64_t bz, int64_t nc, int64_t q, int64_t h,
+    int64_t g, int64_t n, int64_t p, int64_t sb0, int64_t sb1, int64_t sb2,
+    int64_t sb3, int64_t sc0, int64_t sc1, int64_t sc2, int64_t sc3,
+    int64_t hs, int dtype, int vec16, void* stream) {
   const int64_t q_tiles = (q + kTile - 1) / kTile;
   const int64_t n_tiles = (n + kTile - 1) / kTile;
   const int64_t p_tiles = (p + kTile - 1) / kTile;
-  const int64_t tiles = (q_tiles + n_tiles) * p_tiles;
-  if (g < 1 || g > 2147483647LL || tiles > 65535 || q * n > 2147483647LL ||
-      q * p > 2147483647LL || n * p > 2147483647LL) {
+  const int64_t cells = bz * nc;
+  if (cells < 1 || g < 1 || h % g != 0 || hs < 1 || (h / g) % hs != 0 ||
+      cells * g > 2147483647LL ||
+      (n_tiles + q_tiles) * (h / g / hs) * p_tiles > 65535 ||
+      q_tiles * kTile > kMaxQ || q * h * p > 2147483647LL ||
+      h * p * n > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Params pr{};
+  pr.cum = static_cast<const float*>(cum);
+  pr.b = b;
+  pr.c = c;
+  pr.xdt = xdt;
+  pr.y = y;
+  pr.state = static_cast<float*>(state);
+  pr.decay = static_cast<float*>(decay);
+  pr.sb[0] = sb0; pr.sb[1] = sb1; pr.sb[2] = sb2; pr.sb[3] = sb3;
+  pr.sc[0] = sc0; pr.sc[1] = sc1; pr.sc[2] = sc2; pr.sc[3] = sc3;
+  pr.nc = static_cast<int>(nc);
+  pr.q = static_cast<int>(q);
+  pr.h = static_cast<int>(h);
+  pr.g = static_cast<int>(g);
+  pr.n = static_cast<int>(n);
+  pr.p = static_cast<int>(p);
+  pr.rep = static_cast<int>(h / g);
+  pr.hs = static_cast<int>(hs);
+  pr.h_sub = static_cast<int>(h / g / hs);
+  pr.q_tiles = static_cast<int>(q_tiles);
+  pr.n_tiles = static_cast<int>(n_tiles);
+  pr.p_tiles = static_cast<int>(p_tiles);
+  pr.q_pad = static_cast<int>(q_tiles * kTile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned int>(g),
-                  static_cast<unsigned int>(tiles));
-  const float* cm = static_cast<const float*>(cum);
-  float* sto = static_cast<float*>(state);
-  float* dec = static_cast<float*>(decay);
-  const int qi = static_cast<int>(q), ni = static_cast<int>(n),
-            pi = static_cast<int>(p);
-  const int qt = static_cast<int>(q_tiles), pt = static_cast<int>(p_tiles);
   if (dtype == 1) {
-    ssd_intra_chunk_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        cm, static_cast<const __nv_bfloat16*>(b),
-        static_cast<const __nv_bfloat16*>(c),
-        static_cast<const __nv_bfloat16*>(xdt),
-        static_cast<__nv_bfloat16*>(y), sto, dec, qi, ni, pi, qt, pt);
-  } else {
-    ssd_intra_chunk_kernel<float><<<grid, kThreads, 0, st>>>(
-        cm, static_cast<const float*>(b), static_cast<const float*>(c),
-        static_cast<const float*>(xdt), static_cast<float*>(y), sto, dec, qi,
-        ni, pi, qt, pt);
+    return vec16 ? launch<__nv_bfloat16, true>(pr, cells, st)
+                 : launch<__nv_bfloat16, false>(pr, cells, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return vec16 ? launch<float, true>(pr, cells, st)
+               : launch<float, false>(pr, cells, st);
 }

@@ -13,12 +13,16 @@ with w_k = bp_k, or bp_k * scale_k for int8 values (the dequantization
 factor folds into the weight; varsigma stays the raw sum of bp).
 
 Bound on the H100: memory bytes, m*s*(sizeof(v) + 4) + 8m + 8d. The
-kernel (``csrc/gather_superpose.cu``) gives each block a stripe of 128
-columns with its accumulator in shared memory, starting from the noise,
-and walks the rows in order with a barrier between rows: a row's indices
-are distinct, so the scatter needs no atomics, the order per column is
-fixed, and repeated calls are bit-identical. It masks the ragged stripe
-and pads nothing (the Pallas wrapper pads m*s to 1024 and d to 512).
+kernel (``csrc/gather_superpose.cu``) runs a grid of column stripes (up
+to 1024 wide) by row splits (``plan``). Each of a block's sixteen warps
+takes every sixteenth row of its split, stages the row's indices into its
+own shared-memory ring with cp.async, several segments in flight, and adds
+w_k * v into a warp-private stripe accumulator; a row's indices are
+distinct, so no lanes collide. The block sums the warps' partials in a
+fixed order; with row splits the last block of a stripe to arrive adds
+noise and the splits' partials in split order. No float atomics, so
+repeated calls are bit-identical. It masks the ragged stripe and pads
+nothing (the Pallas wrapper pads m*s to 1024 and d to 512).
 
 ``gather_superpose_cuda`` launches the kernel and counts its launches in
 the module-level ``launches``; ``gather_superpose_plain`` is the
@@ -29,6 +33,7 @@ holds the kernel against.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -85,9 +90,28 @@ def gather_superpose_plain(values, idx, bp, noise, *, d: int, scale=None,
     return (acc + noise) / torch.clamp_min(raw, vs_min), raw
 
 
+STRIPE, MAX_STRIPE, WARPS = 64, 1024, 16   # csrc/gather_superpose.cu's
+
+
+def plan(m: int, d: int, sms: int) -> tuple[int, int]:
+    """(columns per block, row splits): the widest stripe the kernel takes,
+    then as many row splits as fill one wave of ``sms`` blocks while each
+    split keeps at least one row per warp."""
+    stripe = min(MAX_STRIPE, -(-d // STRIPE) * STRIPE)
+    stripes = -(-d // stripe)
+    splits = max(1, min(sms // stripes, m // WARPS))
+    return stripe, splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     fn = build.library("gather_superpose").repro_gather_superpose
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -102,18 +126,27 @@ def gather_superpose_cuda(values, idx, bp, noise, *, d: int, scale=None,
     if values.device.type != "cuda":
         raise ValueError(f"gather_superpose_cuda needs CUDA tensors, got "
                          f"{values.device}")
-    if (d + 127) // 128 > 2**31 - 1:
-        raise ValueError(f"d={d} exceeds the kernel's grid")
     m, s = values.shape
+    dev = values.device
+    stripe, splits = plan(m, d, _sm_count(dev.index))
+    if -(-d // stripe) > 2**31 - 1:
+        raise ValueError(f"d={d} exceeds the kernel's grid")
     fn = _lib()
-    agg = torch.empty((d,), dtype=torch.float32, device=values.device)
-    raw = torch.empty((), dtype=torch.float32, device=values.device)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
+    agg = torch.empty((d,), dtype=torch.float32, device=dev)
+    raw = torch.empty((), dtype=torch.float32, device=dev)
+    partial = arrived = None
+    if splits > 1:
+        partial = torch.empty((splits, d), dtype=torch.float32, device=dev)
+        arrived = torch.empty((-(-d // stripe),), dtype=torch.int32,
+                              device=dev)     # zeroed by the launch
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(values.data_ptr(), idx.data_ptr(), bp.data_ptr(),
                 None if scale is None else scale.data_ptr(),
-                noise.data_ptr(), agg.data_ptr(), raw.data_ptr(), m, s, d,
-                float(vs_min), _DTYPES[values.dtype], stream)
+                noise.data_ptr(), agg.data_ptr(), raw.data_ptr(),
+                None if partial is None else partial.data_ptr(),
+                None if arrived is None else arrived.data_ptr(), m, s, d,
+                stripe, splits, float(vs_min), _DTYPES[values.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"gather_superpose kernel launch failed: CUDA "
                            f"error {rc}")

@@ -87,9 +87,21 @@ def round_stats_compressed(values, idx, resid, resid_idx, g, scale=None):
                                       scale=scale)
 
 
+def ssd_intra_chunk_grouped(cum, b, c, xdt):
+    """The Mamba2 SSD intra-chunk part in ``ssd_chunked``'s layouts: cum
+    (Bz, NC, Q, H) f32, B and C (Bz, NC, Q, G, N) (strided views are taken
+    as they are), xdt (Bz, NC, Q, H, P). Returns ``(y (Bz, NC, Q, H, P),
+    state (Bz, NC, H, P, N) f32, chunk_decay (Bz, NC, H) f32)``."""
+    fn = (_ssd.ssd_intra_chunk_grouped_cuda
+          if _route(cum.device, "ssd_intra_chunk_grouped")
+          else _ssd.ssd_intra_chunk_grouped_plain)
+    return fn(cum, b, c, xdt)
+
+
 def ssd_intra_chunk(cum, b, c, xdt):
-    """The Mamba2 SSD intra-chunk part over G = batch * chunks * heads
-    cells: ``(y (G, Q, P), state (G, N, P) f32, chunk_decay (G,) f32)``."""
+    """The reference-shaped SSD intra-chunk part over G = batch * chunks *
+    heads cells: ``(y (G, Q, P), state (G, N, P) f32, chunk_decay (G,)
+    f32)``; the same kernel as ``ssd_intra_chunk_grouped`` with H = G = 1."""
     fn = (_ssd.ssd_intra_chunk_cuda if _route(cum.device, "ssd_intra_chunk")
           else _ssd.ssd_intra_chunk_plain)
     return fn(cum, b, c, xdt)

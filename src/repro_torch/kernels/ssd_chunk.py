@@ -1,32 +1,38 @@
-"""Mamba2 SSD intra-chunk part: CUDA kernel + plain twin.
+"""Mamba2 SSD intra-chunk part: CUDA kernel + plain twin, grouped.
 
 Replaces the TPU kernel ``repro/kernels/ssd_chunk.py::ssd_intra_chunk_pallas``
-(Pallas body ``_kernel``). For each cell g of G = batch * chunks * heads,
-with cum (G, Q) the cumulative log-decay inside the chunk:
+(Pallas body ``_kernel``). For each chunk cell (batch, chunk) and head h of
+group g = h // rep (rep = H / G heads share one B and one C):
 
     decay[i, j] = exp(clip(cum_i - cum_j, -60, 0))  where i >= j, else 0
-    y           = ((C B^T) * decay) @ xdt               (Q, P), xdt's dtype
+    y_h         = ((C_g B_g^T) * decay) @ xdt_h         (Q, P), xdt's dtype
     tail[j]     = exp(clip(cum_{Q-1} - cum_j, -60, 0))
-    state       = (B * tail)^T @ xdt                    (N, P) f32
+    state_h     = xdt_h^T @ (B_g * tail)                (P, N) f32
     chunk_decay = exp(clip(cum_{Q-1}, -60, 0))          f32
 
-Bound on the H100: f32 operations (the products run in full f32, off the
-tensor cores, since the port turns TF32 off). At the full-width layer
-shape (G, Q, N, P) = (1024, 256, 128, 64) the causal half of the two
-(Q, Q) products and the state product are 17.3 GFLOP against 437 MB moved.
+``ssd_intra_chunk_grouped`` takes the layouts ``ssd_chunked`` has at hand:
+cum (Bz, NC, Q, H) f32, B and C (Bz, NC, Q, G, N) as strided views of the
+conv output (only N must be contiguous), xdt (Bz, NC, Q, H, P); it returns
+y (Bz, NC, Q, H, P), state (Bz, NC, H, P, N) and chunk_decay (Bz, NC, H).
+The reference-shaped ``ssd_intra_chunk`` (cum (G, Q); b, c (G, Q, N); xdt
+(G, Q, P), per head) is a thin adapter onto the same kernel: the G cells as
+a batch with H = G = 1; its state is the (G, N, P) transposed view.
 
-The kernel (``csrc/ssd_chunk.cu``) tiles what one Pallas grid cell kept
-resident: a cell's B, C and (Q, Q) scores do not fit in a block's shared
-memory at full width. One block per (cell, 64-row query tile) walks the
-key tiles up to the diagonal, forms its rows of C B^T in registers, decays
-and masks them, and multiplies by xdt while the tile is resident; other
-blocks of the same launch form the state's (64 x 64) tiles and the chunk
-decay. Sums run in a fixed order in f32 with no atomics, so repeated calls
-are bit-identical. Ragged Q, N, P are masked; nothing is padded.
+Bound on the H100: at mamba2-370m's prefill layer (Bz 8, NC 4, H 32, G 1,
+Q 256, N 128, P 64) 8.94 GFLOP against 177 MB. The kernel
+(``csrc/ssd_chunk.cu``) forms C B^T once per group and shares it among the
+group's heads. The state product runs on the tensor cores in 3xTF32 (each
+operand split into two TF32 halves, three products accumulated in f32:
+f32 accuracy); the two score products run as f32 FMA chains in key
+order, the twin's order, since 3xTF32 there missed the twin's 2e-5 by
+summation order alone. Sums run in a fixed order with no atomics, so
+repeated calls are bit-identical. Ragged Q, N, P are masked; nothing is
+padded.
 
-``ssd_intra_chunk_cuda`` launches the kernel and counts its launches in
-the module-level ``launches``; ``ssd_intra_chunk_plain`` is the plain-torch
-twin the CPU path runs and the card holds the kernel against.
+``ssd_intra_chunk_grouped_cuda`` launches the kernel and counts its
+launches in the module-level ``launches``; ``ssd_intra_chunk_grouped_plain``
+is the plain-torch twin the CPU path runs and the card holds the kernel
+against (it broadcasts B and C over the heads).
 """
 from __future__ import annotations
 
@@ -39,12 +45,139 @@ from repro_torch.kernels import build
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_Q = 512          # the kernel's score rows and B slab fit shared memory
+HEADS_PER_BLOCK = 8  # csrc/ssd_chunk.cu's head subset (at most)
 
+
+def check_grouped(cum, b, c, xdt) -> None:
+    """Raise on anything the kernel does not take: cum (Bz, NC, Q, H) f32
+    contiguous; b, c (Bz, NC, Q, G, N) with N contiguous and G dividing H;
+    xdt (Bz, NC, Q, H, P) contiguous; b, c, xdt of one dtype, f32 or bf16;
+    all on one device; Q at most ``MAX_Q``."""
+    if cum.dim() != 4 or min(cum.shape) < 1:
+        raise ValueError(f"cum must be a non-empty (Bz, NC, Q, H) tensor, got "
+                         f"shape {tuple(cum.shape)}")
+    if cum.dtype != torch.float32:
+        raise TypeError(f"cum dtype {cum.dtype}: expected float32")
+    bz, nc, q, h = cum.shape
+    if q > MAX_Q:
+        raise ValueError(f"chunk Q={q} exceeds the kernel's {MAX_Q}")
+    for name, t in (("b", b), ("c", c)):
+        if t.dim() != 5 or tuple(t.shape[:3]) != (bz, nc, q) or \
+                min(t.shape) < 1:
+            raise ValueError(f"{name} shape {tuple(t.shape)}: expected "
+                             f"({bz}, {nc}, {q}, G, N)")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous along N")
+    if b.shape != c.shape:
+        raise ValueError(f"b shape {tuple(b.shape)} != c shape "
+                         f"{tuple(c.shape)}")
+    if h % b.shape[3]:
+        raise ValueError(f"G={b.shape[3]} groups do not divide H={h} heads")
+    if xdt.dim() != 5 or tuple(xdt.shape[:4]) != (bz, nc, q, h) or \
+            xdt.shape[4] < 1:
+        raise ValueError(f"xdt shape {tuple(xdt.shape)}: expected "
+                         f"({bz}, {nc}, {q}, {h}, P)")
+    for name, t in (("b", b), ("c", c), ("xdt", xdt)):
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name} dtype {t.dtype}: expected float32 or "
+                            f"bfloat16")
+    if not b.dtype == c.dtype == xdt.dtype:
+        raise TypeError(f"b, c, xdt dtypes differ: {b.dtype}, {c.dtype}, "
+                        f"{xdt.dtype}")
+    if not (cum.is_contiguous() and xdt.is_contiguous()):
+        raise ValueError("ssd_intra_chunk_grouped: cum and xdt must be "
+                         "contiguous")
+    for t in (b, c, xdt):
+        if t.device != cum.device:
+            raise ValueError(f"ssd_intra_chunk inputs span devices "
+                             f"{t.device} and {cum.device}")
+
+
+def ssd_intra_chunk_grouped_plain(cum, b, c, xdt):
+    """Plain-torch twin: ``(y (Bz, NC, Q, H, P) in xdt's dtype, state
+    (Bz, NC, H, P, N) f32, chunk_decay (Bz, NC, H) f32)``, the reference's
+    oracle in f32 with B and C broadcast over each group's heads."""
+    check_grouped(cum, b, c, xdt)
+    bz, nc, q, h = cum.shape
+    g, n, p = b.shape[3], b.shape[4], xdt.shape[4]
+    rep = h // g
+    b32 = b.float().permute(0, 1, 3, 2, 4)[:, :, :, None]   # (.., G, 1, Q, N)
+    c32 = c.float().permute(0, 1, 3, 2, 4)[:, :, :, None]
+    x32 = xdt.float().permute(0, 1, 3, 2, 4).reshape(bz, nc, g, rep, q, p)
+    cumh = cum.permute(0, 1, 3, 2).reshape(bz, nc, g, rep, q)
+    decay = torch.exp(torch.clamp(cumh[..., :, None] - cumh[..., None, :],
+                                  -60.0, 0.0))
+    causal = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
+    scores = torch.where(causal, (c32 @ b32.transpose(-1, -2)) * decay, 0.0)
+    y = (scores @ x32).reshape(bz, nc, h, q, p).permute(0, 1, 3, 2, 4)
+    tail = torch.exp(torch.clamp(cumh[..., -1:] - cumh, -60.0, 0.0))
+    state = x32.transpose(-1, -2) @ (b32 * tail[..., None])
+    chunk_decay = torch.exp(torch.clamp(cum[:, :, -1], -60.0, 0.0))
+    return (y.contiguous().to(xdt.dtype), state.reshape(bz, nc, h, p, n),
+            chunk_decay)
+
+
+def heads_per_block(rep: int) -> int:
+    """The kernel's head subset: the largest divisor of rep up to 8."""
+    return max(d for d in range(1, min(rep, HEADS_PER_BLOCK) + 1)
+               if rep % d == 0)
+
+
+def _lib():
+    fn = build.library("ssd_chunk").repro_ssd_grouped
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 16 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _vec16(b, c, xdt) -> bool:
+    """True when every tile row the kernel stages starts on 16 bytes."""
+    sz = xdt.element_size()
+    ptrs = [t.data_ptr() for t in (b, c, xdt)]
+    strides = [s * sz for t in (b, c) for s in t.stride()[:4]]
+    strides.append(xdt.shape[4] * sz)       # a head's row offset in xdt
+    return all(v % 16 == 0 for v in ptrs + strides)
+
+
+def ssd_intra_chunk_grouped_cuda(cum, b, c, xdt):
+    """Launch the CUDA kernel: ``(y, state, chunk_decay)`` as the twin.
+    Raises on a tensor off the GPU or a failed launch; never falls back."""
+    global launches
+    check_grouped(cum, b, c, xdt)
+    if cum.device.type != "cuda":
+        raise ValueError(f"ssd_intra_chunk_grouped_cuda needs CUDA tensors, "
+                         f"got {cum.device}")
+    bz, nc, q, h = cum.shape
+    g, n, p = b.shape[3], b.shape[4], xdt.shape[4]
+    if bz * nc * g > 2**31 - 1:
+        raise ValueError(f"Bz*NC*G={bz * nc * g} exceeds the kernel's grid")
+    fn = _lib()
+    dev = cum.device
+    y = torch.empty((bz, nc, q, h, p), dtype=xdt.dtype, device=dev)
+    state = torch.empty((bz, nc, h, p, n), dtype=torch.float32, device=dev)
+    decay = torch.empty((bz, nc, h), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(cum.data_ptr(), b.data_ptr(), c.data_ptr(), xdt.data_ptr(),
+                y.data_ptr(), state.data_ptr(), decay.data_ptr(), bz, nc, q,
+                h, g, n, p, *b.stride()[:4], *c.stride()[:4],
+                heads_per_block(h // g), _DTYPES[xdt.dtype],
+                int(_vec16(b, c, xdt)), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_intra_chunk kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    return y, state, decay
+
+
+# --- the reference-shaped adapter: G cells of one head each --------------
 
 def check_inputs(cum, b, c, xdt) -> None:
-    """Raise on anything the kernel does not take: cum (G, Q) f32; b, c
-    (G, Q, N) and xdt (G, Q, P) of one dtype, f32 or bf16; all contiguous
-    and on one device."""
+    """Raise on anything the reference-shaped entry does not take: cum
+    (G, Q) f32; b, c (G, Q, N) and xdt (G, Q, P) of one dtype, f32 or
+    bf16; all contiguous and on one device."""
     if cum.dim() != 2 or cum.shape[0] < 1 or cum.shape[1] < 1:
         raise ValueError(f"cum must be a non-empty (G, Q) matrix, got shape "
                          f"{tuple(cum.shape)}")
@@ -72,55 +205,30 @@ def check_inputs(cum, b, c, xdt) -> None:
                              f"{t.device} and {cum.device}")
 
 
+def _as_grouped(cum, b, c, xdt):
+    g, q = cum.shape
+    return (cum.view(g, 1, q, 1), b.view(g, 1, q, 1, b.shape[2]),
+            c.view(g, 1, q, 1, c.shape[2]), xdt.view(g, 1, q, 1, xdt.shape[2]))
+
+
+def _as_reference(y, state, decay):
+    g, _, q, _, p = y.shape
+    n = state.shape[4]
+    return (y.view(g, q, p), state.view(g, p, n).transpose(1, 2),
+            decay.view(g))
+
+
 def ssd_intra_chunk_plain(cum, b, c, xdt):
-    """Plain-torch twin: ``(y (G, Q, P) in xdt's dtype, state (G, N, P)
-    f32, chunk_decay (G,) f32)``, the reference's oracle in f32."""
+    """The reference-shaped twin: ``(y (G, Q, P) in xdt's dtype, state
+    (G, N, P) f32, chunk_decay (G,) f32)``."""
     check_inputs(cum, b, c, xdt)
-    q = cum.shape[1]
-    b32, c32, x32 = b.float(), c.float(), xdt.float()
-    decay = torch.exp(torch.clamp(cum[:, :, None] - cum[:, None, :],
-                                  -60.0, 0.0))
-    causal = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
-    scores = torch.bmm(c32, b32.transpose(1, 2))
-    scores = torch.where(causal, scores * decay, 0.0)
-    y = torch.bmm(scores, x32)
-    tail = torch.exp(torch.clamp(cum[:, -1:] - cum, -60.0, 0.0))
-    state = torch.bmm((b32 * tail[..., None]).transpose(1, 2), x32)
-    chunk_decay = torch.exp(torch.clamp(cum[:, -1], -60.0, 0.0))
-    return y.to(xdt.dtype), state, chunk_decay
-
-
-def _lib():
-    fn = build.library("ssd_chunk").repro_ssd_intra_chunk
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4 + [
-        ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _as_reference(*ssd_intra_chunk_grouped_plain(
+        *_as_grouped(cum, b, c, xdt)))
 
 
 def ssd_intra_chunk_cuda(cum, b, c, xdt):
-    """Launch the CUDA kernel: ``(y, state, chunk_decay)`` as the twin.
-    Raises on a tensor off the GPU or a failed launch; never falls back."""
-    global launches
+    """The reference-shaped kernel call: ``(y, state, chunk_decay)`` as
+    ``ssd_intra_chunk_plain``; one launch of the grouped kernel."""
     check_inputs(cum, b, c, xdt)
-    if cum.device.type != "cuda":
-        raise ValueError(f"ssd_intra_chunk_cuda needs CUDA tensors, got "
-                         f"{cum.device}")
-    g, q = cum.shape
-    n, p = b.shape[2], xdt.shape[2]
-    if g > 2**31 - 1:
-        raise ValueError(f"G={g} exceeds the kernel's grid")
-    fn = _lib()
-    y = torch.empty((g, q, p), dtype=xdt.dtype, device=cum.device)
-    state = torch.empty((g, n, p), dtype=torch.float32, device=cum.device)
-    decay = torch.empty((g,), dtype=torch.float32, device=cum.device)
-    with torch.cuda.device(cum.device):
-        stream = torch.cuda.current_stream(cum.device).cuda_stream
-        rc = fn(cum.data_ptr(), b.data_ptr(), c.data_ptr(), xdt.data_ptr(),
-                y.data_ptr(), state.data_ptr(), decay.data_ptr(), g, q, n, p,
-                _DTYPES[xdt.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_intra_chunk kernel launch failed: CUDA "
-                           f"error {rc}")
-    launches += 1
-    return y, state, decay
+    return _as_reference(*ssd_intra_chunk_grouped_cuda(
+        *_as_grouped(cum, b, c, xdt)))

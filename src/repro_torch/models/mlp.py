@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def init_mlp_params(seed: int = 0, d_in: int = 784, hidden: int = 10,
                     n_classes: int = 10):
@@ -30,13 +32,14 @@ def init_mlp_params(seed: int = 0, d_in: int = 784, hidden: int = 10,
             "l3": lin(hidden, n_classes)}
 
 
-def params_from_jax(np_params, device="cpu"):
+def params_from_jax(np_params, device=None):
     """The reference's params pytree, carried across as numpy arrays, as a
-    nested dict of f32 tensors on ``device`` (same keys, same shapes)."""
+    nested dict of f32 tensors on ``device`` (same keys, same shapes;
+    ``None`` is the card, as for every entry point of the port)."""
+    dev = resolve_device(device)
     if isinstance(np_params, dict):
-        return {k: params_from_jax(v, device) for k, v in np_params.items()}
-    return torch.as_tensor(np.array(np_params, dtype=np.float32),
-                           device=device)
+        return {k: params_from_jax(v, dev) for k, v in np_params.items()}
+    return torch.as_tensor(np.array(np_params, dtype=np.float32), device=dev)
 
 
 def mlp_apply(params, x):

@@ -3,7 +3,7 @@
 Port of ``repro.models.ssm``: the chunked SSD forward for prefill
 (quadratic inside a chunk, a state recurrence across chunks) and the O(1)
 recurrent step for decode. The intra-chunk part always goes through
-``kernels.ops.ssd_intra_chunk``, which dispatches by device: the CUDA
+``kernels.ops.ssd_intra_chunk_grouped``, which dispatches by device: the CUDA
 kernel for a tensor on the card, the plain twin on the CPU. The reference
 reaches its Pallas kernel only with ``use_kernel=True``; both of its
 branches compute the same function. The cross-chunk recurrence is a Python
@@ -94,8 +94,10 @@ def ssd_chunked(x, dt, a, B, C, cfg: ModelConfig, init_state=None):
     x: (Bz, T, H, P)  dt: (Bz, T, H)  a: (H,) negative
     B, C: (Bz, T, G, N). Returns (y (Bz, T, H, P), final_state
     (Bz, H, P, N) f32). T is padded up to a multiple of the chunk
-    Q = min(cfg.ssm_chunk, T); the intra-chunk part runs on the
-    (G = Bz * NC * H, Q, .) flattening of the reference's kernel branch.
+    Q = min(cfg.ssm_chunk, T). The intra-chunk part takes B and C per
+    group as the views they come in (no repeat over the heads, no
+    permute): ``ops.ssd_intra_chunk_grouped`` shares each group's C B^T
+    among its H / G heads.
     """
     bz, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -112,24 +114,17 @@ def ssd_chunked(x, dt, a, B, C, cfg: ModelConfig, init_state=None):
 
     xc = x.reshape(bz, nc, q, h, p)
     dtc = dt.reshape(bz, nc, q, h)                        # (Bz,NC,Q,H)
-    Bh = torch.repeat_interleave(B.reshape(bz, nc, q, g, n), rep, dim=3)
-    Ch = torch.repeat_interleave(C.reshape(bz, nc, q, g, n), rep, dim=3)
+    Bc = B.reshape(bz, nc, q, g, n)                       # views, per group
+    Cc = C.reshape(bz, nc, q, g, n)
 
     da = dtc * a[None, None, None, :]                     # log-decay per step
     cum = torch.cumsum(da, dim=2)                         # (Bz,NC,Q,H)
     xdt = xc * dtc[..., None]
 
-    gsz = bz * nc * h
-    cum_f = cum.permute(0, 1, 3, 2).reshape(gsz, q).contiguous()
-    x_f = xdt.permute(0, 1, 3, 2, 4).reshape(gsz, q, p).contiguous()
-    # B and C meet the kernel in xdt's dtype (exact: bf16 widens to f32)
-    b_f = Bh.permute(0, 1, 3, 2, 4).reshape(gsz, q, n).to(x_f.dtype)
-    c_f = Ch.permute(0, 1, 3, 2, 4).reshape(gsz, q, n).to(x_f.dtype)
-    y_f, st_f, dec_f = ops.ssd_intra_chunk(cum_f, b_f.contiguous(),
-                                           c_f.contiguous(), x_f)
-    y_intra = y_f.reshape(bz, nc, h, q, p).permute(0, 1, 3, 2, 4)
-    chunk_state = st_f.reshape(bz, nc, h, n, p).permute(0, 1, 2, 4, 3)
-    chunk_decay = dec_f.reshape(bz, nc, h)
+    # B and C meet the kernel in xdt's dtype (a no-op in f32; exact for
+    # bf16, which widens to f32)
+    y_intra, chunk_state, chunk_decay = ops.ssd_intra_chunk_grouped(
+        cum, Bc.to(xdt.dtype), Cc.to(xdt.dtype), xdt)
 
     # cross-chunk recurrence: the state before each chunk
     s = (torch.zeros((bz, h, p, n), device=x.device) if init_state is None
@@ -140,10 +135,13 @@ def ssd_chunked(x, dt, a, B, C, cfg: ModelConfig, init_state=None):
         s = s * chunk_decay[:, i, :, None, None] + chunk_state[:, i].float()
     prev_states = torch.stack(prev, dim=1)                # (Bz,NC,H,P,N)
 
-    # inter-chunk output: C_i . (decay_to_i * S_prev)
+    # inter-chunk output: C_i . (decay_to_i * S_prev), contracted per group
+    # and scaled by the decay after (the reference scales C first: a
+    # rounding-order change only)
     into = torch.exp(torch.clamp(cum, -60.0, 0.0))        # from chunk start
-    y_inter = torch.einsum("bcihn,bchpn->bcihp", Ch * into[..., None],
-                           prev_states.to(Ch.dtype))
+    s_grp = prev_states.to(Cc.dtype).float().view(bz, nc, g, rep, p, n)
+    y_inter = torch.einsum("bcign,bcgrpn->bcigrp", Cc.float(), s_grp)
+    y_inter = y_inter.reshape(bz, nc, q, h, p) * into[..., None]
 
     y = (y_intra + y_inter).reshape(bz, tt, h, p)[:, :t]
     return y.to(x.dtype), s

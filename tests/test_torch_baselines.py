@@ -50,7 +50,7 @@ def _pair(data, cls_ref, cls_port, draws=None):
                     for d in tbuild(x, y, parts)]
     ref_args = (init_mlp_params(jax.random.PRNGKey(0)), ref_clients,
                 SchedulerConfig(**sched), SyncConfig(**cfg))
-    port_args = (params_from_jax(_np_params()), port_clients,
+    port_args = (params_from_jax(_np_params(), device="cpu"), port_clients,
                  tcore.SchedulerConfig(**sched), tfl.SyncConfig(**cfg))
     if cls_ref is COTAFServer:
         return (cls_ref(*ref_args, ChannelConfig()),
@@ -94,7 +94,7 @@ def test_baselines_default_to_the_gpu(data, monkeypatch):
     x, y, parts = data
     clients = [tfl.FLClient(d, tloss, 32, 0.1, 5)
                for d in tbuild(x, y, parts)]
-    params = params_from_jax(_np_params())
+    params = params_from_jax(_np_params(), device="cpu")
     sched, cfg = tcore.SchedulerConfig(n_clients=K), tfl.SyncConfig()
     with pytest.raises(RuntimeError, match="cuda"):
         tfl.LocalSGDServer(params, clients, sched, cfg)
@@ -117,7 +117,8 @@ def test_cli_matches_reference_driver(tmp_path, monkeypatch, capsys):
     from repro_torch.launch import fl_train
     monkeypatch.delenv("REPRO_BENCH_FULL", raising=False)
     monkeypatch.setattr(fl_train, "init_mlp_params",
-                        lambda seed: params_from_jax(_np_params()))
+                        lambda seed: params_from_jax(_np_params(),
+                                                     device="cpu"))
     out = tmp_path / "fl.csv"
     fl_train.main(["--rounds", "4", "--clients", "8", "--device", "cpu",
                    "--out", str(out)])

@@ -108,7 +108,8 @@ def port(data, transmit, draws=None, scenario=None, k=K, **kw):
     clients = [tfl.FLClient(d, tloss, batch_size=32, lr=0.1, local_steps=5)
                for d in tbuild(x, y, parts)]
     params = params_from_jax(jax.tree_util.tree_map(np.asarray,
-                                                    _jax_params()))
+                                                    _jax_params()),
+                             device="cpu")
     sc = None if scenario is None else tcore.ScenarioConfig(**scenario)
     if draws is not None:
         draws = tfl.ArrayDraws(device="cpu", **draws)

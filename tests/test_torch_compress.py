@@ -209,6 +209,21 @@ def test_gather_superpose_cuda_refuses_cpu_tensors():
     assert tgs.launches == before
 
 
+@pytest.mark.parametrize("m,d,want", [
+    (64, 8070, (1024, 4)), (256, 1024 * 16, (1024, 8)), (1, 1, (64, 1)),
+    (40, 65, (128, 2)), (3, 5000, (1024, 1)), (10**4, 10**6, (1024, 1))])
+def test_gather_superpose_plan_fills_one_wave(m, d, want):
+    """The kernel's grid: the widest stripe it takes (a multiple of 64 up
+    to 1024, covering d), then row splits up to one wave of 132 SMs with a
+    row per warp in each split."""
+    stripe, splits = tgs.plan(m, d, 132)
+    assert (stripe, splits) == want
+    stripes = -(-d // stripe)
+    assert stripe % 64 == 0 and stripe <= 1024 and stripes * stripe >= d
+    assert splits == 1 or (stripes * splits <= 132
+                           and -(-m // splits) >= tgs.WARPS)
+
+
 @pytest.mark.parametrize("with_resid", [False, True])
 @pytest.mark.parametrize("with_scale", [False, True])
 def test_compressed_round_stats_match_reference(with_resid, with_scale):

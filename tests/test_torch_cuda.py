@@ -420,3 +420,88 @@ def test_mamba2_prefill_runs_the_ssd_kernel_per_layer(cuda):
     assert sc.launches == cfg.num_layers
     torch.testing.assert_close(torch.stack(outs, 1), full[:, 11:16],
                                rtol=3e-3, atol=3e-3)
+
+
+def _grouped_case(dev, bz, nc, q, h, g, n, p, dtype, seed, offset=None):
+    """Grouped SSD inputs: cum (Bz, NC, Q, H), xdt (Bz, NC, Q, H, P), and B,
+    C (Bz, NC, Q, G, N), either contiguous or, with ``offset``, strided
+    views of one conv-output-like (Bz, NC*Q, offset + 2 G N) tensor."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cum = -torch.cumsum(0.05 + 0.2 * torch.rand((bz, nc, q, h), generator=gen,
+                                                device=dev), dim=2)
+    xdt = torch.randn((bz, nc, q, h, p), generator=gen, device=dev).to(dtype)
+    if offset is None:
+        b, c = (torch.randn((bz, nc, q, g, n), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+    else:
+        xbc = torch.randn((bz, nc * q, offset + 2 * g * n), generator=gen,
+                          device=dev).to(dtype)
+        b = xbc[..., offset:offset + g * n].reshape(bz, nc, q, g, n)
+        c = xbc[..., offset + g * n:].reshape(bz, nc, q, g, n)
+        assert not b.is_contiguous()
+    return cum, b, c, xdt
+
+
+@pytest.mark.parametrize("bz,nc,q,h,g,n,p,offset", [
+    (2, 2, 64, 4, 4, 32, 32, None),        # rep 1
+    (2, 3, 128, 8, 2, 64, 64, None),       # rep 4
+    (8, 4, 256, 32, 1, 128, 64, None),     # rep 32, mamba2-370m's layer
+    (1, 2, 100, 8, 2, 40, 70, None),       # ragged Q, N, P
+    (2, 2, 256, 32, 1, 128, 64, 2048),     # strided views, 16-byte rows
+    (1, 2, 100, 8, 2, 40, 64, 3)],         # strided views, unaligned rows
+    ids=["rep1", "rep4", "rep32", "ragged", "strided", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_grouped_kernel_matches_twin(cuda, bz, nc, q, h, g, n, p, offset,
+                                         dtype):
+    """The grouped kernel (one C B^T per group shared by its heads) against
+    its twin at the reference's 2e-5 (f32) and 2e-2 (bf16), every output,
+    one launch, and bit-identical on repeat."""
+    from repro_torch.kernels import ssd_chunk as sc
+    args = _grouped_case(cuda, bz, nc, q, h, g, n, p, dtype, q + h + n + p,
+                         offset)
+    before = sc.launches
+    got = sc.ssd_intra_chunk_grouped_cuda(*args)
+    torch.cuda.synchronize()
+    assert sc.launches == before + 1
+    want = sc.ssd_intra_chunk_grouped_plain(*args)
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+           else dict(rtol=2e-5, atol=2e-5))
+    assert [tuple(t.shape) for t in got] == [tuple(t.shape) for t in want]
+    assert got[0].dtype == dtype
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **tol)
+    again = sc.ssd_intra_chunk_grouped_cuda(*args)
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("m,s,d", [(13, 40, 64), (40, 64, 65),
+                                   (13, 100, 8449), (7, 3, 8448),
+                                   (3, 1101, 5000), (50, 2048, 20000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_gather_superpose_stripe_edges_and_ragged_rows(cuda, m, s, d, dtype):
+    """Stripe edges (d at and one past a multiple of 64, past one 1024-wide
+    stripe), row splits merged by the stripe's last block (m = 40, 50), m
+    not a multiple of the 16 warps, rows longer than one staged segment,
+    and s not a multiple of 4 (the 4-byte copies)."""
+    from repro_torch.kernels import gather_superpose as gs
+    v, idx, bp, noise, scale = _gs_case(cuda, m, s, d, dtype,
+                                        dtype == torch.int8, dead=True)
+    got, raw = gs.gather_superpose_cuda(v, idx, bp, noise, d=d, scale=scale)
+    want, want_raw = gs.gather_superpose_plain(v, idx, bp, noise, d=d,
+                                               scale=scale)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(raw, want_raw, rtol=3e-5, atol=0.0)
+    again, _ = gs.gather_superpose_cuda(v, idx, bp, noise, d=d, scale=scale)
+    assert torch.equal(again, got)
+
+
+def test_gather_superpose_all_dead_rows_at_the_state_plane_shape(cuda):
+    from repro_torch.kernels import gather_superpose as gs
+    v, idx, bp, noise, _ = _gs_case(cuda, 256, 1024, 16384, torch.float32,
+                                    False)
+    got, raw = gs.gather_superpose_cuda(v, idx, torch.zeros_like(bp), noise,
+                                        d=16384)
+    torch.cuda.synchronize()
+    assert float(raw) == 0.0
+    torch.testing.assert_close(got, noise / 1e-12, rtol=3e-5, atol=0.0)

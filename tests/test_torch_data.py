@@ -68,7 +68,8 @@ def test_ravel_order_and_params_from_jax():
         lambda a: a + 0.01 * jnp.arange(a.size, dtype=a.dtype).reshape(
             a.shape), jp)          # non-zero biases, so order is visible
     want, _ = ravel_pytree(jp)
-    tp = tmlp.params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    tp = tmlp.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                              device="cpu")
     vec, unravel = ravel(tp)
     assert vec.shape == (8070,) and vec.dtype == torch.float32
     np.testing.assert_array_equal(vec.numpy(), np.asarray(want))
@@ -87,7 +88,7 @@ def test_ravel_order_and_params_from_jax():
 def test_mlp_matches_reference(data):
     x, y = data[0][:64], data[1][:64]
     npp = _np_params(1)
-    tp = tmlp.params_from_jax(npp)
+    tp = tmlp.params_from_jax(npp, device="cpu")
     jb = {"x": jnp.asarray(x), "y": jnp.asarray(y)}
     tb = {"x": torch.from_numpy(x), "y": torch.from_numpy(y).long()}
     np.testing.assert_allclose(tmlp.mlp_apply(tp, tb["x"]).numpy(),
@@ -115,7 +116,7 @@ def test_local_sgd_matches_reference_engine(data):
         plan = np.array(je.round_plan(r))
         want = np.asarray(je._train_all(npp, je._x, je._y,
                                         jnp.asarray(plan)))
-        got = te.train_all(tmlp.params_from_jax(npp),
+        got = te.train_all(tmlp.params_from_jax(npp, device="cpu"),
                            torch.from_numpy(plan).long())
         assert got.shape == (K, 8070)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)

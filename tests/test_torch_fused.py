@@ -78,7 +78,8 @@ def _port(data, transmit, draws=None, **sched_kw):
     clients = [tfl.FLClient(d, tloss, batch_size=32, lr=0.1, local_steps=5)
                for d in tbuild(x, y, parts)]
     params = params_from_jax(jax.tree_util.tree_map(np.asarray,
-                                                    _jax_params()))
+                                                    _jax_params()),
+                             device="cpu")
     return tfl.FusedPAOTA(params, clients, tcore.ChannelConfig(),
                           tcore.SchedulerConfig(n_clients=K, seed=1,
                                                 **sched_kw),

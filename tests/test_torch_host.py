@@ -61,7 +61,8 @@ def _port(data, cfg, draws, **sched_kw):
     clients = [tfl.FLClient(d, tloss, batch_size=32, lr=0.1, local_steps=5)
                for d in tbuild(x, y, parts)]
     params = params_from_jax(jax.tree_util.tree_map(np.asarray,
-                                                    _jax_params()))
+                                                    _jax_params()),
+                             device="cpu")
     return tfl.PAOTAServer(params, clients, tcore.ChannelConfig(),
                            tcore.SchedulerConfig(n_clients=K, seed=1,
                                                  **sched_kw),
@@ -177,7 +178,8 @@ def test_host_server_hygiene(data):
     clients = [tfl.FLClient(d, tloss, 32, 0.1, 5)
                for d in tbuild(x, y, parts)]
     params = params_from_jax(jax.tree_util.tree_map(np.asarray,
-                                                    _jax_params()))
+                                                    _jax_params()),
+                             device="cpu")
 
     def make(cfg, **kw):
         return tfl.PAOTAServer(params, clients, tcore.ChannelConfig(),

@@ -94,6 +94,36 @@ def test_default_device_is_the_gpu_and_never_the_cpu(monkeypatch):
     assert _server(device="cpu").device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("call", ["mlp_params_from_jax",
+                                  "solve_p2_waterfill_jnp"])
+def test_carry_across_and_p2_default_to_the_gpu(monkeypatch, call):
+    """The MLP's weight carry-across and the f32 P2 solve resolve
+    ``device=None`` to the card like every other entry point: without one
+    they raise with resolve_device's message, and run when asked for the
+    CPU."""
+    from repro_torch.core.dinkelbach import solve_p2
+    from repro_torch.core.power_control import build_p2
+    from repro_torch.models.mlp import params_from_jax
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if call == "mlp_params_from_jax":
+        params = {"l1": {"w": np.ones((2, 3), np.float32),
+                         "b": np.zeros(3, np.float32)}}
+
+        def run(**kw):
+            return params_from_jax(params, **kw)["l1"]["w"]
+    else:
+        rng = np.random.default_rng(0)
+        prob = build_p2(rng.random(4), rng.random(4), 15.0 * rng.random(4),
+                        np.ones(4), smooth_l=10.0, eps_bound=0.05,
+                        model_dim=8070, sigma_n2=1e-13)
+
+        def run(**kw):
+            return solve_p2(prob, "waterfill_jnp", **kw).beta
+    with pytest.raises(RuntimeError, match="torch.cuda is not available"):
+        run()
+    assert np.isfinite(np.asarray(run(device="cpu"))).all()
+
+
 @pytest.mark.parametrize("knob,value", [
     ("params_mode", "pytree"), ("pending_dtype", "bfloat16"),
     ("screen_max_norm", 1.0), ("checkpoint_dir", "ckpt"),

@@ -234,10 +234,10 @@ def test_masked_local_steps_match_reference_engine(data):
     plan = np.array(je.round_plan(3))
     want = np.asarray(je._train_all(npp, je._x, je._y, jnp.asarray(plan),
                                     je.steps_for()))
-    got = te.train_all(tmlp.params_from_jax(npp), T(plan).long())
+    got = te.train_all(tmlp.params_from_jax(npp, device="cpu"), T(plan).long())
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
     ids = torch.tensor([4, 0, 2], dtype=torch.int32)
-    rows = te.train_rows(tmlp.params_from_jax(npp),
+    rows = te.train_rows(tmlp.params_from_jax(npp, device="cpu"),
                          T(plan).long()[ids.long()], ids)
     np.testing.assert_array_equal(rows.numpy(), got.numpy()[[4, 0, 2]])
 
@@ -250,7 +250,7 @@ def test_masked_steps_equal_the_shorter_homogeneous_run(data):
     _, te2 = _engines(data, steps=2)
     plan = tpipe.counter_batch_plan(1, 0, torch.as_tensor(te.n_samples),
                                     5, 32)
-    params = tmlp.params_from_jax(_np_params(1))
+    params = tmlp.params_from_jax(_np_params(1), device="cpu")
     np.testing.assert_array_equal(
         te.train_all(params, plan).numpy(),
         te2.train_all(params, plan[:, :2]).numpy())

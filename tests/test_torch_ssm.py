@@ -85,6 +85,138 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
         sc.ssd_intra_chunk_cuda(**args)
 
 
+def _grouped_inputs(seed, bz, nc, q, h, g, n, p, valid=None):
+    """Grouped SSD inputs as ``ssd_chunked`` forms them: cum (Bz, NC, Q, H)
+    a decreasing cumulative log-decay, B, C (Bz, NC, Q, G, N) and xdt
+    (Bz, NC, Q, H, P) standard normal. With ``valid`` tokens of NC*Q, the
+    rest is the chunk padding of a ragged prompt: zero B, C, xdt and dt
+    (so cum stays flat)."""
+    rng = np.random.default_rng(seed)
+    da = -(0.05 + 0.2 * rng.random((bz, nc * q, h)))
+    b = rng.normal(size=(bz, nc * q, g, n))
+    c = rng.normal(size=(bz, nc * q, g, n))
+    xdt = rng.normal(size=(bz, nc * q, h, p))
+    if valid is not None:
+        for a in (da, b, c, xdt):
+            a[:, valid:] = 0.0
+    cum = np.cumsum(da.reshape(bz, nc, q, h), axis=2)
+    return [a.astype(np.float32) for a in (
+        cum, b.reshape(bz, nc, q, g, n), c.reshape(bz, nc, q, g, n),
+        xdt.reshape(bz, nc, q, h, p))]
+
+
+def _flatten_for_reference(cum, b, c, xdt):
+    """The reference's kernel-branch layout: B and C repeated over the
+    heads, (G = Bz * NC * H, Q, .)."""
+    bz, nc, q, h = cum.shape
+    rep = h // b.shape[3]
+    bh = np.repeat(b, rep, axis=3).transpose(0, 1, 3, 2, 4)
+    ch = np.repeat(c, rep, axis=3).transpose(0, 1, 3, 2, 4)
+    return (cum.transpose(0, 1, 3, 2).reshape(-1, q),
+            bh.reshape(-1, q, b.shape[4]), ch.reshape(-1, q, c.shape[4]),
+            xdt.transpose(0, 1, 3, 2, 4).reshape(-1, q, xdt.shape[4]))
+
+
+@pytest.mark.parametrize("g,h", [(1, 4), (2, 8), (4, 4), (1, 1), (2, 2)],
+                         ids=["G1-rep4", "G2-rep4", "GH-rep1", "G1-rep1",
+                              "G2-rep1"])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_twin_matches_reference_pallas(g, h, ragged, dtype):
+    """The grouped twin against the reference's Pallas kernel (interpret
+    mode) on the repeated and flattened inputs: G in {1, 2, H}, rep in
+    {1, 4}, a ragged prompt's chunk padding (75 of 96 tokens), f32 at 2e-5
+    and bf16 inputs at 2e-2."""
+    bz, nc, q, n, p = 2, 3, 32, 16, 8
+    arrs = _grouped_inputs(g * 10 + h, bz, nc, q, h, g, n, p,
+                           valid=75 if ragged else None)
+    tt = [_t(arrs[0])] + [_t(a).to(dtype) for a in arrs[1:]]
+    y, state, decay = ops.ssd_intra_chunk_grouped(*tt)
+    assert (tuple(y.shape), tuple(state.shape), tuple(decay.shape)) == (
+        (bz, nc, q, h, p), (bz, nc, h, p, n), (bz, nc, h))
+    assert (y.dtype, state.dtype, decay.dtype) == (dtype, torch.float32,
+                                                   torch.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    flat = _flatten_for_reference(*(a if i == 0 else
+                                    np.asarray(jnp.asarray(a, jdt))
+                                    for i, a in enumerate(arrs)))
+    jy, jst, jdec = ssd_intra_chunk_pallas(
+        jnp.asarray(flat[0]), *(jnp.asarray(a, jdt) for a in flat[1:]),
+        interpret=True)
+    tol = TOL if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    want_y = np.asarray(jy, np.float32).reshape(bz, nc, h, q, p)
+    np.testing.assert_allclose(y.float().numpy(),
+                               want_y.transpose(0, 1, 3, 2, 4), **tol)
+    want_st = np.asarray(jst).reshape(bz, nc, h, n, p)
+    np.testing.assert_allclose(state.numpy(),
+                               want_st.transpose(0, 1, 2, 4, 3), **TOL)
+    np.testing.assert_allclose(decay.numpy(),
+                               np.asarray(jdec).reshape(bz, nc, h), **TOL)
+
+
+@pytest.mark.parametrize("g,q,n,d", [(4, 32, 16, 32), (3, 100, 40, 70)])
+def test_adapter_equals_the_grouped_twin_bit_for_bit(g, q, n, d):
+    """The reference-shaped entry is the grouped function with H = G = 1:
+    its outputs are the grouped twin's, bit for bit."""
+    cum, b, c, xdt = (_t(a) for a in _sweep_inputs(g, q, n, d))
+    got = ops.ssd_intra_chunk(cum, b, c, xdt)
+    y, state, decay = sc.ssd_intra_chunk_grouped_plain(
+        cum.view(g, 1, q, 1), b.view(g, 1, q, 1, n), c.view(g, 1, q, 1, n),
+        xdt.view(g, 1, q, 1, d))
+    assert torch.equal(got[0], y.view(g, q, d))
+    assert torch.equal(got[1], state.view(g, d, n).transpose(1, 2))
+    assert torch.equal(got[2], decay.view(g))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(b=torch.zeros((1, 2, 8, 3, 4)), c=torch.zeros((1, 2, 8, 3, 4))),
+     "do not divide"),
+    (dict(b=torch.zeros((1, 2, 8, 4, 2)).transpose(3, 4)), "along N"),
+    (dict(xdt=torch.zeros((1, 2, 8, 5, 4)).transpose(3, 4)), "contiguous"),
+    (dict(cum=torch.zeros((1, 1, 520, 4))), "exceeds"),
+    (dict(c=torch.zeros((1, 2, 8, 2, 2), dtype=torch.bfloat16)),
+     "dtypes differ")])
+def test_grouped_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
+    args = dict(cum=torch.zeros((1, 2, 8, 4)), b=torch.zeros((1, 2, 8, 2, 2)),
+                c=torch.zeros((1, 2, 8, 2, 2)),
+                xdt=torch.zeros((1, 2, 8, 4, 5)))
+    args.update(bad)
+    with pytest.raises((TypeError, ValueError), match=match):
+        sc.ssd_intra_chunk_grouped_cuda(**args)
+
+
+def test_ssd_chunked_hands_b_and_c_as_views_of_the_conv_output(monkeypatch):
+    """The prefill path builds no (..., H, N) copy of B or C: the tensors
+    handed to the kernel seam are views of the conv output's storage, one
+    slice per group, not per head."""
+    jp, tp = _block(0)
+    cfg = get_reduced("mamba2-370m")
+    seen = {}
+    conv, grouped = tssm._causal_conv, ops.ssd_intra_chunk_grouped
+
+    def spy_conv(*a, **kw):
+        out = conv(*a, **kw)
+        seen["xbc"] = out[0]
+        return out
+
+    def spy_grouped(cum, b, c, xdt):
+        seen["b"], seen["c"] = b, c
+        return grouped(cum, b, c, xdt)
+
+    monkeypatch.setattr(tssm, "_causal_conv", spy_conv)
+    monkeypatch.setattr(ops, "ssd_intra_chunk_grouped", spy_grouped)
+    t = min(cfg.ssm_chunk, 32)
+    u = _t(np.random.default_rng(2).normal(size=(2, t, cfg.d_model)).astype(
+        np.float32))
+    tssm.apply_mamba2(tp, u, cfg)
+    base = seen["xbc"].untyped_storage().data_ptr()
+    for name in ("b", "c"):
+        x = seen[name]
+        assert x.untyped_storage().data_ptr() == base, name
+        assert not x.is_contiguous(), name
+        assert x.shape[3] == cfg.ssm_ngroups != cfg.ssm_nheads, name
+
+
 def _ssd_inputs(seed, bz, t, h, p, g, n):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(bz, t, h, p)).astype(np.float32)

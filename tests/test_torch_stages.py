@@ -352,7 +352,7 @@ def test_waterfill_jnp_solver_name_runs_the_f32_solver():
     rng = np.random.default_rng(6)
     pj, pt = _p2_pair(rng, 8)
     rj = jdink.solve_p2(pj, "waterfill_jnp")
-    rt = tdink.solve_p2(pt, "waterfill_jnp")
+    rt = tdink.solve_p2(pt, "waterfill_jnp", device="cpu")
     np.testing.assert_array_equal(rt.beta, rj.beta)
     assert rt.objective == rj.objective and rt.inner == "waterfill_jnp"
     with pytest.raises(ValueError, match="solver"):
