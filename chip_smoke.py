@@ -62,7 +62,11 @@ CARDS = (("H200", 4.8e12, 67e12, 495e12),
          ("H100 NVL", 3.9e12, 60e12, 418e12),
          ("H100", 3.35e12, 67e12, 495e12))
 
-PARITY_SHAPES = ((1, 1), (3, 511), (100, 8070), (1000, 8070))
+# the sweeps' parity shapes (K, D): odd D, D = 8070 (float2 loads), D % 8 ==
+# 0 (16-byte loads), sweep 1's cluster of chunks (K = 1, D = 20000) and
+# sweep 2's cluster of row splits (K = 1000, D = 511)
+PARITY_SHAPES = ((1, 1), (3, 511), (64, 8191), (100, 8070), (100, 8192),
+                 (1000, 8070), (1, 20000), (1000, 511))
 MAIN_ROUNDS = 100
 SCALE_ROUNDS = 20
 HOST_ROUNDS = 30
@@ -1078,7 +1082,12 @@ def kernel_times(dev, bw, flops):
     from repro_torch.kernels import cosine_sim as cs
     from repro_torch.kernels import round_stats as rs
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
-    out = {}
+    # the method's own floor: one one-element kernel, timed the same way
+    one = torch.zeros((1,), device=dev)
+    floor = time_ms(lambda: one.add_(1.0), flush)
+    log({"phase": "kernel_time", "kernel": "launch_floor",
+         "what": "one.add_(1) on a one-element tensor", "ms": floor})
+    out = {"launch_floor": floor}
     for k, d in ((100, 8070), (1000, 8070)):
         gen = torch.Generator(device=dev).manual_seed(k)
         x = torch.randn((k, d), generator=gen, device=dev)
@@ -1140,7 +1149,10 @@ def kernel_times(dev, bw, flops):
             "bound_ms": max(nbytes / bw, nops / flops) * 1e3,
             "bound_by": "bytes" if nbytes / bw >= nops / flops
             else "operations"}
-    for (name, k), rec in out.items():
+    for key, rec in out.items():
+        if key == "launch_floor":
+            continue
+        name, k = key
         log({"phase": "kernel_time", "kernel": name, "shape": [k, 8070],
              "dtype": "float32", **rec})
     from repro_torch.kernels import gather_superpose as gs
@@ -1477,6 +1489,7 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
             "yardstick_ms": t["yardstick_ms"], "yardstick": t["yardstick"],
+            "launch_floor_ms": times["launch_floor"],
             "shape": list(shape), "dtype": "float32"})
     lm_rows = {"ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                              "src/repro/kernels/ssd_chunk.py:58",

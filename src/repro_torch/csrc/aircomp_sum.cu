@@ -11,144 +11,283 @@
 // route: bp comes already masked, vs_min is 1e-12 and only agg is written.
 // x is f32 or bf16; bp, p, mask and noise are f32; every sum is f32.
 //
-// Bound on the H100: memory. K*D payload elements are read once for one
-// FMA each; the output is one D-vector.
+// Bound on the H100: memory bytes. K*D payload elements are read once for
+// one FMA each; the output is one D-vector. At K x D = 100 x 8070 f32 the
+// plane is 3.2 MB, 1 us at 3.35 TB/s: the call is a fight with latency,
+// so the whole plane has to be in flight at once, and every dependent
+// step after the loads (another round of row loads, a merge through
+// device memory, a memset on the stream) costs as much as the bytes.
 //
-// Design: a reduction over K for each column, so a block owns 32
-// neighbouring columns (one per lane: every row load of a warp is one
-// coalesced 128-byte line in f32) and its 8 warps split the K rows
-// between them (warp w takes rows w, w+8, ...), which gives D/32 blocks
-// of 256 threads enough loads in flight. bp is staged in shared memory
-// 256 rows at a time. The 8 warp partials of a column are added in a
-// fixed order, and every block sums bp in the same fixed order, so all
-// blocks divide by the same varsigma and block 0 writes it: no atomics,
-// and the result is identical from run to run. The noise joins the f32
-// sum before the division. Rows are D elements apart (D = 8070 is not a
-// multiple of 4), so loads are scalar and the ragged last block is masked.
+// Design: a grid of column tiles, the rows split across the warps of a
+// block and, where the tiles are too few to fill the card, across the
+// blocks of a cluster.
+// - A warp covers a tile of 32 * V columns, each lane V neighbouring
+//   columns loaded at once (16, 8, 4 or 2 bytes: V is the widest width that
+//   divides the row pitch and x's alignment, a template parameter; D = 8070
+//   f32 rows load as float2, 64 columns a warp). The W warps of a block (16,
+//   or 32 for large K) split the block's rows (warp w takes rows w, w + W,
+//   ... in order) and each issues 8 row loads (4 of 16 bytes) before
+//   their FMAs, so at K <= 128 a warp's rows are one round trip. bp_k is
+//   read directly (K floats that stay in L2); nothing is staged behind
+//   barriers.
+// - A block adds its warps' partials in warp order, adds the noise and
+//   divides. Where D gives fewer tiles than half the SMs, the wrapper's
+//   plan splits the rows across up to 8 blocks that run as one thread
+//   block cluster: split 0 adds the splits' totals from their shared
+//   memory (distributed shared memory) in split order. No scratch, no
+//   counter, no float atomics: repeated calls are bit-identical, and the
+//   launch is one kernel node a CUDA graph can capture.
+// - Only the blocks that write agg (split 0 of each tile) sum bp for
+//   varsigma, in the same fixed order, while their row loads are in
+//   flight; all divide by the same value, and tile 0 writes the raw
+//   varsigma. The ragged last tile is masked; nothing is padded or copied.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 32;  // columns per block, one per lane
+namespace cg = cooperative_groups;
+using sweep::Vec;
+using sweep::launch_clustered;
+using sweep::warp_sum;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// row loads a warp has in flight: 8, or 4 of 16 bytes (registers)
+template <int V>
+constexpr int kUnroll = V >= 4 ? 4 : 8;
+constexpr int kMaxSplits = 8;   // the portable cluster size
+
+__device__ __forceinline__ float weight(const float* __restrict__ powers,
+                                        const float* __restrict__ mask,
+                                        int64_t i) {
+  return mask != nullptr ? __fmul_rn(powers[i], mask[i]) : powers[i];
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-// kMasked: bp_k = powers[k] * mask[k], and block 0 writes the raw
-// varsigma; otherwise powers holds bp itself and mask/varsigma are unused.
-template <typename T, bool kMasked>
-__global__ void __launch_bounds__(kThreads)
+// W warps a block; kCluster: a tile's `gridDim.y` splits are one cluster.
+// With a mask, bp_k = powers[k] * mask[k] and tile 0 writes the raw
+// varsigma; without, powers holds bp itself and varsigma is unused.
+template <typename T, int V, int W, bool kCluster>
+__global__ void __launch_bounds__(W * 32)
 superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
                  const float* __restrict__ mask,
                  const float* __restrict__ noise, float* __restrict__ agg,
                  float* __restrict__ varsigma, int64_t k, int64_t d,
-                 float vs_min) {
-  __shared__ float s_bp[kThreads];
-  __shared__ float s_acc[kWarps][kCols + 1];
-  __shared__ float s_vs[kWarps];
+                 int64_t rows, float vs_min) {
+  constexpr int kTile = 32 * V;
+  constexpr int kThreads = W * 32;
+  __shared__ float s_acc[W][kTile];
+  __shared__ float s_red[W];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kCols + lane;
-  const bool live = col < d;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t j = col0 + lane * V;      // this lane's first column
+  const bool live = j < d;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows;
+  const int64_t r1 = r0 + rows < k ? r0 + rows : k;
+  const bool merger = blockIdx.y == 0;    // cluster rank 0 with splits
 
-  float acc = 0.f;  // this warp's share of column `col`
-  float vs = 0.f;   // this thread's share of sum_k bp_k
-  for (int64_t k0 = 0; k0 < k; k0 += kThreads) {
-    const int64_t kk = k0 + tid;
-    float bp = 0.f;
-    if (kk < k) bp = kMasked ? __fmul_rn(powers[kk], mask[kk]) : powers[kk];
-    s_bp[tid] = bp;
-    vs += bp;
-    __syncthreads();
-    const int n = static_cast<int>(k - k0 < kThreads ? k - k0 : kThreads);
-    if (live) {
-      const T* xc = x + k0 * d + col;
-#pragma unroll 4
-      for (int j = warp; j < n; j += kWarps) {
-        acc = fmaf(s_bp[j], to_f32(xc[static_cast<int64_t>(j) * d]), acc);
+  // varsigma's loads go out with the first row loads: this thread's
+  // strided share of sum_k bp_k
+  float vs = 0.f;
+  if (merger) {
+    for (int64_t i = tid; i < k; i += kThreads) vs += weight(powers, mask, i);
+  }
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  constexpr int U = kUnroll<V>;
+  for (int64_t r = r0 + warp; r < r1; r += W * U) {
+    Vec<T, V> xv[U];
+    float w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t rr = r + u * W;
+      w[u] = 0.f;
+      if (rr < r1) {
+        w[u] = weight(powers, mask, rr);
+        if (live) xv[u].load(x + rr * d + j);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (r + u * W < r1 && live) {
+        float xf[V];
+        xv[u].unpack(xf);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[i] = fmaf(w[u], xf[i], acc[i]);
+      }
+    }
   }
 
-  s_acc[warp][lane] = acc;
-  const float vw = warp_sum(vs);
-  if (lane == 0) s_vs[warp] = vw;
-  __syncthreads();
-  if (warp == 0) {
-    float raw = warp_sum(lane < kWarps ? s_vs[lane] : 0.f);
-    raw = __shfl_sync(0xffffffffu, raw, 0);
-    float total = 0.f;
+  // the block's partial of each tile column (its warps in order), and
+  // varsigma (lanes by a fixed shuffle tree, then the warps in order)
+  vs = warp_sum(vs);
+  if (lane == 0) s_red[warp] = vs;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += s_acc[w][lane];
-    if (live) agg[col] = (total + noise[col]) / fmaxf(raw, vs_min);
-    if (kMasked && blockIdx.x == 0 && lane == 0) *varsigma = raw;
+  for (int i = 0; i < V; ++i) s_acc[warp][lane * V + i] = acc[i];
+  __syncthreads();
+  const int64_t col = col0 + tid;
+  const bool mine = tid < kTile && col < d;
+  float total = 0.f;
+  if (mine) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) total += s_acc[w][tid];
   }
+
+  if constexpr (kCluster) {
+    // Every thread of the cluster meets both barriers; split 0 adds the
+    // splits' totals from their shared memory in split order, and the
+    // second barrier keeps each block's shared memory alive until then.
+    __shared__ float s_tot[kTile];
+    cg::cluster_group cluster = cg::this_cluster();
+    if (tid < kTile) s_tot[tid] = total;
+    cluster.sync();
+    if (merger && mine) {
+      total = 0.f;
+      for (unsigned s = 0; s < gridDim.y; ++s) {
+        total += *cluster.map_shared_rank(&s_tot[tid], s);
+      }
+    }
+    cluster.sync();
+  }
+  if (!merger) return;
+  float raw = 0.f;
+#pragma unroll
+  for (int w = 0; w < W; ++w) raw += s_red[w];
+  if (mine) agg[col] = (total + noise[col]) / fmaxf(raw, vs_min);
+  if (varsigma != nullptr && blockIdx.x == 0 && tid == 0) *varsigma = raw;
+}
+
+template <typename T, int V, int W>
+int launch_w(const T* x, const float* powers, const float* mask,
+             const float* noise, float* agg, float* varsigma, int64_t k,
+             int64_t d, int64_t rows, int64_t splits, float vs_min,
+             cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned int>((d + 32 * V - 1) / (32 * V)),
+                  static_cast<unsigned int>(splits));
+  if (splits == 1) {
+    superpose_kernel<T, V, W, false><<<grid, W * 32, 0, s>>>(
+        x, powers, mask, noise, agg, varsigma, k, d, rows, vs_min);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const cudaError_t e = launch_clustered(
+      superpose_kernel<T, V, W, true>, grid, dim3(W * 32),
+      dim3(1, static_cast<unsigned int>(splits)), s, x, powers, mask, noise,
+      agg, varsigma, k, d, rows, vs_min);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int launch_v(const void* x, const float* powers, const float* mask,
+             const float* noise, float* agg, float* varsigma, int64_t k,
+             int64_t d, int64_t rows, int64_t splits, int warps, float vs_min,
+             cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(x) % (sizeof(T) * V) != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const T* xp = static_cast<const T*>(x);
+  if (warps == 16) {
+    return launch_w<T, V, 16>(xp, powers, mask, noise, agg, varsigma, k, d,
+                              rows, splits, vs_min, s);
+  }
+  if (warps == 32) {
+    return launch_w<T, V, 32>(xp, powers, mask, noise, agg, varsigma, k, d,
+                              rows, splits, vs_min, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan the wrapper hands over (aircomp_sum.plan), checked: whole
+// vectors per row, a tile count the grid takes, and splits = ceil(k /
+// rows), at most a cluster's 8.
+template <typename T>
+int launch(const void* x, const void* powers, const void* mask,
+           const void* noise, void* agg, void* varsigma, int64_t k, int64_t d,
+           int64_t rows, int64_t splits, int vec, int warps, float vs_min,
+           cudaStream_t s) {
+  if (k < 1 || d < 1 || vec < 1 || d % vec != 0 ||
+      static_cast<int64_t>(sizeof(T)) * vec > 16 || rows < 1 ||
+      splits < 1 || splits > kMaxSplits || (k + rows - 1) / rows != splits ||
+      (d + 32 * vec - 1) / (32 * vec) > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* p = static_cast<const float*>(powers);
+  const float* m = static_cast<const float*>(mask);
+  const float* n = static_cast<const float*>(noise);
+  float* out = static_cast<float*>(agg);
+  float* vs = static_cast<float*>(varsigma);
+  switch (vec) {
+    case 1:
+      return launch_v<T, 1>(x, p, m, n, out, vs, k, d, rows, splits, warps,
+                            vs_min, s);
+    case 2:
+      return launch_v<T, 2>(x, p, m, n, out, vs, k, d, rows, splits, warps,
+                            vs_min, s);
+    case 4:
+      return launch_v<T, 4>(x, p, m, n, out, vs, k, d, rows, splits, warps,
+                            vs_min, s);
+    case 8:
+      if constexpr (sizeof(T) == 2) {
+        return launch_v<T, 8>(x, p, m, n, out, vs, k, d, rows, splits,
+                              warps, vs_min, s);
+      }
+      break;
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // x: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1). powers, mask:
 // (k,) f32. noise: (d,) f32. agg: (d,) f32. varsigma: one f32 (raw sum).
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// The plan (the wrapper's aircomp_sum.plan): `vec` elements per load (1,
+// 2, 4, or 8 for bf16), dividing d, with vec * sizeof(T) bytes dividing
+// x's alignment (cudaErrorMisalignedAddress otherwise); `warps` (16 or
+// 32) per block; splits = ceil(k / rows) row splits of `rows` rows, at
+// most 8, run as one cluster when more than 1. Launches on `stream`,
+// allocates nothing, returns cudaGetLastError() (cudaErrorInvalidValue for
+// a plan it cannot run).
 extern "C" int repro_superpose_normalize(const void* x, const void* powers,
                                          const void* mask, const void* noise,
                                          void* agg, void* varsigma, int64_t k,
                                          int64_t d, float vs_min, int bf16,
-                                         void* stream) {
+                                         void* stream, int64_t rows,
+                                         int64_t splits, int vec, int warps) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned int>((d + kCols - 1) / kCols));
-  const float* p = static_cast<const float*>(powers);
-  const float* m = static_cast<const float*>(mask);
-  const float* n = static_cast<const float*>(noise);
-  float* out = static_cast<float*>(agg);
-  float* vs = static_cast<float*>(varsigma);
-  if (bf16) {
-    superpose_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), p, m, n, out, vs, k, d, vs_min);
-  } else {
-    superpose_kernel<float, true><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), p, m, n, out, vs, k, d, vs_min);
+  if (mask == nullptr || varsigma == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (bf16) {
+    return launch<__nv_bfloat16>(x, powers, mask, noise, agg, varsigma, k, d,
+                                 rows, splits, vec, warps, vs_min, s);
+  }
+  return launch<float>(x, powers, mask, noise, agg, varsigma, k, d, rows,
+                       splits, vec, warps, vs_min, s);
 }
 
 // x: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1). bp: (k,) f32,
 // already masked. noise: (d,) f32. agg: (d,) f32 =
-// (sum_k bp_k x_k + noise) / max(sum_k bp_k, 1e-12). Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// (sum_k bp_k x_k + noise) / max(sum_k bp_k, 1e-12). The plan as for
+// repro_superpose_normalize. Launches on `stream`, allocates nothing,
+// returns cudaGetLastError().
 extern "C" int repro_aircomp_sum(const void* x, const void* bp,
                                  const void* noise, void* agg, int64_t k,
-                                 int64_t d, int bf16, void* stream) {
+                                 int64_t d, int bf16, void* stream,
+                                 int64_t rows, int64_t splits, int vec,
+                                 int warps) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned int>((d + kCols - 1) / kCols));
-  const float* w = static_cast<const float*>(bp);
-  const float* n = static_cast<const float*>(noise);
-  float* out = static_cast<float*>(agg);
   if (bf16) {
-    superpose_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w, nullptr, n, out, nullptr, k,
-        d, 1e-12f);
-  } else {
-    superpose_kernel<float, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), w, nullptr, n, out, nullptr, k, d,
-        1e-12f);
+    return launch<__nv_bfloat16>(x, bp, nullptr, noise, agg, nullptr, k, d,
+                                 rows, splits, vec, warps, 1e-12f, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(x, bp, nullptr, noise, agg, nullptr, k, d, rows,
+                       splits, vec, warps, 1e-12f, s);
 }

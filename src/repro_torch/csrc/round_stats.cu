@@ -13,142 +13,278 @@
 // alone, without a payload and without gn2.
 // Inputs are f32 or bf16 (g is f32); every sum is f32.
 //
-// Bound on the H100: memory. The sweep reads K*D elements (2*K*D with a
-// payload) once and does 2-3 FMAs per element, far below the card's
-// operations-per-byte balance.
+// Bound on the H100: memory bytes. The sweep reads K*D elements (2*K*D
+// with a payload) once and does 2-3 FMAs per element, far below the
+// card's operations-per-byte balance. At the paper's K x D = 100 x 8070
+// the plane is 3.2 MB, 1 us at 3.35 TB/s: the call is a fight with
+// latency, so the whole plane has to be in flight at once, and every
+// dependent step after the loads (a second round trip, a merge through
+// device memory, a memset on the stream) costs as much as the bytes.
 //
-// Design: one block per row, threads striding over D with coalesced scalar
-// loads. Rows are D elements apart, and D = 8070 (the paper's MLP) makes
-// the row pitch 32,280 bytes, which is not 16-byte aligned, so the kernel
-// does no vector loads and masks the ragged edge itself; nothing is
-// padded or copied. The TPU grid carried its sums across sequential grid
-// steps; here each block reduces its own row (warp shuffles, then one
-// shared-memory pass over the warp partials, in a fixed order), so the
-// result is identical from run to run and uses no atomics. Every block
-// also sums g^2 in the same order, and block 0 writes it.
+// Design: loads as wide as the pitch, all of a pass in flight at once, and
+// no merge through device memory.
+// - A block of `threads` reduces one (row, chunk) item. A pass covers
+//   threads * 16 columns: each thread issues its 16 / V loads of V
+//   elements (16, 8, 4 or 2 bytes: V is the widest width that divides the
+//   row pitch and the pointers' alignment, a template parameter) for the
+//   plane, the payload and g, all before its FMAs. D = 8070 f32 rows are
+//   8-byte aligned, so they load as float2, and 512 threads take a whole
+//   row in one pass.
+// - The block reduces in a fixed order (warp shuffles, then the warps in
+//   order) and writes the row's stats. Where rows are longer than one
+//   pass and K alone would leave most SMs idle, the wrapper's plan cuts
+//   each row into up to 8 chunks, and a row's chunks run as one thread
+//   block cluster: chunk 0 adds the chunks' sums from their shared memory
+//   (distributed shared memory) in chunk order. (At D = 8070 a cluster
+//   launch cost more than it gave at every K from 8 up.) No scratch, no
+//   counter, no float atomics: repeated calls are bit-identical, and the
+//   launch is one kernel node a CUDA graph can capture.
+// - g^2 is summed once, by row 0's blocks, and row 0 writes gn2.
+// Nothing is padded or copied; the ragged last pass is masked.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+namespace cg = cooperative_groups;
+using sweep::Vec;
+using sweep::launch_clustered;
+using sweep::warp_sum;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kPerThread = 16;  // columns a thread takes per pass
+constexpr int kMaxChunks = 8;   // the portable cluster size
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-template <typename T, bool kPayload, bool kGn2>
-__global__ void __launch_bounds__(kThreads)
-round_stats_kernel(const T* __restrict__ deltas, const T* __restrict__ payload,
-                   const float* __restrict__ g, float* __restrict__ stats,
-                   float* __restrict__ gn2, int64_t d) {
-  const int64_t row = blockIdx.x;
+// kCols: 2 (no payload) or 3 (payload) stats per row; kGn2: row 0 sums g^2;
+// kCluster: a row's `chunks` blocks are one cluster and merge in chunk 0.
+template <typename T, int V, int kCols, bool kGn2, bool kCluster>
+__global__ void __launch_bounds__(kMaxThreads)
+stats_kernel(const T* __restrict__ deltas, const T* __restrict__ payload,
+             const float* __restrict__ g, float* __restrict__ stats,
+             float* __restrict__ gn2, int64_t d, int64_t chunk, int chunks) {
+  constexpr int kLoads = kPerThread / V;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int64_t row = blockIdx.x / chunks;
+  const int64_t lo = (blockIdx.x % chunks) * chunk;
+  const int64_t hi = lo + chunk < d ? lo + chunk : d;
   const T* drow = deltas + row * d;
-  const T* prow = kPayload ? payload + row * d : deltas;
-  // acc: dot, delta sq-norm, payload sq-norm, g sq-norm
+  const T* prow = kCols == 3 ? payload + row * d : deltas;
+  const bool with_g2 = kGn2 && row == 0;
+
+  // dot, delta sq-norm, payload sq-norm, g sq-norm
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int64_t j = threadIdx.x; j < d; j += kThreads) {
-    const float x = to_f32(drow[j]);
-    const float gj = g[j];
-    acc[0] = fmaf(x, gj, acc[0]);
-    acc[1] = fmaf(x, x, acc[1]);
-    if (kPayload) {
-      const float p = to_f32(prow[j]);
-      acc[2] = fmaf(p, p, acc[2]);
+  for (int64_t base = lo + static_cast<int64_t>(tid) * V; base < hi;
+       base += static_cast<int64_t>(nthreads) * kPerThread) {
+    Vec<T, V> xv[kLoads], pv[kLoads];
+    Vec<float, V> gv[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int64_t j = base + static_cast<int64_t>(u) * nthreads * V;
+      if (j < hi) {
+        xv[u].load(drow + j);
+        gv[u].load(g + j);
+        if (kCols == 3) pv[u].load(prow + j);
+      }
     }
-    if (kGn2) acc[3] = fmaf(gj, gj, acc[3]);
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int64_t j = base + static_cast<int64_t>(u) * nthreads * V;
+      if (j < hi) {
+        float x[V], gg[V], p[V];
+        xv[u].unpack(x);
+        gv[u].unpack(gg);
+        if (kCols == 3) pv[u].unpack(p);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          acc[0] = fmaf(x[i], gg[i], acc[0]);
+          acc[1] = fmaf(x[i], x[i], acc[1]);
+          if (kCols == 3) acc[2] = fmaf(p[i], p[i], acc[2]);
+          if (with_g2) acc[3] = fmaf(gg[i], gg[i], acc[3]);
+        }
+      }
+    }
   }
 
-  __shared__ float partial[4][kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  // the block's sums, in a fixed order: lanes, then warps; lane 0 of warp
+  // 0 ends with them
+  __shared__ float red[4][kMaxWarps];
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float s = warp_sum(acc[i]);
-    if (lane == 0) partial[i][warp] = s;
+    if (lane == 0) red[i][warp] = s;
   }
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      acc[i] = warp_sum(lane < kWarps ? partial[i][lane] : 0.f);
+      acc[i] = warp_sum(lane < nwarps ? red[i][lane] : 0.f);
     }
-    if (lane == 0) {
-      constexpr int kCols = kPayload ? 3 : 2;
-      stats[row * kCols + 0] = acc[0];
-      stats[row * kCols + 1] = acc[1];
-      if (kPayload) stats[row * kCols + 2] = acc[2];
-      if (kGn2 && row == 0) *gn2 = acc[3];
+  }
+
+  if constexpr (kCluster) {
+    // Every thread of the cluster meets both barriers. Chunk 0 (cluster
+    // rank 0: a row's chunks are consecutive blocks) adds the chunks' sums
+    // from their shared memory in chunk order; the second barrier keeps
+    // each block's shared memory alive until then.
+    __shared__ float s_part[4];
+    cg::cluster_group cluster = cg::this_cluster();
+    if (tid == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s_part[i] = acc[i];
     }
+    cluster.sync();
+    if (cluster.block_rank() == 0 && tid < 4) {
+      float tot = 0.f;
+      for (int c = 0; c < chunks; ++c) {
+        tot += *cluster.map_shared_rank(&s_part[tid], c);
+      }
+      if (tid < kCols) stats[row * kCols + tid] = tot;
+      if (with_g2 && tid == 3) *gn2 = tot;
+    }
+    cluster.sync();
+  } else if (tid == 0) {
+    stats[row * kCols + 0] = acc[0];
+    stats[row * kCols + 1] = acc[1];
+    if (kCols == 3) stats[row * kCols + 2] = acc[2];
+    if (with_g2) *gn2 = acc[3];
   }
 }
 
-template <typename T>
-void launch(const void* deltas, const void* payload, const void* g,
-            void* stats, void* gn2, int64_t k, int64_t d,
-            cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned int>(k));
+bool aligned(const void* p, size_t bytes) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename T, int V, int kCols, bool kGn2>
+int launch_v(const T* deltas, const T* payload, const float* g,
+             float* stats, float* gn2, int64_t k, int64_t d, int64_t chunk,
+             int chunks, int threads, cudaStream_t s) {
+  // a vector load needs its width's alignment (g: V floats, up to 16 B)
+  if (!aligned(deltas, sizeof(T) * V) || !aligned(payload, sizeof(T) * V) ||
+      !aligned(g, 4 * V < 16 ? 4 * V : 16)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const dim3 grid(static_cast<unsigned int>(k * chunks));
+  if (chunks == 1) {
+    stats_kernel<T, V, kCols, kGn2, false><<<grid, threads, 0, s>>>(
+        deltas, payload, g, stats, gn2, d, chunk, chunks);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const cudaError_t e = launch_clustered(
+      stats_kernel<T, V, kCols, kGn2, true>, grid, dim3(threads),
+      dim3(static_cast<unsigned int>(chunks)), s, deltas, payload, g, stats,
+      gn2, d, chunk, chunks);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The plan the wrapper hands over, checked: whole vectors per row, a
+// chunk of whole passes, ceil(d / chunk) chunks a cluster can hold, and a
+// grid the card takes.
+bool valid_plan(int64_t k, int64_t d, int64_t chunk, int64_t chunks, int vec,
+                int threads) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) return false;
+  if (vec < 1 || kPerThread % vec != 0 || d % vec != 0) return false;
+  if (chunk < 1 || chunk % (static_cast<int64_t>(threads) * kPerThread) != 0)
+    return false;
+  if (chunks < 1 || chunks > kMaxChunks || chunks != (d + chunk - 1) / chunk)
+    return false;
+  return k >= 1 && k * chunks <= 2147483647LL;
+}
+
+template <typename T, int kCols, bool kGn2>
+int launch(const void* deltas, const void* payload, const void* g,
+           void* stats, void* gn2, int64_t k, int64_t d, int64_t chunk,
+           int64_t chunks, int vec, int threads, cudaStream_t s) {
+  if (!valid_plan(k, d, chunk, chunks, vec, threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const T* dp = static_cast<const T*>(deltas);
   const T* pp = static_cast<const T*>(payload);
   const float* gp = static_cast<const float*>(g);
   float* sp = static_cast<float*>(stats);
   float* np = static_cast<float*>(gn2);
-  if (payload != nullptr) {
-    round_stats_kernel<T, true, true><<<grid, kThreads, 0, stream>>>(
-        dp, pp, gp, sp, np, d);
-  } else {
-    round_stats_kernel<T, false, true><<<grid, kThreads, 0, stream>>>(
-        dp, pp, gp, sp, np, d);
+  const int c = static_cast<int>(chunks);
+  switch (vec) {
+    case 1:
+      return launch_v<T, 1, kCols, kGn2>(dp, pp, gp, sp, np, k, d, chunk, c,
+                                         threads, s);
+    case 2:
+      return launch_v<T, 2, kCols, kGn2>(dp, pp, gp, sp, np, k, d, chunk, c,
+                                         threads, s);
+    case 4:
+      return launch_v<T, 4, kCols, kGn2>(dp, pp, gp, sp, np, k, d, chunk, c,
+                                         threads, s);
+    case 8:
+      if constexpr (sizeof(T) == 2) {
+        return launch_v<T, 8, kCols, kGn2>(dp, pp, gp, sp, np, k, d, chunk,
+                                           c, threads, s);
+      }
+      break;
+    default:
+      break;
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // deltas, payload: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1);
 // payload may be null. g: (d,) f32. stats: (k, 2 or 3) f32. gn2: one f32.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// The plan (the wrapper's round_stats.plan): `chunks` blocks of `threads`
+// per row (up to 8, run as one cluster when more than 1), each taking
+// `chunk` columns, a multiple of threads * 16, with chunks =
+// ceil(d / chunk); `vec` elements per load (1, 2, 4, or 8 for bf16),
+// dividing d, with vec * sizeof(T) bytes (and min(16, 4 * vec) for g)
+// dividing the pointers' alignment (cudaErrorMisalignedAddress
+// otherwise); `threads` a multiple of 32 up to 512. Launches on `stream`,
+// allocates nothing, returns cudaGetLastError() (cudaErrorInvalidValue for
+// a plan it cannot run).
 extern "C" int repro_round_stats(const void* deltas, const void* payload,
                                  const void* g, void* stats, void* gn2,
-                                 int64_t k, int64_t d, int bf16,
-                                 void* stream) {
+                                 int64_t k, int64_t d, int bf16, void* stream,
+                                 int64_t chunk, int64_t chunks, int vec,
+                                 int threads) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    launch<__nv_bfloat16>(deltas, payload, g, stats, gn2, k, d, s);
-  } else {
-    launch<float>(deltas, payload, g, stats, gn2, k, d, s);
+    return payload != nullptr
+               ? launch<__nv_bfloat16, 3, true>(deltas, payload, g, stats,
+                                                gn2, k, d, chunk, chunks, vec,
+                                                threads, s)
+               : launch<__nv_bfloat16, 2, true>(deltas, payload, g, stats,
+                                                gn2, k, d, chunk, chunks, vec,
+                                                threads, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return payload != nullptr
+             ? launch<float, 3, true>(deltas, payload, g, stats, gn2, k, d,
+                                      chunk, chunks, vec, threads, s)
+             : launch<float, 2, true>(deltas, payload, g, stats, gn2, k, d,
+                                      chunk, chunks, vec, threads, s);
 }
 
 // deltas: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1). g: (d,)
-// f32. out: (k, 2) f32 [dot_k, ||delta_k||^2]. Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// f32. out: (k, 2) f32 [dot_k, ||delta_k||^2]. The plan as for
+// repro_round_stats. Launches on `stream`, allocates nothing, returns
+// cudaGetLastError().
 extern "C" int repro_cosine_partials(const void* deltas, const void* g,
                                      void* out, int64_t k, int64_t d,
-                                     int bf16, void* stream) {
+                                     int bf16, void* stream, int64_t chunk,
+                                     int64_t chunks, int vec, int threads) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned int>(k));
-  const float* gp = static_cast<const float*>(g);
-  float* op = static_cast<float*>(out);
   if (bf16) {
-    round_stats_kernel<__nv_bfloat16, false, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(deltas), nullptr, gp, op, nullptr,
-        d);
-  } else {
-    round_stats_kernel<float, false, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(deltas), nullptr, gp, op, nullptr, d);
+    return launch<__nv_bfloat16, 2, false>(deltas, nullptr, g, out, nullptr,
+                                           k, d, chunk, chunks, vec, threads,
+                                           s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<float, 2, false>(deltas, nullptr, g, out, nullptr, k, d,
+                                 chunk, chunks, vec, threads, s);
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``<repo>/build/repro_torch/`` at first use, and loaded with ctypes. The
-library's file name carries a hash of the source and the flags, so an
-edited source builds anew and a finished build is reused. ``build_all``
+library's file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew
+and a finished build is reused. ``build_all``
 starts one ``nvcc`` per source, all together.
 
 Nothing here runs at import time: the CPU tests import every module of
@@ -46,6 +47,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # what a source includes
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -38,6 +38,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.round_stats import sm_count
 
 launches = 0
 
@@ -104,11 +105,6 @@ def plan(m: int, d: int, sms: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _lib():
     fn = build.library("gather_superpose").repro_gather_superpose
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 5 + [
@@ -128,7 +124,7 @@ def gather_superpose_cuda(values, idx, bp, noise, *, d: int, scale=None,
                          f"{values.device}")
     m, s = values.shape
     dev = values.device
-    stripe, splits = plan(m, d, _sm_count(dev.index))
+    stripe, splits = plan(m, d, sm_count(dev.index))
     if -(-d // stripe) > 2**31 - 1:
         raise ValueError(f"d={d} exceeds the kernel's grid")
     fn = _lib()

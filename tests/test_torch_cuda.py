@@ -26,17 +26,37 @@ def _tol(dtype):
             else dict(rtol=3e-5, atol=3e-4))
 
 
-@pytest.mark.parametrize("k,d", [(1, 1), (3, 511), (100, 8070),
-                                 (1000, 8070)])
+# The delta-plane sweeps' cases: every load width (D odd, even but not a
+# multiple of 4, a multiple of 8; a pointer one element off 16-byte
+# alignment); in sweep 1 one pass and several per row (D = 20000), and a
+# cluster of 3 chunks per row (D = 20000 at K = 1 and 16 on 132 SMs); in
+# sweep 2 16 and 32 warps (K <= 256 and above), and one, two and three row
+# splits (K = 1000 at D = 8192 bf16, 511, 1).
+SWEEP_KS = (1, 16, 64, 100, 300, 1000)
+SWEEP_DS = (1, 511, 8070, 8192, 20000)
+SWEEP_CASES = ([(k, d, 0) for k in SWEEP_KS for d in SWEEP_DS]
+               + [(3, 511, 0), (100, 8070, 1), (100, 8192, 1)])
+
+
+def _plane(gen, k, d, dtype, offset, device):
+    """A contiguous (k, d) plane whose data pointer sits ``offset``
+    elements past an allocation's start (offset 1 defeats wide loads)."""
+    flat = torch.randn((k * d + offset,), generator=gen, device=device)
+    return flat.to(dtype)[offset:].view(k, d)
+
+
+@pytest.mark.parametrize("k,d,offset", SWEEP_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_payload", [False, True])
-def test_round_stats_kernel_matches_twin(cuda, k, d, dtype, with_payload):
+def test_round_stats_kernel_matches_twin(cuda, k, d, offset, dtype,
+                                         with_payload):
     from repro_torch.kernels import round_stats as rs
     gen = torch.Generator(device=cuda).manual_seed(k * d)
-    x = torch.randn((k, d), generator=gen, device=cuda).to(dtype)
+    x = _plane(gen, k, d, dtype, offset, cuda)
     g = torch.randn((d,), generator=gen, device=cuda)
-    p = (torch.randn((k, d), generator=gen, device=cuda).to(dtype)
-         if with_payload else None)
+    p = _plane(gen, k, d, dtype, offset, cuda) if with_payload else None
+    if offset:
+        assert rs.device_plan(x, g, p).vec == 1
     before = rs.launches
     got, got_g = rs.round_stats_cuda(x, g, p)
     torch.cuda.synchronize()
@@ -46,22 +66,30 @@ def test_round_stats_kernel_matches_twin(cuda, k, d, dtype, with_payload):
     torch.testing.assert_close(got_g, want_g, rtol=3e-5, atol=0.0)
 
 
-@pytest.mark.parametrize("k,d", [(1, 1), (3, 511), (100, 8070),
-                                 (1000, 8070)])
+def _mask(kind, gen, k, device):
+    return {"zero": torch.zeros((k,), device=device),
+            "full": torch.ones((k,), device=device),
+            "partial": (torch.rand((k,), generator=gen, device=device)
+                        < 0.5).float()}[kind]
+
+
+@pytest.mark.parametrize("k,d,offset", SWEEP_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask_kind", ["zero", "partial", "full"])
-def test_superpose_kernel_matches_twin(cuda, k, d, dtype, mask_kind):
+def test_superpose_kernel_matches_twin(cuda, k, d, offset, dtype,
+                                       mask_kind):
     from repro_torch.kernels import aircomp_sum as ac
     gen = torch.Generator(device=cuda).manual_seed(k + d)
-    x = torch.randn((k, d), generator=gen, device=cuda).to(dtype)
+    x = _plane(gen, k, d, dtype, offset, cuda)
     p = 0.1 + 15.0 * torch.rand((k,), generator=gen, device=cuda)
-    m = {"zero": torch.zeros((k,), device=cuda),
-         "full": torch.ones((k,), device=cuda),
-         "partial": (torch.rand((k,), generator=gen, device=cuda)
-                     < 0.5).float()}[mask_kind]
+    m = _mask(mask_kind, gen, k, cuda)
     n = 1e-3 * torch.randn((d,), generator=gen, device=cuda)
+    if offset:
+        assert ac.device_plan(x).vec == 1
+    before = ac.launches
     got, raw = ac.superpose_normalize_cuda(x, p, m, n)
     torch.cuda.synchronize()
+    assert ac.launches == before + 1
     want, want_raw = ac.superpose_normalize_plain(x, p, m, n)
     tol = _tol(dtype) if dtype == torch.bfloat16 else dict(rtol=3e-5,
                                                            atol=3e-5)
@@ -71,18 +99,16 @@ def test_superpose_kernel_matches_twin(cuda, k, d, dtype, mask_kind):
         assert float(raw) == 0.0
 
 
-@pytest.mark.parametrize("k,d", [(1, 1), (4, 64), (37, 1111), (100, 8070),
-                                 (1000, 8070)])
+@pytest.mark.parametrize("k,d,offset", SWEEP_CASES + [(4, 64, 0),
+                                                      (37, 1111, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask_kind", ["zero", "partial", "full"])
-def test_aircomp_sum_kernel_matches_twin(cuda, k, d, dtype, mask_kind):
+def test_aircomp_sum_kernel_matches_twin(cuda, k, d, offset, dtype,
+                                         mask_kind):
     from repro_torch.kernels import aircomp_sum as ac
     gen = torch.Generator(device=cuda).manual_seed(3 * k + d)
-    x = torch.randn((k, d), generator=gen, device=cuda).to(dtype)
-    m = {"zero": torch.zeros((k,), device=cuda),
-         "full": torch.ones((k,), device=cuda),
-         "partial": (torch.rand((k,), generator=gen, device=cuda)
-                     < 0.5).float()}[mask_kind]
+    x = _plane(gen, k, d, dtype, offset, cuda)
+    m = _mask(mask_kind, gen, k, cuda)
     bp = (0.1 + 15.0 * torch.rand((k,), generator=gen, device=cuda)) * m
     n = 1e-3 * torch.randn((d,), generator=gen, device=cuda)
     before = ac.aircomp_sum_launches
@@ -98,13 +124,12 @@ def test_aircomp_sum_kernel_matches_twin(cuda, k, d, dtype, mask_kind):
     torch.testing.assert_close(got, want, **tol)
 
 
-@pytest.mark.parametrize("k,d", [(1, 1), (3, 511), (100, 8070),
-                                 (1000, 8070)])
+@pytest.mark.parametrize("k,d,offset", SWEEP_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cosine_partials_kernel_matches_twin(cuda, k, d, dtype):
+def test_cosine_partials_kernel_matches_twin(cuda, k, d, offset, dtype):
     from repro_torch.kernels import cosine_sim as cs
     gen = torch.Generator(device=cuda).manual_seed(5 * k + d)
-    x = torch.randn((k, d), generator=gen, device=cuda).to(dtype)
+    x = _plane(gen, k, d, dtype, offset, cuda)
     g = torch.randn((d,), generator=gen, device=cuda)
     before = cs.launches
     got = cs.cosine_partials_cuda(x, g)
@@ -114,15 +139,24 @@ def test_cosine_partials_kernel_matches_twin(cuda, k, d, dtype):
                                **_tol(dtype))
 
 
-def test_kernels_are_deterministic(cuda):
+@pytest.mark.parametrize("k,d", [(1000, 8070), (100, 8070), (64, 8192),
+                                 (1000, 511), (1, 20000), (16, 20000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_are_deterministic(cuda, k, d, dtype):
+    """Bit-identical repeats on every path: one block per row, a cluster
+    of chunks per row, one block per tile, a cluster of row splits."""
     from repro_torch.kernels import aircomp_sum as ac
     from repro_torch.kernels import cosine_sim as cs
     from repro_torch.kernels import round_stats as rs
-    x = torch.randn((1000, 8070), device=cuda)
-    g = torch.randn((8070,), device=cuda)
-    p, m = torch.rand((1000,), device=cuda), torch.ones((1000,), device=cuda)
-    a = [rs.round_stats_cuda(x, g, x)[0] for _ in range(3)]
-    b = [ac.superpose_normalize_cuda(x, p, m, g)[0] for _ in range(3)]
+    gen = torch.Generator(device=cuda).manual_seed(k + 7 * d)
+    x = torch.randn((k, d), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((d,), generator=gen, device=cuda)
+    p = torch.rand((k,), generator=gen, device=cuda)
+    m = torch.ones((k,), device=cuda)
+    a = [torch.cat([s.reshape(-1) for s in rs.round_stats_cuda(x, g, x)])
+         for _ in range(3)]
+    b = [torch.cat([s.reshape(-1) for s in ac.superpose_normalize_cuda(
+        x, p, m, g)]) for _ in range(3)]
     c = [ac.aircomp_sum_cuda(x, p, g) for _ in range(3)]
     e = [cs.cosine_partials_cuda(x, g) for _ in range(3)]
     for runs in (a, b, c, e):

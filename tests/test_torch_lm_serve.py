@@ -81,40 +81,58 @@ def test_params_from_jax_round_trip(dtype):
                                      for _, x in leaves)
 
 
-def test_forward_caches_and_decode_match_reference():
-    """Teacher-forced: forward over T_PRE tokens (logits and SSM caches),
-    the hand-off to a decode state, then T_DEC decode steps, each against
-    the reference on the same tokens."""
-    jcfg, tcfg, jp, model = _pair()
-    toks = _tokens(tcfg, T_PRE + T_DEC)
-    jlog, _, jc = j_forward(jp, {"tokens": jnp.asarray(toks[:, :T_PRE])},
+def _f32(a):
+    """A torch tensor or a jax array as f32 numpy (bf16 widened exactly)."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_caches_and_decode_match_reference(dtype):
+    """Teacher-forced: forward over the prompt (logits and SSM caches), the
+    hand-off to a decode state, then T_DEC decode steps, each against the
+    reference on the same tokens. f32 over T_PRE tokens at TOL; bf16
+    params and compute over 64 tokens (two chunks of 32) at the bf16
+    kernel tolerance, 2e-2 (tests/test_kernels.py:16): one bf16 ulp of an
+    output cast at |y| ~ 4."""
+    if dtype == "float32":
+        over, tol, t_pre = {}, TOL, T_PRE
+    else:
+        over, tol, t_pre = (dict(param_dtype=dtype, compute_dtype=dtype),
+                            dict(rtol=2e-2, atol=2e-2), 64)
+    jcfg, tcfg, jp, model = _pair(**over)
+    toks = _tokens(tcfg, t_pre + T_DEC)
+    jlog, _, jc = j_forward(jp, {"tokens": jnp.asarray(toks[:, :t_pre])},
                             jcfg, return_cache=True)
     with torch.inference_mode():
         tlog, _, tc = forward(model, {"tokens": torch.from_numpy(
-            toks[:, :T_PRE])}, return_cache=True)
-    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+            toks[:, :t_pre])}, return_cache=True)
+    assert str(tlog.dtype).split(".")[-1] == np.asarray(jlog).dtype.name
+    np.testing.assert_allclose(_f32(tlog), _f32(jlog), **tol)
     for k in ("ssm", "conv"):
-        np.testing.assert_allclose(tc["ssm_states"][k].numpy(),
-                                   np.asarray(jc["ssm_states"][k]), **TOL)
-    jst = j_cache_from_prefill(jc, jcfg, B, 64, T_PRE)
-    tst = cache_from_prefill(tc, tcfg, B, 64, T_PRE)
+        np.testing.assert_allclose(_f32(tc["ssm_states"][k]),
+                                   _f32(jc["ssm_states"][k]), **tol)
+    jst = j_cache_from_prefill(jc, jcfg, B, 64, t_pre)
+    tst = cache_from_prefill(tc, tcfg, B, 64, t_pre)
     for k in ("ssm", "conv"):
-        assert tst[k].dtype == torch.float32
-        np.testing.assert_allclose(tst[k].numpy(), np.asarray(jst[k]), **TOL)
+        assert str(tst[k].dtype).split(".")[-1] == \
+            np.asarray(jst[k]).dtype.name
+        assert dtype != "float32" or tst[k].dtype == torch.float32
+        np.testing.assert_allclose(_f32(tst[k]), _f32(jst[k]), **tol)
     worst = 0.0
     for i in range(T_DEC):
-        tok = toks[:, T_PRE + i:T_PRE + i + 1]
+        tok = toks[:, t_pre + i:t_pre + i + 1]
         jl, jst = j_decode_step(jp, jnp.asarray(tok), jst,
-                                jnp.int32(T_PRE + i), jcfg)
+                                jnp.int32(t_pre + i), jcfg)
         with torch.inference_mode():
             tl, tst = decode_step(model, torch.from_numpy(tok), tst,
-                                  T_PRE + i)
-        worst = max(worst, float(np.abs(tl.numpy() - np.asarray(jl)).max()))
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+                                  t_pre + i)
+        worst = max(worst, float(np.abs(_f32(tl) - _f32(jl)).max()))
+        np.testing.assert_allclose(_f32(tl), _f32(jl), **tol)
         for k in ("ssm", "conv"):
-            np.testing.assert_allclose(tst[k].numpy(), np.asarray(jst[k]),
-                                       **TOL)
-    print(f"decode logits: max |port - reference| = {worst:.3g}")
+            np.testing.assert_allclose(_f32(tst[k]), _f32(jst[k]), **tol)
+    print(f"{dtype} decode logits: max |port - reference| = {worst:.3g}")
 
 
 @pytest.mark.parametrize("t_pre", [11, 40, 64])
