@@ -63,8 +63,8 @@ CARDS = (("H200", 4.8e12, 67e12, 495e12),
          ("H100", 3.35e12, 67e12, 495e12))
 
 # the sweeps' parity shapes (K, D): odd D, D = 8070 (float2 loads), D % 8 ==
-# 0 (16-byte loads), sweep 1's cluster of chunks (K = 1, D = 20000) and
-# sweep 2's cluster of row splits (K = 1000, D = 511)
+# 0 (16-byte loads), several passes per row in sweep 1 (K = 1, D = 20000)
+# and several rounds of row loads per warp in sweep 2 (K = 1000, D = 511)
 PARITY_SHAPES = ((1, 1), (3, 511), (64, 8191), (100, 8070), (100, 8192),
                  (1000, 8070), (1, 20000), (1000, 511))
 MAIN_ROUNDS = 100
@@ -1082,11 +1082,14 @@ def kernel_times(dev, bw, flops):
     from repro_torch.kernels import cosine_sim as cs
     from repro_torch.kernels import round_stats as rs
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
-    # the method's own floor: one one-element kernel, timed the same way
+    # the method's own floor: one one-element kernel, timed the same way;
+    # and two, what one more small node on the stream (a memset) adds
     one = torch.zeros((1,), device=dev)
     floor = time_ms(lambda: one.add_(1.0), flush)
+    floor2 = time_ms(lambda: (one.add_(1.0), one.add_(1.0)), flush)
     log({"phase": "kernel_time", "kernel": "launch_floor",
-         "what": "one.add_(1) on a one-element tensor", "ms": floor})
+         "what": "one.add_(1) on a one-element tensor", "ms": floor,
+         "two_ops_ms": floor2})
     out = {"launch_floor": floor}
     for k, d in ((100, 8070), (1000, 8070)):
         gen = torch.Generator(device=dev).manual_seed(k)

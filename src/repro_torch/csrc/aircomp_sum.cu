@@ -19,30 +19,26 @@
 // device memory, a memset on the stream) costs as much as the bytes.
 //
 // Design: a grid of column tiles, the rows split across the warps of a
-// block and, where the tiles are too few to fill the card, across the
-// blocks of a cluster.
+// block.
 // - A warp covers a tile of 32 * V columns, each lane V neighbouring
 //   columns loaded at once (16, 8, 4 or 2 bytes: V is the widest width that
 //   divides the row pitch and x's alignment, a template parameter; D = 8070
 //   f32 rows load as float2, 64 columns a warp). The W warps of a block (16,
-//   or 32 for large K) split the block's rows (warp w takes rows w, w + W,
-//   ... in order) and each issues 8 row loads (4 of 16 bytes) before
-//   their FMAs, so at K <= 128 a warp's rows are one round trip. bp_k is
-//   read directly (K floats that stay in L2); nothing is staged behind
-//   barriers.
+//   or 32 for large K) split the rows (warp w takes rows w, w + W, ... in
+//   order) and each issues 8 row loads (4 of 16 bytes) before their FMAs,
+//   so at K <= 128 a warp's rows are one round trip. bp_k is read directly
+//   (K floats that stay in L2); nothing is staged behind barriers.
 // - A block adds its warps' partials in warp order, adds the noise and
-//   divides. Where D gives fewer tiles than half the SMs, the wrapper's
-//   plan splits the rows across up to 8 blocks that run as one thread
-//   block cluster: split 0 adds the splits' totals from their shared
-//   memory (distributed shared memory) in split order. No scratch, no
-//   counter, no float atomics: repeated calls are bit-identical, and the
-//   launch is one kernel node a CUDA graph can capture.
-// - Only the blocks that write agg (split 0 of each tile) sum bp for
-//   varsigma, in the same fixed order, while their row loads are in
-//   flight; all divide by the same value, and tile 0 writes the raw
-//   varsigma. The ragged last tile is masked; nothing is padded or copied.
+//   divides. No scratch, no counter, no float atomics: repeated calls are
+//   bit-identical, and the launch is one kernel node a CUDA graph can
+//   capture. (Splitting a tile's rows across blocks, merged through a
+//   scratch and a counter or inside a thread block cluster, gained nothing
+//   at D = 8070 on the H100.)
+// - Every block sums bp for varsigma, in the same fixed order, while its
+//   row loads are in flight; all divide by the same value, and tile 0
+//   writes the raw varsigma. The ragged last tile is masked; nothing is
+//   padded or copied.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,15 +47,12 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
 using sweep::Vec;
-using sweep::launch_clustered;
 using sweep::warp_sum;
 
 // row loads a warp has in flight: 8, or 4 of 16 bytes (registers)
 template <int V>
 constexpr int kUnroll = V >= 4 ? 4 : 8;
-constexpr int kMaxSplits = 8;   // the portable cluster size
 
 __device__ __forceinline__ float weight(const float* __restrict__ powers,
                                         const float* __restrict__ mask,
@@ -67,16 +60,16 @@ __device__ __forceinline__ float weight(const float* __restrict__ powers,
   return mask != nullptr ? __fmul_rn(powers[i], mask[i]) : powers[i];
 }
 
-// W warps a block; kCluster: a tile's `gridDim.y` splits are one cluster.
-// With a mask, bp_k = powers[k] * mask[k] and tile 0 writes the raw
-// varsigma; without, powers holds bp itself and varsigma is unused.
-template <typename T, int V, int W, bool kCluster>
+// W warps a block. With a mask, bp_k = powers[k] * mask[k] and tile 0
+// writes the raw varsigma; without, powers holds bp itself and varsigma is
+// unused.
+template <typename T, int V, int W>
 __global__ void __launch_bounds__(W * 32)
 superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
                  const float* __restrict__ mask,
                  const float* __restrict__ noise, float* __restrict__ agg,
                  float* __restrict__ varsigma, int64_t k, int64_t d,
-                 int64_t rows, float vs_min) {
+                 float vs_min) {
   constexpr int kTile = 32 * V;
   constexpr int kThreads = W * 32;
   __shared__ float s_acc[W][kTile];
@@ -87,40 +80,38 @@ superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
   const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kTile;
   const int64_t j = col0 + lane * V;      // this lane's first column
   const bool live = j < d;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows;
-  const int64_t r1 = r0 + rows < k ? r0 + rows : k;
-  const bool merger = blockIdx.y == 0;    // cluster rank 0 with splits
 
   // varsigma's loads go out with the first row loads: this thread's
   // strided share of sum_k bp_k
   float vs = 0.f;
-  if (merger) {
-    for (int64_t i = tid; i < k; i += kThreads) vs += weight(powers, mask, i);
-  }
+  for (int64_t i = tid; i < k; i += kThreads) vs += weight(powers, mask, i);
   float acc[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = 0.f;
   constexpr int U = kUnroll<V>;
-  for (int64_t r = r0 + warp; r < r1; r += W * U) {
+  for (int64_t r = warp; r < k; r += W * U) {
     Vec<T, V> xv[U];
     float w[U];
+    // Past the last row or column the words are zeros and their FMAs add
+    // nothing. The FMAs are not guarded: under the loads' own guard the
+    // compiler may fuse each load with its FMAs and wait on every load in
+    // turn.
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int64_t rr = r + u * W;
       w[u] = 0.f;
-      if (rr < r1) {
+      xv[u].clear();
+      if (rr < k) {
         w[u] = weight(powers, mask, rr);
         if (live) xv[u].load(x + rr * d + j);
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (r + u * W < r1 && live) {
-        float xf[V];
-        xv[u].unpack(xf);
+      float xf[V];
+      xv[u].unpack(xf);
 #pragma unroll
-        for (int i = 0; i < V; ++i) acc[i] = fmaf(w[u], xf[i], acc[i]);
-      }
+      for (int i = 0; i < V; ++i) acc[i] = fmaf(w[u], xf[i], acc[i]);
     }
   }
 
@@ -139,23 +130,6 @@ superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
     for (int w = 0; w < W; ++w) total += s_acc[w][tid];
   }
 
-  if constexpr (kCluster) {
-    // Every thread of the cluster meets both barriers; split 0 adds the
-    // splits' totals from their shared memory in split order, and the
-    // second barrier keeps each block's shared memory alive until then.
-    __shared__ float s_tot[kTile];
-    cg::cluster_group cluster = cg::this_cluster();
-    if (tid < kTile) s_tot[tid] = total;
-    cluster.sync();
-    if (merger && mine) {
-      total = 0.f;
-      for (unsigned s = 0; s < gridDim.y; ++s) {
-        total += *cluster.map_shared_rank(&s_tot[tid], s);
-      }
-    }
-    cluster.sync();
-  }
-  if (!merger) return;
   float raw = 0.f;
 #pragma unroll
   for (int w = 0; w < W; ++w) raw += s_red[w];
@@ -166,54 +140,41 @@ superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
 template <typename T, int V, int W>
 int launch_w(const T* x, const float* powers, const float* mask,
              const float* noise, float* agg, float* varsigma, int64_t k,
-             int64_t d, int64_t rows, int64_t splits, float vs_min,
-             cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned int>((d + 32 * V - 1) / (32 * V)),
-                  static_cast<unsigned int>(splits));
-  if (splits == 1) {
-    superpose_kernel<T, V, W, false><<<grid, W * 32, 0, s>>>(
-        x, powers, mask, noise, agg, varsigma, k, d, rows, vs_min);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const cudaError_t e = launch_clustered(
-      superpose_kernel<T, V, W, true>, grid, dim3(W * 32),
-      dim3(1, static_cast<unsigned int>(splits)), s, x, powers, mask, noise,
-      agg, varsigma, k, d, rows, vs_min);
-  if (e != cudaSuccess) return static_cast<int>(e);
+             int64_t d, float vs_min, cudaStream_t s) {
+  const unsigned int tiles =
+      static_cast<unsigned int>((d + 32 * V - 1) / (32 * V));
+  superpose_kernel<T, V, W><<<tiles, W * 32, 0, s>>>(
+      x, powers, mask, noise, agg, varsigma, k, d, vs_min);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int V>
 int launch_v(const void* x, const float* powers, const float* mask,
              const float* noise, float* agg, float* varsigma, int64_t k,
-             int64_t d, int64_t rows, int64_t splits, int warps, float vs_min,
-             cudaStream_t s) {
+             int64_t d, int warps, float vs_min, cudaStream_t s) {
   if (reinterpret_cast<uintptr_t>(x) % (sizeof(T) * V) != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   const T* xp = static_cast<const T*>(x);
   if (warps == 16) {
     return launch_w<T, V, 16>(xp, powers, mask, noise, agg, varsigma, k, d,
-                              rows, splits, vs_min, s);
+                              vs_min, s);
   }
   if (warps == 32) {
     return launch_w<T, V, 32>(xp, powers, mask, noise, agg, varsigma, k, d,
-                              rows, splits, vs_min, s);
+                              vs_min, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The plan the wrapper hands over (aircomp_sum.plan), checked: whole
-// vectors per row, a tile count the grid takes, and splits = ceil(k /
-// rows), at most a cluster's 8.
+// vectors per row and a tile count the grid takes.
 template <typename T>
 int launch(const void* x, const void* powers, const void* mask,
            const void* noise, void* agg, void* varsigma, int64_t k, int64_t d,
-           int64_t rows, int64_t splits, int vec, int warps, float vs_min,
-           cudaStream_t s) {
+           int vec, int warps, float vs_min, cudaStream_t s) {
   if (k < 1 || d < 1 || vec < 1 || d % vec != 0 ||
-      static_cast<int64_t>(sizeof(T)) * vec > 16 || rows < 1 ||
-      splits < 1 || splits > kMaxSplits || (k + rows - 1) / rows != splits ||
+      static_cast<int64_t>(sizeof(T)) * vec > 16 ||
       (d + 32 * vec - 1) / (32 * vec) > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -224,18 +185,14 @@ int launch(const void* x, const void* powers, const void* mask,
   float* vs = static_cast<float*>(varsigma);
   switch (vec) {
     case 1:
-      return launch_v<T, 1>(x, p, m, n, out, vs, k, d, rows, splits, warps,
-                            vs_min, s);
+      return launch_v<T, 1>(x, p, m, n, out, vs, k, d, warps, vs_min, s);
     case 2:
-      return launch_v<T, 2>(x, p, m, n, out, vs, k, d, rows, splits, warps,
-                            vs_min, s);
+      return launch_v<T, 2>(x, p, m, n, out, vs, k, d, warps, vs_min, s);
     case 4:
-      return launch_v<T, 4>(x, p, m, n, out, vs, k, d, rows, splits, warps,
-                            vs_min, s);
+      return launch_v<T, 4>(x, p, m, n, out, vs, k, d, warps, vs_min, s);
     case 8:
       if constexpr (sizeof(T) == 2) {
-        return launch_v<T, 8>(x, p, m, n, out, vs, k, d, rows, splits,
-                              warps, vs_min, s);
+        return launch_v<T, 8>(x, p, m, n, out, vs, k, d, warps, vs_min, s);
       }
       break;
     default:
@@ -251,26 +208,23 @@ int launch(const void* x, const void* powers, const void* mask,
 // The plan (the wrapper's aircomp_sum.plan): `vec` elements per load (1,
 // 2, 4, or 8 for bf16), dividing d, with vec * sizeof(T) bytes dividing
 // x's alignment (cudaErrorMisalignedAddress otherwise); `warps` (16 or
-// 32) per block; splits = ceil(k / rows) row splits of `rows` rows, at
-// most 8, run as one cluster when more than 1. Launches on `stream`,
-// allocates nothing, returns cudaGetLastError() (cudaErrorInvalidValue for
-// a plan it cannot run).
+// 32) per block. Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() (cudaErrorInvalidValue for a plan it cannot run).
 extern "C" int repro_superpose_normalize(const void* x, const void* powers,
                                          const void* mask, const void* noise,
                                          void* agg, void* varsigma, int64_t k,
                                          int64_t d, float vs_min, int bf16,
-                                         void* stream, int64_t rows,
-                                         int64_t splits, int vec, int warps) {
+                                         void* stream, int vec, int warps) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask == nullptr || varsigma == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bf16) {
     return launch<__nv_bfloat16>(x, powers, mask, noise, agg, varsigma, k, d,
-                                 rows, splits, vec, warps, vs_min, s);
+                                 vec, warps, vs_min, s);
   }
-  return launch<float>(x, powers, mask, noise, agg, varsigma, k, d, rows,
-                       splits, vec, warps, vs_min, s);
+  return launch<float>(x, powers, mask, noise, agg, varsigma, k, d, vec,
+                       warps, vs_min, s);
 }
 
 // x: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1). bp: (k,) f32,
@@ -280,14 +234,13 @@ extern "C" int repro_superpose_normalize(const void* x, const void* powers,
 // returns cudaGetLastError().
 extern "C" int repro_aircomp_sum(const void* x, const void* bp,
                                  const void* noise, void* agg, int64_t k,
-                                 int64_t d, int bf16, void* stream,
-                                 int64_t rows, int64_t splits, int vec,
+                                 int64_t d, int bf16, void* stream, int vec,
                                  int warps) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return launch<__nv_bfloat16>(x, bp, nullptr, noise, agg, nullptr, k, d,
-                                 rows, splits, vec, warps, 1e-12f, s);
+                                 vec, warps, 1e-12f, s);
   }
-  return launch<float>(x, bp, nullptr, noise, agg, nullptr, k, d, rows,
-                       splits, vec, warps, 1e-12f, s);
+  return launch<float>(x, bp, nullptr, noise, agg, nullptr, k, d, vec, warps,
+                       1e-12f, s);
 }

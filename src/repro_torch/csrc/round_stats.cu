@@ -23,26 +23,22 @@
 //
 // Design: loads as wide as the pitch, all of a pass in flight at once, and
 // no merge through device memory.
-// - A block of `threads` reduces one (row, chunk) item. A pass covers
-//   threads * 16 columns: each thread issues its 16 / V loads of V
-//   elements (16, 8, 4 or 2 bytes: V is the widest width that divides the
-//   row pitch and the pointers' alignment, a template parameter) for the
-//   plane, the payload and g, all before its FMAs. D = 8070 f32 rows are
-//   8-byte aligned, so they load as float2, and 512 threads take a whole
-//   row in one pass.
+// - A block of `threads` reduces one row. A pass covers threads * 16
+//   columns: each thread issues its 16 / V loads of V elements (16, 8, 4
+//   or 2 bytes: V is the widest width that divides the row pitch and the
+//   pointers' alignment, a template parameter) for the plane, the payload
+//   and g, all before its FMAs. D = 8070 f32 rows are 8-byte aligned, so
+//   they load as float2, and 512 threads take a whole row in one pass;
+//   longer rows take more passes of the same block.
 // - The block reduces in a fixed order (warp shuffles, then the warps in
-//   order) and writes the row's stats. Where rows are longer than one
-//   pass and K alone would leave most SMs idle, the wrapper's plan cuts
-//   each row into up to 8 chunks, and a row's chunks run as one thread
-//   block cluster: chunk 0 adds the chunks' sums from their shared memory
-//   (distributed shared memory) in chunk order. (At D = 8070 a cluster
-//   launch cost more than it gave at every K from 8 up.) No scratch, no
-//   counter, no float atomics: repeated calls are bit-identical, and the
-//   launch is one kernel node a CUDA graph can capture.
-// - g^2 is summed once, by row 0's blocks, and row 0 writes gn2.
+//   order) and writes the row's stats. No scratch, no counter, no float
+//   atomics: repeated calls are bit-identical, and the launch is one kernel
+//   node a CUDA graph can capture. (Splitting rows across blocks, merged
+//   through a scratch and a counter or inside a thread block cluster,
+//   gained nothing at D = 8070 at any K from 8 up on the H100.)
+// - g^2 is summed once, by row 0's block, which writes gn2.
 // Nothing is padded or copied; the ragged last pass is masked.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,63 +47,61 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
 using sweep::Vec;
-using sweep::launch_clustered;
 using sweep::warp_sum;
 
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kPerThread = 16;  // columns a thread takes per pass
-constexpr int kMaxChunks = 8;   // the portable cluster size
 
-// kCols: 2 (no payload) or 3 (payload) stats per row; kGn2: row 0 sums g^2;
-// kCluster: a row's `chunks` blocks are one cluster and merge in chunk 0.
-template <typename T, int V, int kCols, bool kGn2, bool kCluster>
+// kCols: 2 (no payload) or 3 (payload) stats per row; kGn2: row 0 sums g^2.
+template <typename T, int V, int kCols, bool kGn2>
 __global__ void __launch_bounds__(kMaxThreads)
 stats_kernel(const T* __restrict__ deltas, const T* __restrict__ payload,
              const float* __restrict__ g, float* __restrict__ stats,
-             float* __restrict__ gn2, int64_t d, int64_t chunk, int chunks) {
+             float* __restrict__ gn2, int64_t d) {
   constexpr int kLoads = kPerThread / V;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const int64_t row = blockIdx.x / chunks;
-  const int64_t lo = (blockIdx.x % chunks) * chunk;
-  const int64_t hi = lo + chunk < d ? lo + chunk : d;
+  const int64_t row = blockIdx.x;
   const T* drow = deltas + row * d;
   const T* prow = kCols == 3 ? payload + row * d : deltas;
   const bool with_g2 = kGn2 && row == 0;
 
   // dot, delta sq-norm, payload sq-norm, g sq-norm
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int64_t base = lo + static_cast<int64_t>(tid) * V; base < hi;
+  for (int64_t base = static_cast<int64_t>(tid) * V; base < d;
        base += static_cast<int64_t>(nthreads) * kPerThread) {
     Vec<T, V> xv[kLoads], pv[kLoads];
     Vec<float, V> gv[kLoads];
+    // Past the row's end the words are zeros and their FMAs add nothing.
+    // The FMAs are not guarded: under the loads' own guard the compiler
+    // may fuse each load with its FMAs and wait on every load in turn.
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int64_t j = base + static_cast<int64_t>(u) * nthreads * V;
-      if (j < hi) {
+      if (j < d) {
         xv[u].load(drow + j);
         gv[u].load(g + j);
         if (kCols == 3) pv[u].load(prow + j);
+      } else {
+        xv[u].clear();
+        gv[u].clear();
+        if (kCols == 3) pv[u].clear();
       }
     }
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
-      const int64_t j = base + static_cast<int64_t>(u) * nthreads * V;
-      if (j < hi) {
-        float x[V], gg[V], p[V];
-        xv[u].unpack(x);
-        gv[u].unpack(gg);
-        if (kCols == 3) pv[u].unpack(p);
+      float x[V], gg[V], p[V];
+      xv[u].unpack(x);
+      gv[u].unpack(gg);
+      if (kCols == 3) pv[u].unpack(p);
 #pragma unroll
-        for (int i = 0; i < V; ++i) {
-          acc[0] = fmaf(x[i], gg[i], acc[0]);
-          acc[1] = fmaf(x[i], x[i], acc[1]);
-          if (kCols == 3) acc[2] = fmaf(p[i], p[i], acc[2]);
-          if (with_g2) acc[3] = fmaf(gg[i], gg[i], acc[3]);
-        }
+      for (int i = 0; i < V; ++i) {
+        acc[0] = fmaf(x[i], gg[i], acc[0]);
+        acc[1] = fmaf(x[i], x[i], acc[1]);
+        if (kCols == 3) acc[2] = fmaf(p[i], p[i], acc[2]);
+        if (with_g2) acc[3] = fmaf(gg[i], gg[i], acc[3]);
       }
     }
   }
@@ -131,28 +125,7 @@ stats_kernel(const T* __restrict__ deltas, const T* __restrict__ payload,
     }
   }
 
-  if constexpr (kCluster) {
-    // Every thread of the cluster meets both barriers. Chunk 0 (cluster
-    // rank 0: a row's chunks are consecutive blocks) adds the chunks' sums
-    // from their shared memory in chunk order; the second barrier keeps
-    // each block's shared memory alive until then.
-    __shared__ float s_part[4];
-    cg::cluster_group cluster = cg::this_cluster();
-    if (tid == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s_part[i] = acc[i];
-    }
-    cluster.sync();
-    if (cluster.block_rank() == 0 && tid < 4) {
-      float tot = 0.f;
-      for (int c = 0; c < chunks; ++c) {
-        tot += *cluster.map_shared_rank(&s_part[tid], c);
-      }
-      if (tid < kCols) stats[row * kCols + tid] = tot;
-      if (with_g2 && tid == 3) *gn2 = tot;
-    }
-    cluster.sync();
-  } else if (tid == 0) {
+  if (tid == 0) {
     stats[row * kCols + 0] = acc[0];
     stats[row * kCols + 1] = acc[1];
     if (kCols == 3) stats[row * kCols + 2] = acc[2];
@@ -166,46 +139,32 @@ bool aligned(const void* p, size_t bytes) {
 
 template <typename T, int V, int kCols, bool kGn2>
 int launch_v(const T* deltas, const T* payload, const float* g,
-             float* stats, float* gn2, int64_t k, int64_t d, int64_t chunk,
-             int chunks, int threads, cudaStream_t s) {
+             float* stats, float* gn2, int64_t k, int64_t d, int threads,
+             cudaStream_t s) {
   // a vector load needs its width's alignment (g: V floats, up to 16 B)
   if (!aligned(deltas, sizeof(T) * V) || !aligned(payload, sizeof(T) * V) ||
       !aligned(g, 4 * V < 16 ? 4 * V : 16)) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  const dim3 grid(static_cast<unsigned int>(k * chunks));
-  if (chunks == 1) {
-    stats_kernel<T, V, kCols, kGn2, false><<<grid, threads, 0, s>>>(
-        deltas, payload, g, stats, gn2, d, chunk, chunks);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const cudaError_t e = launch_clustered(
-      stats_kernel<T, V, kCols, kGn2, true>, grid, dim3(threads),
-      dim3(static_cast<unsigned int>(chunks)), s, deltas, payload, g, stats,
-      gn2, d, chunk, chunks);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  stats_kernel<T, V, kCols, kGn2>
+      <<<static_cast<unsigned int>(k), threads, 0, s>>>(deltas, payload, g,
+                                                        stats, gn2, d);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The plan the wrapper hands over, checked: whole vectors per row, a
-// chunk of whole passes, ceil(d / chunk) chunks a cluster can hold, and a
-// grid the card takes.
-bool valid_plan(int64_t k, int64_t d, int64_t chunk, int64_t chunks, int vec,
-                int threads) {
+// block size the kernel takes, and a grid the card takes.
+bool valid_plan(int64_t k, int64_t d, int vec, int threads) {
   if (threads < 32 || threads > kMaxThreads || threads % 32 != 0) return false;
-  if (vec < 1 || kPerThread % vec != 0 || d % vec != 0) return false;
-  if (chunk < 1 || chunk % (static_cast<int64_t>(threads) * kPerThread) != 0)
-    return false;
-  if (chunks < 1 || chunks > kMaxChunks || chunks != (d + chunk - 1) / chunk)
-    return false;
-  return k >= 1 && k * chunks <= 2147483647LL;
+  if (vec < 1 || kPerThread % vec != 0 || d < 1 || d % vec != 0) return false;
+  return k >= 1 && k <= 2147483647LL;
 }
 
 template <typename T, int kCols, bool kGn2>
 int launch(const void* deltas, const void* payload, const void* g,
-           void* stats, void* gn2, int64_t k, int64_t d, int64_t chunk,
-           int64_t chunks, int vec, int threads, cudaStream_t s) {
-  if (!valid_plan(k, d, chunk, chunks, vec, threads)) {
+           void* stats, void* gn2, int64_t k, int64_t d, int vec,
+           int threads, cudaStream_t s) {
+  if (!valid_plan(k, d, vec, threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const T* dp = static_cast<const T*>(deltas);
@@ -213,21 +172,20 @@ int launch(const void* deltas, const void* payload, const void* g,
   const float* gp = static_cast<const float*>(g);
   float* sp = static_cast<float*>(stats);
   float* np = static_cast<float*>(gn2);
-  const int c = static_cast<int>(chunks);
   switch (vec) {
     case 1:
-      return launch_v<T, 1, kCols, kGn2>(dp, pp, gp, sp, np, k, d, chunk, c,
-                                         threads, s);
+      return launch_v<T, 1, kCols, kGn2>(dp, pp, gp, sp, np, k, d, threads,
+                                         s);
     case 2:
-      return launch_v<T, 2, kCols, kGn2>(dp, pp, gp, sp, np, k, d, chunk, c,
-                                         threads, s);
+      return launch_v<T, 2, kCols, kGn2>(dp, pp, gp, sp, np, k, d, threads,
+                                         s);
     case 4:
-      return launch_v<T, 4, kCols, kGn2>(dp, pp, gp, sp, np, k, d, chunk, c,
-                                         threads, s);
+      return launch_v<T, 4, kCols, kGn2>(dp, pp, gp, sp, np, k, d, threads,
+                                         s);
     case 8:
       if constexpr (sizeof(T) == 2) {
-        return launch_v<T, 8, kCols, kGn2>(dp, pp, gp, sp, np, k, d, chunk,
-                                           c, threads, s);
+        return launch_v<T, 8, kCols, kGn2>(dp, pp, gp, sp, np, k, d,
+                                           threads, s);
       }
       break;
     default:
@@ -240,35 +198,29 @@ int launch(const void* deltas, const void* payload, const void* g,
 
 // deltas, payload: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1);
 // payload may be null. g: (d,) f32. stats: (k, 2 or 3) f32. gn2: one f32.
-// The plan (the wrapper's round_stats.plan): `chunks` blocks of `threads`
-// per row (up to 8, run as one cluster when more than 1), each taking
-// `chunk` columns, a multiple of threads * 16, with chunks =
-// ceil(d / chunk); `vec` elements per load (1, 2, 4, or 8 for bf16),
-// dividing d, with vec * sizeof(T) bytes (and min(16, 4 * vec) for g)
-// dividing the pointers' alignment (cudaErrorMisalignedAddress
-// otherwise); `threads` a multiple of 32 up to 512. Launches on `stream`,
-// allocates nothing, returns cudaGetLastError() (cudaErrorInvalidValue for
-// a plan it cannot run).
+// The plan (the wrapper's round_stats.plan): one block of `threads` per
+// row, a multiple of 32 up to 512; `vec` elements per load (1, 2, 4, or 8
+// for bf16), dividing d, with vec * sizeof(T) bytes (and min(16, 4 * vec)
+// for g) dividing the pointers' alignment (cudaErrorMisalignedAddress
+// otherwise). Launches on `stream`, allocates nothing, returns
+// cudaGetLastError() (cudaErrorInvalidValue for a plan it cannot run).
 extern "C" int repro_round_stats(const void* deltas, const void* payload,
                                  const void* g, void* stats, void* gn2,
                                  int64_t k, int64_t d, int bf16, void* stream,
-                                 int64_t chunk, int64_t chunks, int vec,
-                                 int threads) {
+                                 int vec, int threads) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return payload != nullptr
                ? launch<__nv_bfloat16, 3, true>(deltas, payload, g, stats,
-                                                gn2, k, d, chunk, chunks, vec,
-                                                threads, s)
+                                                gn2, k, d, vec, threads, s)
                : launch<__nv_bfloat16, 2, true>(deltas, payload, g, stats,
-                                                gn2, k, d, chunk, chunks, vec,
-                                                threads, s);
+                                                gn2, k, d, vec, threads, s);
   }
   return payload != nullptr
              ? launch<float, 3, true>(deltas, payload, g, stats, gn2, k, d,
-                                      chunk, chunks, vec, threads, s)
+                                      vec, threads, s)
              : launch<float, 2, true>(deltas, payload, g, stats, gn2, k, d,
-                                      chunk, chunks, vec, threads, s);
+                                      vec, threads, s);
 }
 
 // deltas: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1). g: (d,)
@@ -277,14 +229,13 @@ extern "C" int repro_round_stats(const void* deltas, const void* payload,
 // cudaGetLastError().
 extern "C" int repro_cosine_partials(const void* deltas, const void* g,
                                      void* out, int64_t k, int64_t d,
-                                     int bf16, void* stream, int64_t chunk,
-                                     int64_t chunks, int vec, int threads) {
+                                     int bf16, void* stream, int vec,
+                                     int threads) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return launch<__nv_bfloat16, 2, false>(deltas, nullptr, g, out, nullptr,
-                                           k, d, chunk, chunks, vec, threads,
-                                           s);
+                                           k, d, vec, threads, s);
   }
-  return launch<float, 2, false>(deltas, nullptr, g, out, nullptr, k, d,
-                                 chunk, chunks, vec, threads, s);
+  return launch<float, 2, false>(deltas, nullptr, g, out, nullptr, k, d, vec,
+                                 threads, s);
 }

@@ -1,6 +1,5 @@
 // What the two delta-plane sweeps (round_stats.cu, aircomp_sum.cu) share:
-// loads as wide as a row pitch allows, a warp's fixed-order sum, and a
-// launch in thread block clusters.
+// loads as wide as a row pitch allows and a warp's fixed-order sum.
 //
 // Vec<T, V> holds V consecutive elements of type T (float or bf16) as raw
 // 16-, 8-, 4- or 2-byte words, so a thread can issue all its loads before
@@ -45,6 +44,11 @@ struct Vec {
     for (int i = 0; i < kWords; ++i) w[i] = __ldg(q + i);
   }
 
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = W{};
+  }
+
   // The V elements as f32 (bf16 widens exactly: it is the top half).
   __device__ __forceinline__ void unpack(float (&out)[V]) const {
     if constexpr (sizeof(T) == 4) {
@@ -74,26 +78,6 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_down_sync(0xffffffffu, v, off);
   }
   return v;
-}
-
-// Launches `kernel` on `stream` with its blocks grouped in clusters of
-// `cluster` (the grid a multiple of it); returns the launch's error.
-template <typename... Params, typename... Args>
-cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid,
-                             dim3 block, dim3 cluster, cudaStream_t stream,
-                             Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster.x;
-  attr[0].val.clusterDim.y = cluster.y;
-  attr[0].val.clusterDim.z = cluster.z;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace sweep

@@ -16,12 +16,10 @@ kernel (``csrc/aircomp_sum.cu``) runs a grid of column tiles (``plan``): a
 warp covers 32 * vec columns with loads as wide as the row pitch and x's
 alignment allow, the 16 or 32 warps of a block split the rows and each
 keeps 8 row loads (4 of 16 bytes) in flight, and the block adds its warps
-in order, the noise, and divides. Where D gives too few tiles to fill the
-card, the rows also split across up to 8 blocks that run as one thread
-block cluster and merge through distributed shared memory in split order.
-Only the blocks that write agg sum bp, each in the same order, and tile
-0's writes varsigma. No scratch, no counter and no float atomics, so the
-result is identical from run to run, as the scanned reference round's is.
+in order, the noise, and divides. Every block sums bp in the same order,
+and tile 0's writes varsigma. No scratch, no counter and no float
+atomics, so the result is identical from run to run, as the scanned
+reference round's is.
 
 ``superpose_normalize_cuda`` launches the kernel and counts its launches in
 the module-level ``launches``; ``superpose_normalize_plain`` is the
@@ -45,12 +43,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.round_stats import alignment, load_width, sm_count
 
 launches = 0                # superpose_normalize_cuda launches
 aircomp_sum_launches = 0    # aircomp_sum_cuda launches
@@ -93,48 +89,19 @@ def superpose_normalize_plain(stacked, powers, mask, noise,
     return (acc + noise) / torch.clamp_min(raw, vs_min), raw
 
 
-UNROLL = 8           # rows every warp keeps when the rows split
-MAX_SPLITS = 8       # blocks of a tile: the portable cluster size
+@functools.lru_cache(maxsize=None)
+def plan(k: int, d: int, itemsize: int, align: int) -> tuple[int, int]:
+    """``(vec, warps)``: the widest load (``align``: x's pointer
+    alignment), and 16 warps a block, or 32 above K = 256, so a warp keeps
+    at most 8 rows in one round trip up to K = 128. Block t takes the
+    columns [t * 32 * vec, (t + 1) * 32 * vec) & [0, d) of every row."""
+    return build.load_width(d, itemsize, align), 16 if k <= 256 else 32
 
 
-@dataclass(frozen=True)
-class Plan:
-    """How the kernel cuts a (k, d) plane: tiles of ``tile`` = 32 * vec
-    columns (the last one ragged), blocks of ``warps`` warps, and
-    ``splits`` row splits of ``rows`` rows (the last one short), one
-    cluster per tile when more than one. Block (t, s) takes columns
-    [t * tile, ... + tile) & [0, d) of rows [s * rows, ... + rows) & [0, k);
-    ``vec`` elements per load."""
-    k: int
-    d: int
-    vec: int
-    tile: int
-    tiles: int
-    warps: int
-    rows: int
-    splits: int
-
-
-def plan(k: int, d: int, itemsize: int, sms: int, align: int) -> Plan:
-    """The widest load; 16 warps a block, or 32 above K = 256, so a warp
-    keeps at most 8 rows in one round trip up to K = 128; and row splits
-    only where the tiles leave more than half the SMs idle, while every
-    warp keeps UNROLL rows of its split."""
-    vec = load_width(d, itemsize, align)
-    tile = 32 * vec
-    tiles = -(-d // tile)
-    warps = 16 if k <= 256 else 32
-    splits = max(1, min(MAX_SPLITS, sms // (2 * tiles),
-                        k // (warps * UNROLL)))
-    rows = -(-k // splits)
-    return Plan(k, d, vec, tile, tiles, warps, rows, -(-k // rows))
-
-
-def device_plan(stacked) -> Plan:
-    """The plan for this CUDA payload on its card."""
+def device_plan(stacked) -> tuple[int, int]:
+    """The plan for this CUDA payload: ``(vec, warps)``."""
     k, d = stacked.shape
-    return plan(k, d, stacked.element_size(),
-                sm_count(stacked.device.index), alignment(stacked))
+    return plan(k, d, stacked.element_size(), build.alignment(stacked))
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,8 +109,7 @@ def _lib():
     fn = build.library("aircomp_sum").repro_superpose_normalize
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
@@ -157,16 +123,17 @@ def superpose_normalize_cuda(stacked, powers, mask, noise,
     if stacked.device.type != "cuda":
         raise ValueError(f"superpose_normalize_cuda needs CUDA tensors, got "
                          f"{stacked.device}")
-    p = device_plan(stacked)
+    k, d = stacked.shape
+    vec, warps = device_plan(stacked)
     dev = stacked.device
-    agg = torch.empty((p.d,), dtype=torch.float32, device=dev)
+    agg = torch.empty((d,), dtype=torch.float32, device=dev)
     raw = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib()(stacked.data_ptr(), powers.data_ptr(), mask.data_ptr(),
-                    noise.data_ptr(), agg.data_ptr(), raw.data_ptr(), p.k,
-                    p.d, float(vs_min), int(stacked.dtype == torch.bfloat16),
-                    stream, p.rows, p.splits, p.vec, p.warps)
+                    noise.data_ptr(), agg.data_ptr(), raw.data_ptr(), k, d,
+                    float(vs_min), int(stacked.dtype == torch.bfloat16),
+                    stream, vec, warps)
     if rc != 0:
         raise RuntimeError(f"superpose_normalize kernel launch failed: CUDA "
                            f"error {rc}")
@@ -186,7 +153,7 @@ def _aircomp_lib():
     fn = build.library("aircomp_sum").repro_aircomp_sum
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
@@ -199,15 +166,16 @@ def aircomp_sum_cuda(stacked, bp, noise):
     if stacked.device.type != "cuda":
         raise ValueError(f"aircomp_sum_cuda needs CUDA tensors, got "
                          f"{stacked.device}")
-    p = device_plan(stacked)
+    k, d = stacked.shape
+    vec, warps = device_plan(stacked)
     dev = stacked.device
-    agg = torch.empty((p.d,), dtype=torch.float32, device=dev)
+    agg = torch.empty((d,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _aircomp_lib()(stacked.data_ptr(), bp.data_ptr(),
-                            noise.data_ptr(), agg.data_ptr(), p.k, p.d,
+                            noise.data_ptr(), agg.data_ptr(), k, d,
                             int(stacked.dtype == torch.bfloat16), stream,
-                            p.rows, p.splits, p.vec, p.warps)
+                            vec, warps)
     if rc != 0:
         raise RuntimeError(f"aircomp_sum kernel launch failed: CUDA error "
                            f"{rc}")

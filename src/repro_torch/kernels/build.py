@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 library's file name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header builds anew
 and a finished build is reused. ``build_all``
-starts one ``nvcc`` per source, all together.
+starts one ``nvcc`` per source, all together. ``sm_count``, ``alignment``
+and ``load_width`` are the device facts the kernels' launch plans read.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on machines with no ``nvcc``.
@@ -14,6 +15,7 @@ the port on machines with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -21,6 +23,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 SOURCES = ("round_stats", "aircomp_sum", "gather_superpose", "ssd_chunk",
            "swa_attention")
@@ -101,3 +105,29 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once per process."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def alignment(*tensors) -> int:
+    """The largest power of two up to 16 that divides every data pointer."""
+    return min(min(t.data_ptr() & -t.data_ptr(), 16) for t in tensors)
+
+
+def load_width(d: int, itemsize: int, align: int, g_align: int = 0) -> int:
+    """Elements per load: the widest of 8, 4, 2, 1 whose bytes are at most
+    16 and divide the row pitch (d elements) and the planes' pointer
+    alignment ``align``; with ``g_align`` (sweep 1's f32 g, loaded at the
+    same columns) the same count of f32, up to 16 bytes, must divide that
+    too."""
+    for vec in (8, 4, 2, 1):
+        width = vec * itemsize
+        if (width <= 16 and d % vec == 0 and align % width == 0
+                and (not g_align or g_align % min(16, 4 * vec) == 0)):
+            return vec
+    raise ValueError(f"no load width for d={d}, itemsize={itemsize}, "
+                     f"alignment {align}, g alignment {g_align}")

@@ -10,10 +10,10 @@ H100: memory bytes, 4 (K D + D + 2 K) in f32, two FMAs per element. The
 kernel is the sweep-1 body (``csrc/round_stats.cu``, entry
 ``repro_cosine_partials``) without a payload and without ||g||^2, on
 sweep 1's plan (``round_stats.plan``): a block per row with every load of
-a pass in flight, as wide as the pitch allows, or a cluster of chunks per
-row where K is small; the sums run in a fixed order with no float atomics,
-so repeated calls are bit-identical; the ragged D edge is masked in the
-kernel, where the Pallas wrapper pads D to 512 with a copy.
+a pass in flight, as wide as the pitch allows; the sums run in a fixed
+order with no float atomics, so repeated calls are bit-identical; the
+ragged D edge is masked in the kernel, where the Pallas wrapper pads D to
+512 with a copy.
 
 ``cosine_partials_cuda`` launches the kernel and counts its launches in the
 module-level ``launches``; ``cosine_partials_plain`` is the plain-torch
@@ -44,7 +44,7 @@ def _lib():
     fn = build.library("round_stats").repro_cosine_partials
     fn.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,17 +57,17 @@ def cosine_partials_cuda(deltas, g):
     if deltas.device.type != "cuda":
         raise ValueError(f"cosine_partials_cuda needs CUDA tensors, got "
                          f"{deltas.device}")
-    p = device_plan(deltas, g)
-    if p.blocks > 2**31 - 1:
-        raise ValueError(f"K={p.k} x {p.chunks} chunks exceeds the kernel's "
-                         f"grid")
+    k, d = deltas.shape
+    if k > 2**31 - 1:
+        raise ValueError(f"K={k} exceeds the kernel's grid")
+    vec, threads = device_plan(deltas, g)
     dev = deltas.device
-    out = torch.empty((p.k, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((k, 2), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib()(deltas.data_ptr(), g.data_ptr(), out.data_ptr(), p.k, p.d,
-                    int(deltas.dtype == torch.bfloat16), stream, p.chunk,
-                    p.chunks, p.vec, p.threads)
+        rc = _lib()(deltas.data_ptr(), g.data_ptr(), out.data_ptr(), k, d,
+                    int(deltas.dtype == torch.bfloat16), stream, vec,
+                    threads)
     if rc != 0:
         raise RuntimeError(f"cosine_partials kernel launch failed: CUDA "
                            f"error {rc}")

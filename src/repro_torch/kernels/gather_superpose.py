@@ -38,7 +38,6 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.round_stats import sm_count
 
 launches = 0
 
@@ -124,7 +123,7 @@ def gather_superpose_cuda(values, idx, bp, noise, *, d: int, scale=None,
                          f"{values.device}")
     m, s = values.shape
     dev = values.device
-    stripe, splits = plan(m, d, sm_count(dev.index))
+    stripe, splits = plan(m, d, build.sm_count(dev.index))
     if -(-d // stripe) > 2**31 - 1:
         raise ValueError(f"d={d} exceeds the kernel's grid")
     fn = _lib()

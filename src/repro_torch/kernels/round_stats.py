@@ -10,14 +10,12 @@ Replaces the TPU kernel ``repro/kernels/round_stats.py::round_stats_pallas``
 Bound on the H100: memory bytes (K*D*s read, twice that with a payload,
 2-3 FMAs per element). At the paper's sizes the plane is a few MB, so the
 call is bound by latency: the kernel (``csrc/round_stats.cu``) gives each
-row one block that takes it in one pass with every load in flight, as wide
-as the row pitch and the pointers' alignment allow. Where rows are longer
-than one pass and K alone would leave most SMs idle, ``plan`` cuts the rows
-into up to 8 chunks that run as one thread block cluster and merge through
-distributed shared memory in chunk order. The sums run in a fixed order
-with no scratch, no counter and no float atomics, so the kernel is
-identical from run to run. g^2 is summed once, by row 0's blocks. The
-ragged edge is masked; nothing is padded.
+row one block that takes it in one pass (up to D = 8192) with every load in
+flight, as wide as the row pitch and the pointers' alignment allow
+(``plan``). The sums run in a fixed order with no scratch, no counter and
+no float atomics, so the kernel is identical from run to run. g^2 is
+summed once, by row 0's block. The ragged edge is masked; nothing is
+padded.
 
 ``round_stats_cuda`` launches the kernel and counts its launches in the
 module-level ``launches``; ``round_stats_plain`` is the plain-torch twin the
@@ -27,7 +25,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
 
 import torch
 
@@ -81,70 +78,18 @@ def round_stats_plain(deltas, g, payload=None):
 
 PER_THREAD = 16      # columns a thread takes per pass (csrc's kPerThread)
 MAX_THREADS = 512
-MAX_CHUNKS = 8       # blocks of a row: the portable cluster size
-
-
-def alignment(*tensors) -> int:
-    """The largest power of two up to 16 that divides every data pointer."""
-    return min(min(t.data_ptr() & -t.data_ptr(), 16) for t in tensors)
-
-
-def load_width(d: int, itemsize: int, align: int, g_align: int = 0) -> int:
-    """Elements per load: the widest of 8, 4, 2, 1 whose bytes are at most
-    16 and divide the row pitch (d elements) and the planes' pointer
-    alignment ``align``; with ``g_align`` (sweep 1's f32 g, loaded at the
-    same columns) the same count of f32, up to 16 bytes, must divide that
-    too."""
-    for vec in (8, 4, 2, 1):
-        width = vec * itemsize
-        if (width <= 16 and d % vec == 0 and align % width == 0
-                and (not g_align or g_align % min(16, 4 * vec) == 0)):
-            return vec
-    raise ValueError(f"no load width for d={d}, itemsize={itemsize}, "
-                     f"alignment {align}, g alignment {g_align}")
-
-
-@dataclass(frozen=True)
-class Plan:
-    """How the kernel cuts a (k, d) plane: ``chunks`` blocks per row (one
-    cluster when more than one), each of ``threads`` threads reducing
-    ``chunk`` columns (the last chunk ragged) in passes of threads * 16,
-    loading ``vec`` elements at a time. Block b takes row b // chunks,
-    columns [(b % chunks) * chunk, ... + chunk) & [0, d)."""
-    k: int
-    d: int
-    vec: int
-    threads: int
-    chunk: int
-    chunks: int
-
-    @property
-    def blocks(self) -> int:
-        return self.k * self.chunks
-
-
-def plan(k: int, d: int, itemsize: int, sms: int, align: int,
-         g_align: int = 16) -> Plan:
-    """The widest load (``align``: the planes' pointer alignment,
-    ``g_align`` g's); one block per row, as few threads as take the row in
-    one pass (at most 512: D = 8070 is one pass of 512). Rows longer than
-    one pass split into up to 8 chunks where K blocks would leave more than
-    half the SMs idle."""
-    vec = load_width(d, itemsize, align, g_align)
-    warp_pass = 32 * PER_THREAD
-    chunks = min(MAX_CHUNKS, max(1, sms // (2 * k)),
-                 -(-d // (MAX_THREADS * PER_THREAD)))
-    cols = -(-d // chunks)
-    threads = min(MAX_THREADS, 32 * -(-cols // warp_pass))
-    pass_cols = threads * PER_THREAD
-    chunk = -(-cols // pass_cols) * pass_cols
-    return Plan(k, d, vec, threads, chunk, -(-d // chunk))
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """The SM count of CUDA device ``index``, read once per process."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def plan(d: int, itemsize: int, align: int,
+         g_align: int = 16) -> tuple[int, int]:
+    """``(vec, threads)`` for a plane of rows of ``d`` elements: the widest
+    load (``align``: the planes' pointer alignment, ``g_align`` g's), and
+    as few threads per row's block as take the row in one pass, at most
+    512 (D = 8070 is one pass of 512; longer rows take more passes)."""
+    vec = build.load_width(d, itemsize, align, g_align)
+    threads = min(MAX_THREADS, 32 * -(-d // (32 * PER_THREAD)))
+    return vec, threads
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,17 +97,16 @@ def _lib():
     fn = build.library("round_stats").repro_round_stats
     fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
 
-def device_plan(deltas, g, payload=None) -> Plan:
-    """The plan for these CUDA tensors on their card."""
-    k, d = deltas.shape
+def device_plan(deltas, g, payload=None) -> tuple[int, int]:
+    """The plan for these CUDA tensors: ``(vec, threads)``."""
     planes = (deltas,) if payload is None else (deltas, payload)
-    return plan(k, d, deltas.element_size(), sm_count(deltas.device.index),
-                alignment(*planes), alignment(g))
+    return plan(deltas.shape[1], deltas.element_size(),
+                build.alignment(*planes), build.alignment(g))
 
 
 def round_stats_cuda(deltas, g, payload=None):
@@ -173,21 +117,21 @@ def round_stats_cuda(deltas, g, payload=None):
     if deltas.device.type != "cuda":
         raise ValueError(f"round_stats_cuda needs CUDA tensors, got "
                          f"{deltas.device}")
-    p = device_plan(deltas, g, payload)
-    if p.blocks > 2**31 - 1:
-        raise ValueError(f"K={p.k} x {p.chunks} chunks exceeds the kernel's "
-                         f"grid")
+    k, d = deltas.shape
+    if k > 2**31 - 1:
+        raise ValueError(f"K={k} exceeds the kernel's grid")
+    vec, threads = device_plan(deltas, g, payload)
     dev = deltas.device
-    stats = torch.empty((p.k, 2 if payload is None else 3),
+    stats = torch.empty((k, 2 if payload is None else 3),
                         dtype=torch.float32, device=dev)
     gn2 = torch.empty((), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib()(deltas.data_ptr(),
                     None if payload is None else payload.data_ptr(),
-                    g.data_ptr(), stats.data_ptr(), gn2.data_ptr(), p.k, p.d,
-                    int(deltas.dtype == torch.bfloat16), stream, p.chunk,
-                    p.chunks, p.vec, p.threads)
+                    g.data_ptr(), stats.data_ptr(), gn2.data_ptr(), k, d,
+                    int(deltas.dtype == torch.bfloat16), stream, vec,
+                    threads)
     if rc != 0:
         raise RuntimeError(f"round_stats kernel launch failed: CUDA error "
                            f"{rc}")

@@ -28,10 +28,10 @@ def _tol(dtype):
 
 # The delta-plane sweeps' cases: every load width (D odd, even but not a
 # multiple of 4, a multiple of 8; a pointer one element off 16-byte
-# alignment); in sweep 1 one pass and several per row (D = 20000), and a
-# cluster of 3 chunks per row (D = 20000 at K = 1 and 16 on 132 SMs); in
-# sweep 2 16 and 32 warps (K <= 256 and above), and one, two and three row
-# splits (K = 1000 at D = 8192 bf16, 511, 1).
+# alignment); in sweep 1 blocks of 32 to 512 threads, one pass and several
+# per row (D = 20000); in sweep 2 16 and 32 warps (K <= 256 and above), a
+# warp's rows in one round of loads and in several (K = 1000), and a single
+# ragged tile (D = 1, 511).
 SWEEP_KS = (1, 16, 64, 100, 300, 1000)
 SWEEP_DS = (1, 511, 8070, 8192, 20000)
 SWEEP_CASES = ([(k, d, 0) for k in SWEEP_KS for d in SWEEP_DS]
@@ -56,7 +56,7 @@ def test_round_stats_kernel_matches_twin(cuda, k, d, offset, dtype,
     g = torch.randn((d,), generator=gen, device=cuda)
     p = _plane(gen, k, d, dtype, offset, cuda) if with_payload else None
     if offset:
-        assert rs.device_plan(x, g, p).vec == 1
+        assert rs.device_plan(x, g, p)[0] == 1
     before = rs.launches
     got, got_g = rs.round_stats_cuda(x, g, p)
     torch.cuda.synchronize()
@@ -85,7 +85,7 @@ def test_superpose_kernel_matches_twin(cuda, k, d, offset, dtype,
     m = _mask(mask_kind, gen, k, cuda)
     n = 1e-3 * torch.randn((d,), generator=gen, device=cuda)
     if offset:
-        assert ac.device_plan(x).vec == 1
+        assert ac.device_plan(x)[0] == 1
     before = ac.launches
     got, raw = ac.superpose_normalize_cuda(x, p, m, n)
     torch.cuda.synchronize()
@@ -143,8 +143,9 @@ def test_cosine_partials_kernel_matches_twin(cuda, k, d, offset, dtype):
                                  (1000, 511), (1, 20000), (16, 20000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_are_deterministic(cuda, k, d, dtype):
-    """Bit-identical repeats on every path: one block per row, a cluster
-    of chunks per row, one block per tile, a cluster of row splits."""
+    """Bit-identical repeats at the paper's shapes and the edges: one and
+    several passes per row, 16 and 32 warps a tile, float2, 16-byte and
+    scalar loads."""
     from repro_torch.kernels import aircomp_sum as ac
     from repro_torch.kernels import cosine_sim as cs
     from repro_torch.kernels import round_stats as rs

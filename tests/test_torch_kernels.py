@@ -17,7 +17,7 @@ from repro.kernels.aircomp_sum import (aircomp_sum_pallas,  # noqa: E402
 from repro.kernels.cosine_sim import cosine_partials_pallas  # noqa: E402
 from repro.kernels.round_stats import round_stats_pallas  # noqa: E402
 from repro_torch.core import power_control as tpc  # noqa: E402
-from repro_torch.kernels import aircomp_sum, ops, ref  # noqa: E402
+from repro_torch.kernels import aircomp_sum, build, ops, ref  # noqa: E402
 from repro_torch.kernels import cosine_sim as cs  # noqa: E402
 from repro_torch.kernels import round_stats as rs  # noqa: E402
 
@@ -307,7 +307,7 @@ def test_ops_refuse_other_devices():
 
 
 # The two sweeps' launch plans, pure Python: no ctypes load, no nvcc.
-PLAN_KS = (1, 3, 64, 100, 300, 1000, 5000)
+PLAN_KS = (1, 3, 64, 100, 256, 257, 300, 1000, 5000)
 PLAN_DS = (1, 2, 511, 8070, 8192, 16384, 20000, 10**6)
 PLAN_WIDTHS = [(4, 4), (4, 8), (4, 16), (2, 2), (2, 4), (2, 8), (2, 16)]
 
@@ -338,87 +338,69 @@ def _lanes_cover(per_lane, lanes, vec):
 
 
 @pytest.mark.parametrize("itemsize,align", PLAN_WIDTHS)
-@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("g_align", [4, 16])
 def test_round_stats_plan_covers_every_row_and_column_once(itemsize, align,
-                                                           sms):
-    for k in PLAN_KS:
-        for d in PLAN_DS:
-            for g_align in (4, 16):
-                p = rs.plan(k, d, itemsize, sms, align, g_align)
-                assert (p.k, p.d) == (k, d)
-                assert _width_ok(p.vec, d, itemsize, align, g_align)
-                assert p.vec == 8 or not _width_ok(2 * p.vec, d, itemsize,
-                                                   align, g_align)
-                assert p.threads % 32 == 0
-                assert 32 <= p.threads <= rs.MAX_THREADS
-                pass_cols = p.threads * rs.PER_THREAD
-                assert p.chunk % pass_cols == 0
-                # a row's chunks, in order, are one cluster of at most 8
-                assert 1 <= p.chunks <= rs.MAX_CHUNKS
-                _tiles_in_order([(c * p.chunk, min(d, (c + 1) * p.chunk))
-                                 for c in range(p.chunks)], d)
-                # block b takes row b // chunks: every row gets its chunks
-                rows = [b // p.chunks for b in range(0, p.blocks, p.chunks)]
-                assert rows == list(range(k)) and p.blocks <= 2**31 - 1
-                row_pass = rs.MAX_THREADS * rs.PER_THREAD
-                if 2 * k >= sms or d <= row_pass:   # a row a block, and
-                    assert p.chunks == 1            # one pass up to 8192
-                    assert pass_cols >= min(d, row_pass)
-                elif 4 * k <= sms:   # K leaves 3/4 of the SMs idle
-                    assert p.chunks > 1
+                                                           g_align):
+    """Sweep 1 runs block k on row k; its passes of threads * 16 columns
+    tile the row in order, one pass up to D = 8192 with the fewest warps
+    that take it, and each pass's lanes cover it once."""
+    for d in PLAN_DS:
+        vec, threads = rs.plan(d, itemsize, align, g_align)
+        assert _width_ok(vec, d, itemsize, align, g_align)
+        assert vec == 8 or not _width_ok(2 * vec, d, itemsize, align,
+                                         g_align)
+        assert threads % 32 == 0 and 32 <= threads <= rs.MAX_THREADS
+        pass_cols = threads * rs.PER_THREAD
+        _tiles_in_order([(lo, min(d, lo + pass_cols))
+                         for lo in range(0, d, pass_cols)], d)
+        assert pass_cols >= min(d, rs.MAX_THREADS * rs.PER_THREAD)
+        assert threads == 32 or (threads - 32) * rs.PER_THREAD < d
     for threads in (32, 64, 128, 256, 512):
         for vec in (1, 2, 4, 8):
             _lanes_cover(rs.PER_THREAD, threads, vec)
 
 
 @pytest.mark.parametrize("itemsize,align", PLAN_WIDTHS)
-@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("warps", [16, 32])
 def test_superpose_plan_covers_every_row_and_column_once(itemsize, align,
-                                                         sms):
-    for k in PLAN_KS:
+                                                         warps):
+    """Sweep 2 runs block t on the t-th tile of 32 * vec columns, the
+    tiles in order covering D; 16 warps up to K = 256 and 32 above, warp w
+    taking rows w, w + warps, ... so every row is read once."""
+    for k in [k for k in PLAN_KS if (k <= 256) == (warps == 16)]:
         for d in PLAN_DS:
-            p = aircomp_sum.plan(k, d, itemsize, sms, align)
-            assert (p.k, p.d) == (k, d)
-            assert _width_ok(p.vec, d, itemsize, align)
-            assert p.vec == 8 or not _width_ok(2 * p.vec, d, itemsize,
-                                               align)
-            assert p.tile == 32 * p.vec and p.warps in (16, 32)
-            _tiles_in_order([(t * p.tile, min(d, (t + 1) * p.tile))
-                             for t in range(p.tiles)], d)
-            # a tile's row splits, in order, are one cluster of at most 8
-            _tiles_in_order([(s * p.rows, min(k, (s + 1) * p.rows))
-                             for s in range(p.splits)], k)
-            assert 1 <= p.splits <= aircomp_sum.MAX_SPLITS
-            assert p.tiles <= 2**31 - 1
-            if p.splits > 1:     # only where the tiles leave SMs idle, and
-                # every warp keeps UNROLL rows of its split
-                assert 2 * p.tiles < sms
-                assert p.rows >= p.warps * aircomp_sum.UNROLL
+            vec, w = aircomp_sum.plan(k, d, itemsize, align)
+            assert w == warps
+            assert _width_ok(vec, d, itemsize, align)
+            assert vec == 8 or not _width_ok(2 * vec, d, itemsize, align)
+            tile = 32 * vec
+            _tiles_in_order([(lo, min(d, lo + tile))
+                             for lo in range(0, d, tile)], d)
+            assert -(-d // tile) <= 2**31 - 1
+        rows = sorted(r for wp in range(warps) for r in range(wp, k, warps))
+        assert rows == list(range(k))
     for vec in (1, 2, 4, 8):
         _lanes_cover(vec, 32, vec)
 
 
 def test_plans_at_the_paper_shape():
-    """K x D = 100 x 8070 on 132 SMs: float2 loads (8070 is even, not a
-    multiple of 4); sweep 1 takes a row in one pass of 512 threads, sweep 2
-    runs 127 tiles of 64 columns with 16 warps a block and no split; at
-    K = 1000, 32 warps. Rows longer than one pass split only at small K."""
-    p = rs.plan(100, 8070, 4, 132, 16)
-    assert (p.vec, p.threads, p.chunk, p.chunks) == (2, 512, 8192, 1)
-    assert rs.plan(1, 8070, 4, 132, 16).chunks == 1
-    assert rs.plan(1, 20000, 4, 132, 16).chunks == 3
-    assert rs.plan(1, 10**6, 4, 132, 16).chunks == 8
-    q = aircomp_sum.plan(100, 8070, 4, 132, 16)
-    assert (q.vec, q.tile, q.tiles, q.warps, q.splits) == (2, 64, 127, 16, 1)
-    assert aircomp_sum.plan(1000, 8070, 4, 132, 16).warps == 32
-    assert aircomp_sum.plan(1000, 511, 4, 132, 16).splits == 3
-    assert rs.plan(100, 8192, 2, 132, 16).vec == 8
-    assert rs.plan(100, 8192, 4, 132, 4).vec == 1
+    """K x D = 100 x 8070: float2 loads (8070 is even, not a multiple of
+    4); sweep 1 takes a row in one pass of 512 threads, sweep 2 runs
+    tiles of 64 columns with 16 warps a block; at K = 1000, 32 warps.
+    Longer rows take passes of 512 threads; plans are cached."""
+    assert rs.plan(8070, 4, 16, 16) == (2, 512)
+    assert rs.plan(20000, 4, 16, 16) == (4, 512)
+    assert rs.plan(511, 4, 16, 16) == (1, 32)
+    assert aircomp_sum.plan(100, 8070, 4, 16) == (2, 16)
+    assert aircomp_sum.plan(1000, 8070, 4, 16) == (2, 32)
+    assert rs.plan(8192, 2, 16, 16)[0] == 8
+    assert rs.plan(8192, 4, 16, 4)[0] == 1
+    assert rs.plan(8070, 4, 16, 16) is rs.plan(8070, 4, 16, 16)
 
 
 def test_alignment_of_data_pointers():
     x = torch.zeros(40)
-    assert rs.alignment(x) == 16
-    assert rs.alignment(x[1:]) == 4 and rs.alignment(x[2:]) == 8
-    assert rs.alignment(x, x[1:]) == 4
-    assert rs.alignment(x.to(torch.bfloat16)[1:]) == 2
+    assert build.alignment(x) == 16
+    assert build.alignment(x[1:]) == 4 and build.alignment(x[2:]) == 8
+    assert build.alignment(x, x[1:]) == 4
+    assert build.alignment(x.to(torch.bfloat16)[1:]) == 2
