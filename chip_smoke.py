@@ -25,8 +25,9 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
 - the LM slice: the SSD intra-chunk and sliding-window attention kernels
   against their twins (the reference's sweeps, the full-width mamba2 layer
   through the SSD kernel's grouped entry, on contiguous and on strided
-  B and C, mixtral-8x22b's and zamba2-7b's attention at T = 4608,
-  W = 4096), the attention kernel through its own entry point
+  B and C, the attention kernel's branch cases in f32 and bf16,
+  mixtral-8x22b's and zamba2-7b's attention at T = 4608, W = 4096), the
+  attention kernel through its own entry point
   ``ops.swa_attention``, and mamba2-370m serving at full width (48
   layers, f32, random weights from a seed): batch 8, a 1,024-token prompt
   through the prefill step, 64 greedy decode steps, prefill -> decode
@@ -97,7 +98,21 @@ SWA_SWEEP = ((128, 128, 64, None, True), (200, 200, 32, 64, True),
              (256, 256, 64, 96, True), (256, 256, 128, 128, True),
              (64, 64, 16, None, False), (96, 96, 64, 32, True),
              (130, 130, 64, 64, True))
+# the tensor-core kernel's branches (T, S, D, W, causal), f32 and bf16:
+# every instance's head dim (16 to 256; 33 and 40 with pitches that are no
+# 16-byte multiple), ragged T and S both ways, windows around the 64-key
+# tile and beyond T, a query tile of edge tiles only (T = 64, no window),
+# rows with no key (W = 0; T > S with a window), causal off with a window
+SWA_BRANCHES = ((64, 64, 16, 1, True), (129, 200, 33, 63, True),
+                (200, 129, 40, 64, True), (257, 257, 64, 65, True),
+                (300, 280, 112, 1000, True), (190, 300, 128, 64, False),
+                (64, 64, 128, None, True), (170, 100, 64, 20, True),
+                (65, 70, 32, 0, True), (200, 180, 256, 63, True),
+                (130, 130, 200, 65, False), (100, 100, 96, None, False))
 SWA_ZOO = {"mixtral-8x22b": (48, 8, 128), "zamba2-7b": (32, 32, 112)}
+# the timed rows: (zoo entry, dtype)
+SWA_TIMED = (("mixtral-8x22b", torch.float32), ("zamba2-7b", torch.float32),
+             ("mixtral-8x22b", torch.bfloat16))
 SWA_WINDOW, SWA_PARITY_T, SWA_TIME_T = 4096, 4608, 8192
 # mamba2-370m serving: batch, prompt, decode steps, cache, short prompt,
 # teacher-forced continuity steps
@@ -837,6 +852,39 @@ def swa_parity(dev, main_err):
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
                                atol=3e-2)
     cases += 1
+    branches = {}
+    for dtype, tol in ((torch.float32, 3e-5), (torch.bfloat16, 3e-2)):
+        errs = []
+        for t, s, d, window, causal in SWA_BRANCHES:
+            gen = torch.Generator(device=dev).manual_seed(t + s + d)
+            q, k, v = (torch.randn((3, n, d), generator=gen,
+                                   device=dev).to(dtype) for n in (t, s, s))
+            got = sw.swa_attention_cuda(q, k, v, window=window,
+                                        causal=causal)
+            again = sw.swa_attention_cuda(q, k, v, window=window,
+                                          causal=causal)
+            want = sw.swa_attention_plain(q, k, v, window=window,
+                                          causal=causal)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            if not torch.equal(got, again):
+                raise AssertionError(f"swa_attention {dtype}: two calls "
+                                     f"differ at {(t, s, d, window)}")
+            errs.append(float((got.float() - want.float()).abs().max()))
+            cases += 1
+        # k and v one element off 16-byte alignment: staged by plain loads
+        ks, vs = (torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:]
+                  .view(x.shape) for x in (k, v))
+        ks.copy_(k)
+        vs.copy_(v)
+        if not torch.equal(sw.swa_attention_cuda(q, ks, vs, window=window,
+                                                 causal=causal), got):
+            raise AssertionError(f"swa_attention {dtype}: unaligned planes "
+                                 f"differ")
+        cases += 1
+        branches[str(dtype).split(".")[-1]] = max(errs)
+    worst = max(worst, branches["float32"])
     zoo = {}
     for name, (h, hkv, d) in SWA_ZOO.items():
         q, k, v = swa_inputs(dev, 1, SWA_PARITY_T, h, hkv, d, torch.float32,
@@ -860,6 +908,7 @@ def swa_parity(dev, main_err):
     log({"phase": "swa_parity", "cases": cases, "all_close": True,
          "bit_identical_on_repeat": True, "zoo_shapes_t": SWA_PARITY_T,
          "zoo_window": SWA_WINDOW, "max_abs_err_zoo": zoo,
+         "max_abs_err_branches": branches,
          "max_abs_err_any_f32_case": worst})
     return path_case
 
@@ -1225,15 +1274,9 @@ def lm_kernel_times(dev, bw, flops, tf32):
     """The LM slice's kernels at their main shapes, f32: the SSD kernel at
     mamba2-370m's prefill layer through the grouped entry (on strided views
     of a conv output, as the model calls it) and at the reference's
-    per-head (G, Q, N, P) = (1024, 256, 128, 64); swa_attention at
-    T = 8192, W = 4096 with mixtral-8x22b's 48 heads of D = 128 (the GQA
-    repeat done once, outside the timing). Attention operations are the
-    (query, key) pairs inside the band, 4 D each; bytes: each input read
-    once, each output written once."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    per-head (G, Q, N, P) = (1024, 256, 128, 64); swa_attention in the rows
+    of SWA_TIMED (swa_time)."""
     from repro_torch.kernels import ssd_chunk as sc
-    from repro_torch.kernels import swa_attention as sw
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     out = {}
     bz, nc, h, g, q, n, p = SSD_GROUPED
@@ -1275,13 +1318,41 @@ def lm_kernel_times(dev, bw, flops, tf32):
     del cum, b, c, xdt, bt
     out["ssd_chunk"] = dict(grouped, reference_shape=per_head)
 
-    h, hkv, d = SWA_ZOO["mixtral-8x22b"]
+    out["swa_attention"] = [swa_time(dev, name, dtype, flush, bw, flops,
+                                     tf32)
+                            for name, dtype in SWA_TIMED]
+    return out
+
+
+def swa_time(dev, name, dtype, flush, bw, flops, tf32):
+    """swa_attention at T = 8192, W = 4096 with a zoo entry's query heads
+    (the GQA repeat done once, outside the timing), beside its twin and SDPA
+    on the efficient backend. Operations are the (query, key) pairs inside
+    the band, 4 D each; bytes: each input read once, each output written
+    once. Bounds: the operations in f32 on the CUDA cores, and the kernel's
+    passes on the tensor cores (f32: three TF32 passes of both products;
+    bf16: one pass of Q K^T and two of P V at the bf16 rate, twice TF32's on
+    every card of CARDS); bound_ms is the first for f32 inputs and, for
+    bf16, one pass of each product at the bf16 rate."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import swa_attention as sw
+    h, hkv, d = SWA_ZOO[name]
     t = SWA_TIME_T
-    qf, kf, vf = _gqa_flat(*swa_inputs(dev, 1, t, h, hkv, d, torch.float32,
-                                       3))
+    qf, kf, vf = _gqa_flat(*swa_inputs(dev, 1, t, h, hkv, d, dtype, 3))
     mask = sw.band_mask(t, t, SWA_WINDOW, True, dev)
-    nops = 4 * d * h * int(mask.sum())
-    nbytes = 4 * 4 * h * t * d
+    pairs = h * int(mask.sum())
+    nops = 4 * d * pairs
+    nbytes = qf.element_size() * 4 * h * t * d
+    bf16 = 2 * tf32
+    bytes_ms = nbytes / bw * 1e3
+    cuda_ms = nops / flops * 1e3
+    if dtype == torch.float32:
+        tensor_ms = 3 * nops / tf32 * 1e3
+        bound = _bound(nbytes, nops, bw, flops)
+    else:
+        tensor_ms = (2 * d * pairs + 2 * 2 * d * pairs) / bf16 * 1e3
+        bound = _bound(nbytes, nops, bw, bf16)
     q4, k4, v4 = (x.view(1, h, t, d) for x in (qf, kf, vf))
 
     def library():
@@ -1292,11 +1363,14 @@ def lm_kernel_times(dev, bw, flops, tf32):
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
     got = sw.swa_attention_cuda(qf, kf, vf, window=SWA_WINDOW)
-    err = float((got - sw.swa_attention_plain(qf, kf, vf,
-                                              window=SWA_WINDOW)).abs().max())
-    lib_err = float((library().view(h, t, d) - got).abs().max())
+    err = float((got.float() - sw.swa_attention_plain(
+        qf, kf, vf, window=SWA_WINDOW).float()).abs().max())
+    lib_err = float((library().view(h, t, d).float()
+                     - got.float()).abs().max())
     del got
-    out["swa_attention"] = {
+    rec = {
+        "model": name, "shape": [h, t, d], "kv_heads": hkv,
+        "window": SWA_WINDOW, "dtype": str(dtype).split(".")[-1],
         "max_abs_err": err,
         "ms": time_ms(lambda: sw.swa_attention_cuda(qf, kf, vf,
                                                     window=SWA_WINDOW),
@@ -1308,12 +1382,11 @@ def lm_kernel_times(dev, bw, flops, tf32):
                    "on (1, H, T, D)",
         "library_backend": "EFFICIENT_ATTENTION",
         "library_max_abs_diff_vs_kernel": lib_err,
-        "flops_counted": nops, "bytes_counted": nbytes,
-        **_bound(nbytes, nops, bw, flops)}
-    log({"phase": "kernel_time", "kernel": "swa_attention",
-         "shape": [h, t, d], "kv_heads": hkv, "window": SWA_WINDOW,
-         "dtype": "float32", **out["swa_attention"]})
-    return out
+        "flops_counted": nops, "bytes_counted": nbytes, "exps_counted": pairs,
+        "bytes_ms": bytes_ms, "bound_cuda_cores_ms": max(bytes_ms, cuda_ms),
+        "bound_tensor_cores_ms": max(bytes_ms, tensor_ms), **bound}
+    log({"phase": "kernel_time", "kernel": "swa_attention", **rec})
+    return rec
 
 
 def stage_times(drv, flush):
@@ -1504,6 +1577,8 @@ def main() -> int:
                                   SWA_ZOO["mixtral-8x22b"][2]])}
     for kname, (source, replaces, shape) in lm_rows.items():
         t = lm_times[kname]
+        if kname == "swa_attention":
+            t, others = t[0], t[1:]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
@@ -1516,6 +1591,14 @@ def main() -> int:
             "yardstick_ms": t.get("yardstick_ms"),
             "yardstick": t.get("yardstick"), "shape": shape,
             "dtype": "float32"})
+        if kname == "swa_attention":
+            kernels[-1].update(
+                bound_tensor_cores_ms=t["bound_tensor_cores_ms"],
+                other_shapes=[{k: o[k] for k in (
+                    "model", "shape", "dtype", "max_abs_err", "ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "bound_cuda_cores_ms", "bound_tensor_cores_ms")}
+                    for o in others])
         if "reference_shape" in t:
             ref = t["reference_shape"]
             kernels[-1]["reference_shape"] = {

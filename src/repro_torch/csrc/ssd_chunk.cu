@@ -29,8 +29,9 @@
 //   the tensor cores in 3xTF32: mma.sync.m16n8k8 tf32, each operand split
 //   as x = hi + lo (hi = cvt.rna.tf32(x), lo = x - hi passed as its f32
 //   bits, which the tensor cores read to TF32), lo*hi + hi*lo + hi*hi
-//   per 8-deep step (lo*lo dropped): about 2^-22 relative error per
-//   product. It holds the twin at 3.8e-6 (2e-5 allowed). The two y
+//   per 8-deep step (lo*lo dropped; the helpers are in tensor_core.cuh):
+//   about 2^-22 relative error per product. It holds the twin at 3.8e-6
+//   (2e-5 allowed). The two y
 //   products (C B^T and scores @ xdt) were 3xTF32 too and were closer to
 //   an f64 oracle than the f32 twin (2.7e-5 against 4.4e-5 at
 //   (8, 64, 128, 64)), but differed from the twin by up to 4.7e-5 at
@@ -72,7 +73,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
+
+using tc::cp_async16;
+using tc::cp_commit;
+using tc::cp_wait;
+using tc::mma;
+using tc::split;
 
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kTile = 64;       // query rows, key rows, P and N columns
@@ -135,19 +144,6 @@ template <typename T> __host__ __device__ constexpr size_t region1() {
                    kTile * (kTile + 4) * sizeof(float);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Stage a rows x cols tile (cols a multiple of 16 bytes) of src, row
 // stride rs, into dst (row stride ld); entries outside rv x cv are 0.
 template <typename T, bool V16>
@@ -169,24 +165,6 @@ __device__ __forceinline__ void stage(T* dst, int ld, const T* src,
       dst[r * ld + c] = r < rv && c < cv ? src[r * rs + c] : zero<T>();
     }
   }
-}
-
-// x = hi + lo: hi = x rounded to TF32; lo = x - hi (exact in f32) goes to
-// the tensor cores as its f32 bits, of which they read the TF32 part
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  uint32_t h;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
-  hi = h;
-  lo = __float_as_uint(x - __uint_as_float(h));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // One 8-deep step of a warp's 32 x 32 tile: lo*hi + hi*lo + hi*hi

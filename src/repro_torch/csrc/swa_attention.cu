@@ -4,240 +4,460 @@
 // type); out (BH, T, D) in that type. Query t attends to key s where
 // s <= t (causal) and s > t - W (a window W >= 0; W < 0 means none):
 //     out_t = sum_s softmax_s(scale * q_t . k_s) v_s,  scale = 1/sqrt(D)
-// over the allowed keys; a row with no allowed key gives 0. Logits,
-// softmax and sums are f32 on the CUDA cores (the port runs no TF32).
+// over the allowed keys; a row with no allowed key gives 0.
 //
-// Bound on the H100: f32 operations, 4 D per (query, key) pair inside
-// the band, against 4 BH T D elements moved (T = S); at T = 8192,
-// W = 4096, 48 heads of D = 128 that is 619 GFLOP (9.2 ms at 67 TFLOP/s)
-// against 805 MB (0.24 ms at 3.35 TB/s).
+// Bound on the H100, at T = S = 8192, W = 4096, 48 heads of D = 128
+// (mixtral-8x22b): 4 D operations per (query, key) pair inside the band,
+// 618.5 GFLOP, against 805 MB moved (0.24 ms at 3.35 TB/s). In f32 on the
+// CUDA cores that is 9.23 ms at 67 TFLOP/s; in three TF32 passes on the
+// tensor cores 3.75 ms at 495 TFLOP/s. So both products run on the tensor
+// cores.
 //
-// Design. One block per (bh, 64-query tile), 16 x 16 threads; thread
-// (ty, tx) owns rows ty + 16 r (r < 4) of the tile, scores of key columns
-// tx + 16 u (u < 4) and accumulator columns tx + 16 c (c < DC, D <= 16 DC).
-// The running max m, sum l and accumulator of the online softmax stay in
-// f32 registers; the 16 threads of a row (16 neighbouring lanes of one
-// warp) reduce the row max and sum with shuffles in a fixed order.
-// The block visits only the 64-key tiles that meet the band of its rows:
-// keys from q0 - W + 1 (windowed) to q1 - 1 (causal), so a query tile
-// costs O(W + 64) and not O(S), the structure the Pallas index map
-// encodes with its clamped stripes. Per key tile: Q K^T from shared
-// memory (rows padded by one float, no bank conflicts), scale, mask
-// (masked logits -1e30, their probabilities exactly 0, as the reference),
-// rescale by exp(m_old - m_new), P parked in shared memory, acc += P V.
-// Ragged T, S and D are masked and zero-filled in shared memory; nothing
-// is padded in device memory. No atomics: repeated calls are
-// bit-identical. Shared memory is 4 * 64 * (3 D + 67) bytes, 115 KB at
-// D = 128, so one block per SM; raising occupancy is later work.
+// Design: FlashAttention-2 with mma.sync.
+// - Precision. f32: both products in 3xTF32 (tensor_core.cuh): about
+//   2^-22 per product, where one TF32 pass (2^-11) would miss the twin's
+//   3e-5. bf16: Q K^T is one bf16 m16n8k16 mma (products of bf16 values
+//   are exact in f32); P V splits P into bf16 hi + lo, two mmas, V being
+//   exact. Softmax, sums and accumulators are f32.
+// - A block owns one (bh, query tile); each warp owns 16 query rows: 8
+//   warps and 128 rows at D <= 128, 4 warps and 64 rows above. The S tile
+//   and the O accumulator live in mma fragments. The Q tile is staged once
+//   into shared memory and read at each k step: its fragments beside O and
+//   S would spill registers at f32 D = 112 and 128.
+// - A lane reads 8 bytes of each 32-byte k step of a row: the f32 k8
+//   step's logical columns (t, t + 4) are its physical (2t, 2t + 1), the
+//   bf16 k16 step's (2t, 2t + 1, 2t + 8, 2t + 9) its 4t..4t + 3. Q and K
+//   share the permutation, so the dot products are unchanged and a K
+//   fragment is one 8-byte load. In f32 P V the keys of a k step are
+//   permuted the same way, which makes S's accumulator fragment P's A
+//   fragment as it stands; in bf16 the accumulator's pairs pack into it.
+//   P never leaves registers; the row max reduces over the row's quad of
+//   lanes with two shuffles, and each lane keeps its own part of the row
+//   sum until the end (one fixed order).
+// - K and V tiles (64 keys at D <= 128, 16 above) come through a 2-stage
+//   cp.async ring: tile j + 1 is in flight while j computes, and one
+//   __syncthreads() per tile both publishes tile j and frees the stage
+//   that tile j + 1 overwrites. Row pitches make the fragment loads
+//   conflict-free: K (and Q) rows 32 mod 128 bytes apart for the 8-byte
+//   loads (a phase of 16 lanes reads 4 rows), V rows 16 mod 64 bytes
+//   apart for f32's 4-byte loads (rows 2t, 2t + 1) and bf16's
+//   ldmatrix.trans.
+// - Masks only on the band's edge. The wrapper hands the kernel a plan per
+//   query tile, (lo, ilo, ihi, hi) in key tiles (swa_attention.py
+//   band_plan, tested on the CPU against the band's mask): the block
+//   visits [lo, hi), so a query tile costs O(W + 128) and not O(S); tiles
+//   in [ilo, ihi) hold allowed pairs only and run with no mask; the
+//   others (the window's start, the diagonal, a ragged S) mask to -inf.
+//   The running max starts at -1e30, so a masked probability is exactly
+//   0 and a row with no key ends at 0.
+// - Ragged T, S and D are zero-filled in shared memory (D is padded to
+//   the instance's DP), never in device memory. Planes whose
+//   row pitch or base is not 16-byte aligned are staged by plain loads.
+// - No atomics, one fixed order of every sum: repeated calls are
+//   bit-identical. Query tiles run heaviest first within a head.
+// Shared memory per block is rows x K pitch + 2 x keys x (K pitch + V
+// pitch): f32 206,848 B at D = 128 and 182,272 B at D = 112, bf16
+// 108,544 B at D = 128; one block of 8 warps per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;      // queries per block, keys per step
-constexpr int kLdP = kTile + 1;
-constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegBig = -1e30f;   // the running max before any key
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr int divisor_upto8(int n) {
+  return n % 8 == 0 ? 8 : n % 7 == 0 ? 7 : n % 6 == 0 ? 6 : 4;
 }
+
+// One instance per padded head dim DP (a multiple of 16)
+template <typename T, int DP>
+struct Cfg {
+  static constexpr bool kWide = DP > 128;
+  static constexpr int kWarps = kWide ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBq = 16 * kWarps;       // query rows per block
+  static constexpr int kBc = kWide ? 16 : 64;   // keys per tile
+  static constexpr int kStages = 2;
+  static constexpr int kRow = DP * static_cast<int>(sizeof(T));  // bytes
+  static constexpr int kSteps = kRow / 32;      // Q K^T k steps
+  static constexpr int kLdK = kRow % 64 == 0 ? kRow + 32 : kRow;
+  static constexpr int kLdV = kRow + 16;
+  static constexpr int kSt = kBc / 8;           // S n tiles
+  static constexpr int kOt = DP / 8;            // O n tiles
+  static constexpr int kGroup = divisor_upto8(kOt);   // f32 P V B frags
+  static constexpr int kStage = kBc * (kLdK + kLdV);
+  static constexpr int kSmem = kBq * kLdK + kStages * kStage;
+  static_assert(DP % 16 == 0 && kRow % 32 == 0, "DP: a multiple of 16");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+template <typename T> struct Bits;
+template <> struct Bits<float> { using type = uint32_t; };
+template <> struct Bits<__nv_bfloat16> { using type = uint16_t; };
+
+__device__ __forceinline__ uint2 lds64(const unsigned char* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Four 8 x 8 b16 matrices, transposed: lane l names row l % 8 of matrix
+// l / 8; r[i] is matrix i's fragment
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const unsigned char* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// d += a b, one m16n8k16 bf16 product with f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// (x, y) = hi + lo, each a bf16 pair (x in the low half)
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T, int DC>
-__global__ void __launch_bounds__(kThreads)
-swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int64_t t,
-                     int64_t s, int d, int64_t window, int causal,
-                     float scale, int64_t q_tiles) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* qs = smem;                      // [kTile][d + 1]
-  float* ks = qs + kTile * ld;           // [kTile][d + 1]
-  float* vs = ks + kTile * ld;           // [kTile][d]
-  float* ps = vs + kTile * d;            // [kTile][kLdP]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int64_t bh = blockIdx.x / q_tiles;
-  const int64_t q0 = (blockIdx.x % q_tiles) * kTile;
-  const int64_t q1 = q0 + kTile < t ? q0 + kTile : t;   // exclusive
-  const T* qg = q + bh * t * d;
-  const T* kg = k + bh * s * d;
-  const T* vg = v + bh * s * d;
-
-  for (int r = ty; r < kTile; r += 16) {
-    for (int col = tx; col < d; col += 16) {
-      qs[r * ld + col] = q0 + r < t ? to_f32(qg[(q0 + r) * d + col]) : 0.f;
+// Stage rows [r0, r0 + rows) of an (n, d) plane into shared memory (row
+// pitch ld bytes, DP columns); rows >= n and columns >= d are 0. With
+// `async` (row pitch and base 16-byte aligned) by 16-byte cp.async, else
+// by plain loads and stores.
+template <typename T, int DP, int kThreads>
+__device__ __forceinline__ void stage(unsigned char* dst, int ld,
+                                      const T* src, int64_t r0, int rows,
+                                      int64_t n, int d, bool async) {
+  const int64_t left = n - r0;
+  const int rv = left <= 0 ? 0 : left < rows ? static_cast<int>(left) : rows;
+  if (async) {
+    constexpr int kChunks = DP * static_cast<int>(sizeof(T)) / 16;
+    const int bytes = d * static_cast<int>(sizeof(T));
+    const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+    for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const int valid = r < rv ? min(max(bytes - 16 * c, 0), 16) : 0;
+      const unsigned char* g = valid ? s + (r0 + r) * bytes + 16 * c : s;
+      tc::cp_async16(dst + r * ld + 16 * c, g, valid);
     }
-  }
-
-  // the keys that meet the band of rows [q0, q1): [lo, hi)
-  int64_t lo = 0, hi = s;
-  if (window >= 0 && q0 - window + 1 > 0) lo = q0 - window + 1;
-  if (causal && q1 < hi) hi = q1;
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int64_t j0 = lo / kTile * kTile; j0 < hi; j0 += kTile) {
-    __syncthreads();            // qs is loaded; the last ks, vs, ps consumed
-    for (int r = ty; r < kTile; r += 16) {
-      const bool ok = j0 + r < s;
-      for (int col = tx; col < d; col += 16) {
-        ks[r * ld + col] = ok ? to_f32(kg[(j0 + r) * d + col]) : 0.f;
-        vs[r * d + col] = ok ? to_f32(vg[(j0 + r) * d + col]) : 0.f;
-      }
-    }
-    __syncthreads();
-
-    float sc[4][4] = {};
-    for (int kk = 0; kk < d; ++kk) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qv[r] = qs[(ty + 16 * r) * ld + kk];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) kv[u] = ks[(tx + 16 * u) * ld + kk];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) sc[r][u] = fmaf(qv[r], kv[u], sc[r][u]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int64_t qi = q0 + ty + 16 * r;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int64_t kj = j0 + tx + 16 * u;
-        ok[u] = kj < s && qi < t && (!causal || kj <= qi) &&
-                (window < 0 || kj > qi - window);
-        sc[r][u] = ok[u] ? sc[r][u] * scale : kNegInf;
-        mx = fmaxf(mx, sc[r][u]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(m[r], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float pv = ok[u] ? expf(sc[r][u] - m_new) : 0.f;
-        ps[(ty + 16 * r) * kLdP + tx + 16 * u] = pv;
-        sum += pv;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      }
-      const float alpha = expf(m[r] - m_new);
-      l[r] = alpha * l[r] + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
-    }
-    __syncthreads();
-
-    for (int jj = 0; jj < kTile; ++jj) {
-      float pv[4], vv[DC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pv[r] = ps[(ty + 16 * r) * kLdP + jj];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + 16 * c;
-        vv[c] = col < d ? vs[jj * d + col] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pv[r], vv[c], acc[r][c]);
-      }
-    }
-  }
-
-  T* og = out + bh * t * d;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int64_t qi = q0 + ty + 16 * r;
-    if (qi >= t) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) store(&og[qi * d + col], acc[r][c] / denom);
+  } else {
+    using B = typename Bits<T>::type;
+    const B* s = reinterpret_cast<const B*>(src);
+    for (int i = threadIdx.x; i < rows * DP; i += kThreads) {
+      const int r = i / DP, c = i % DP;
+      reinterpret_cast<B*>(dst + r * ld)[c] =
+          r < rv && c < d ? s[(r0 + r) * d + c] : B(0);
     }
   }
 }
 
-template <typename T, int DC>
-int launch(const void* q, const void* k, const void* v, void* out,
-           int64_t bh, int64_t t, int64_t s, int d, int64_t window,
-           int causal, float scale, cudaStream_t st) {
-  const int64_t q_tiles = (t + kTile - 1) / kTile;
-  const size_t smem =
-      sizeof(float) * (2 * kTile * (d + 1) + kTile * d + kTile * kLdP);
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  const int4* plan;
+  int64_t bh, t, s, window;
+  int d, causal, block_q, block_k;
+  float scale;
+  bool async;
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(Cfg<T, DP>::kThreads, 1)
+swa_attention_kernel(Args a, int q_tiles) {
+  using C = Cfg<T, DP>;
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* qs = smem + C::kStages * C::kStage;   // the Q tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int64_t bh = blockIdx.x / q_tiles;
+  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x % q_tiles);
+  const int4 pl = a.plan[qt];              // lo, ilo, ihi, hi
+  const int64_t t = a.t, s = a.s, window = a.window;
+  const int d = a.d;
+  const int64_t q0 = static_cast<int64_t>(qt) * C::kBq;
+  const T* qg = static_cast<const T*>(a.q) + bh * t * d;
+  const T* kg = static_cast<const T*>(a.k) + bh * s * d;
+  const T* vg = static_cast<const T*>(a.v) + bh * s * d;
+
+  auto stage_kv = [&](int j) {
+    unsigned char* st = smem + ((j - pl.x) % C::kStages) * C::kStage;
+    const int64_t k0 = static_cast<int64_t>(j) * C::kBc;
+    stage<T, DP, C::kThreads>(st, C::kLdK, kg, k0, C::kBc, s, d, a.async);
+    stage<T, DP, C::kThreads>(st + C::kBc * C::kLdK, C::kLdV, vg, k0,
+                              C::kBc, s, d, a.async);
+  };
+  if (pl.x < pl.w) {
+    stage<T, DP, C::kThreads>(qs, C::kLdK, qg, q0, C::kBq, t, d, a.async);
+    stage_kv(pl.x);
+  }
+  tc::cp_commit();
+
+  // this lane's rows of the warp's 16: row0 and row0 + 8
+  const int64_t row0 = q0 + 16 * warp + g;
+  const unsigned char* qw = qs + (16 * warp + g) * C::kLdK + 8 * tq;
+
+  float o[C::kOt][4];
+#pragma unroll
+  for (int n = 0; n < C::kOt; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+
+  for (int j = pl.x; j < pl.w; ++j) {
+    tc::cp_wait<0>();
+    __syncthreads();    // tile j is in; every warp is done with j - 1
+    if (j + 1 < pl.w) stage_kv(j + 1);
+    tc::cp_commit();
+    const unsigned char* ks = smem + ((j - pl.x) % C::kStages) * C::kStage;
+    const unsigned char* vs = ks + C::kBc * C::kLdK;
+
+    // S = Q K^T: n tile n holds keys 8n..8n+7 of the tile
+    float sc[C::kSt][4];
+#pragma unroll
+    for (int n = 0; n < C::kSt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int st = 0; st < C::kSteps; ++st) {
+      const uint2 x = lds64(qw + 32 * st), y = lds64(qw + 32 * st +
+                                                     8 * C::kLdK);
+      const uint32_t af[4] = {x.x, y.x, x.y, y.y};
+      const unsigned char* kp = ks + g * C::kLdK + 32 * st + 8 * tq;
+      if constexpr (kF32) {
+        uint32_t ah[4], al[4], bh[C::kSt][2], bl[C::kSt][2];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tc::split(__uint_as_float(af[e]), ah[e],
+                                              al[e]);
+#pragma unroll
+        for (int n = 0; n < C::kSt; ++n) {
+          const uint2 b = lds64(kp + 8 * n * C::kLdK);
+          tc::split(__uint_as_float(b.x), bh[n][0], bl[n][0]);
+          tc::split(__uint_as_float(b.y), bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < C::kSt; ++n) tc::mma(sc[n], al, bh[n]);
+#pragma unroll
+        for (int n = 0; n < C::kSt; ++n) tc::mma(sc[n], ah, bl[n]);
+#pragma unroll
+        for (int n = 0; n < C::kSt; ++n) tc::mma(sc[n], ah, bh[n]);
+      } else {
+#pragma unroll
+        for (int n = 0; n < C::kSt; ++n) {
+          const uint2 b = lds64(kp + 8 * n * C::kLdK);
+          const uint32_t bf[2] = {b.x, b.y};
+          mma_bf16(sc[n], af, bf);
+        }
+      }
+    }
+
+    // scale; mask on the band's edge; online softmax. sc[n][e] is row
+    // row0 + 8 (e / 2), key k0 + 8 n + 2 tq + e % 2
+#pragma unroll
+    for (int n = 0; n < C::kSt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] *= a.scale;
+    if (j < pl.y || j >= pl.z) {
+      const int64_t k0 = static_cast<int64_t>(j) * C::kBc;
+#pragma unroll
+      for (int n = 0; n < C::kSt; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t qi = row0 + 8 * (e >> 1);
+          const int64_t kj = k0 + 8 * n + 2 * tq + (e & 1);
+          const bool ok = kj < s && (!a.causal || kj <= qi) &&
+                          (window < 0 || kj > qi - window);
+          if (!ok) sc[n][e] = __int_as_float(0xff800000);   // -inf
+        }
+      }
+    }
+    float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+    for (int n = 0; n < C::kSt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f((m[r] - mn) * kLog2e);
+      m[r] = mn;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < C::kSt; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((sc[n][e] - m[e >> 1]) * kLog2e);
+        sc[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < C::kOt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+
+    // O += P V
+    if constexpr (kF32) {
+#pragma unroll
+      for (int k8 = 0; k8 < C::kSt; ++k8) {   // keys 8 k8 + {2 tq, 2 tq + 1}
+        const float pa[4] = {sc[k8][0], sc[k8][2], sc[k8][1], sc[k8][3]};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tc::split(pa[e], ah[e], al[e]);
+        const unsigned char* vp = vs + (8 * k8 + 2 * tq) * C::kLdV + 4 * g;
+#pragma unroll
+        for (int n0 = 0; n0 < C::kOt; n0 += C::kGroup) {
+          uint32_t bh[C::kGroup][2], bl[C::kGroup][2];
+#pragma unroll
+          for (int i = 0; i < C::kGroup; ++i) {
+            const unsigned char* p = vp + 32 * (n0 + i);
+            tc::split(__uint_as_float(lds32(p)), bh[i][0], bl[i][0]);
+            tc::split(__uint_as_float(lds32(p + C::kLdV)), bh[i][1],
+                      bl[i][1]);
+          }
+#pragma unroll
+          for (int i = 0; i < C::kGroup; ++i) tc::mma(o[n0 + i], al, bh[i]);
+#pragma unroll
+          for (int i = 0; i < C::kGroup; ++i) tc::mma(o[n0 + i], ah, bl[i]);
+#pragma unroll
+          for (int i = 0; i < C::kGroup; ++i) tc::mma(o[n0 + i], ah, bh[i]);
+        }
+      }
+    } else {
+      // ldmatrix rows: key 16 k16 + 8 (mat % 2) + lane % 8, columns from
+      // 16 np + 8 (mat / 2), mat = lane / 8
+      const unsigned char* vl = vs + (8 * ((lane >> 3) & 1) + (lane & 7)) *
+                                         C::kLdV + 16 * (lane >> 4);
+#pragma unroll
+      for (int k16 = 0; k16 < C::kBc / 16; ++k16) {
+        uint32_t ah[4], al[4];
+        split_bf16(sc[2 * k16][0], sc[2 * k16][1], ah[0], al[0]);
+        split_bf16(sc[2 * k16][2], sc[2 * k16][3], ah[1], al[1]);
+        split_bf16(sc[2 * k16 + 1][0], sc[2 * k16 + 1][1], ah[2], al[2]);
+        split_bf16(sc[2 * k16 + 1][2], sc[2 * k16 + 1][3], ah[3], al[3]);
+#pragma unroll
+        for (int np = 0; np < C::kOt / 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, vl + 16 * k16 * C::kLdV + 32 * np);
+          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+          mma_bf16(o[2 * np], al, b0);
+          mma_bf16(o[2 * np + 1], al, b1);
+          mma_bf16(o[2 * np], ah, b0);
+          mma_bf16(o[2 * np + 1], ah, b1);
+        }
+      }
+    }
+  }
+
+  T* og = static_cast<T*>(a.out) + bh * t * d;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int64_t qi = row0 + 8 * r;
+    if (qi >= t) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    T* orow = og + qi * d;
+#pragma unroll
+    for (int n = 0; n < C::kOt; ++n) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * tq + c;
+        if (col < d) store(&orow[col], o[n][2 * r + c] / denom);
+      }
+    }
+  }
+}
+
+template <typename T, int DP>
+int launch(const Args& a, cudaStream_t st) {
+  using C = Cfg<T, DP>;
+  if (a.block_q != C::kBq || a.block_k != C::kBc) {
+    return static_cast<int>(cudaErrorInvalidValue);   // plan for other tiles
+  }
+  const int64_t q_tiles = (a.t + C::kBq - 1) / C::kBq;
+  if (a.bh * q_tiles > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      swa_attention_kernel<T, DC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      swa_attention_kernel<T, DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  swa_attention_kernel<T, DC>
-      <<<static_cast<unsigned int>(bh * q_tiles), kThreads, smem, st>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), t, s, d, window,
-          causal, scale, q_tiles);
+  swa_attention_kernel<T, DP>
+      <<<static_cast<unsigned int>(a.bh * q_tiles), C::kThreads, C::kSmem,
+         st>>>(a, static_cast<int>(q_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
+// The padded head dims (swa_attention.py HEAD_DIMS)
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             int64_t bh, int64_t t, int64_t s, int d, int64_t window,
-             int causal, float scale, cudaStream_t st) {
-  if (d <= 64) {
-    return launch<T, 4>(q, k, v, out, bh, t, s, d, window, causal, scale,
-                        st);
-  }
-  if (d <= 128) {
-    return launch<T, 8>(q, k, v, out, bh, t, s, d, window, causal, scale,
-                        st);
-  }
-  return launch<T, 16>(q, k, v, out, bh, t, s, d, window, causal, scale, st);
+int dispatch(const Args& a, cudaStream_t st) {
+  if (a.d <= 32) return launch<T, 32>(a, st);
+  if (a.d <= 64) return launch<T, 64>(a, st);
+  if (a.d <= 96) return launch<T, 96>(a, st);
+  if (a.d <= 112) return launch<T, 112>(a, st);
+  if (a.d <= 128) return launch<T, 128>(a, st);
+  return launch<T, 256>(a, st);
 }
 
 }  // namespace
 
 // q: (bh, t, d); k, v: (bh, s, d); out: (bh, t, d); row-major, dtype
-// 0 = f32, 1 = bf16. window < 0 means no window. Launches on `stream`,
-// allocates nothing, returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a shape the kernel does not take).
+// 0 = f32, 1 = bf16. window < 0 means no window. plan: int32
+// (ceil(t / block_q), 4), 16-byte aligned, per query tile (lo, ilo, ihi,
+// hi) in key tiles of block_k (swa_attention.py band_plan); block_q and
+// block_k must be the instance's tiles for d (swa_attention.py tiles).
+// Launches on `stream`, allocates nothing, returns cudaGetLastError() (or
+// cudaErrorInvalidValue for a shape or plan the kernel does not take).
 extern "C" int repro_swa_attention(const void* q, const void* k,
                                    const void* v, void* out, int64_t bh,
                                    int64_t t, int64_t s, int64_t d,
                                    int64_t window, int causal, float scale,
-                                   int dtype, void* stream) {
-  if (bh < 1 || t < 1 || s < 1 || d < 1 || d > 256 ||
-      bh * ((t + kTile - 1) / kTile) > 2147483647LL) {
+                                   int dtype, const void* plan, int block_q,
+                                   int block_k, void* stream) {
+  if (bh < 1 || t < 1 || s < 1 || d < 1 || d > 256 || block_q < 1 ||
+      block_k < 1 || s / block_k >= 2147483647LL ||
+      reinterpret_cast<uintptr_t>(plan) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int size = dtype == 1 ? 2 : 4;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  Args a{q, k, v, out, static_cast<const int4*>(plan), bh, t, s, window,
+         static_cast<int>(d), causal, block_q, block_k, scale,
+         (d * size) % 16 == 0 && bases % 16 == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int di = static_cast<int>(d);
-  if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(q, k, v, out, bh, t, s, di, window,
-                                   causal, scale, st);
-  }
-  return dispatch<float>(q, k, v, out, bh, t, s, di, window, causal, scale,
-                         st);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(a, st);
+  return dispatch<float>(a, st);
 }

@@ -379,6 +379,20 @@ def _swa_case(dev, bh, t, s, d, dtype, seed):
             for n in (t, s, s)]
 
 
+# The tensor-core kernel's branches (T, S, D, W, causal): every instance's
+# head dim (16 to 256; D = 33 and 40 have row pitches that are no 16-byte
+# multiple in one or both dtypes and take plain loads), ragged T and S both
+# ways, windows around the 64-key tile and beyond T, a query tile of edge
+# tiles only (T = 64, no window), rows with no key (W = 0; T > S with a
+# window), causal off with a window.
+SWA_BRANCHES = ((64, 64, 16, 1, True), (129, 200, 33, 63, True),
+                (200, 129, 40, 64, True), (257, 257, 64, 65, True),
+                (300, 280, 112, 1000, True), (190, 300, 128, 64, False),
+                (64, 64, 128, None, True), (170, 100, 64, 20, True),
+                (65, 70, 32, 0, True), (200, 180, 256, 63, True),
+                (130, 130, 200, 65, False), (100, 100, 96, None, False))
+
+
 @pytest.mark.parametrize("t,s,d,window,causal", [
     (128, 128, 64, None, True), (200, 200, 32, 64, True),
     (256, 256, 64, 96, True), (256, 256, 128, 128, True),
@@ -388,7 +402,7 @@ def _swa_case(dev, bh, t, s, d, dtype, seed):
     # a windowed encoder, the widest head, an empty band
     (300, 300, 112, 100, True), (100, 170, 48, 40, True),
     (150, 150, 40, 33, False), (70, 70, 256, None, True),
-    (65, 65, 32, 0, True)])
+    (65, 65, 32, 0, True)] + list(SWA_BRANCHES))
 def test_swa_attention_kernel_matches_twin(cuda, t, s, d, window, causal):
     from repro_torch.kernels import swa_attention as sw
     q, k, v = _swa_case(cuda, 3, t, s, d, torch.float32, t + s + d)
@@ -402,14 +416,34 @@ def test_swa_attention_kernel_matches_twin(cuda, t, s, d, window, causal):
                                                   causal=causal))
 
 
-def test_swa_attention_kernel_bf16(cuda):
+@pytest.mark.parametrize("t,s,d,window,causal",
+                         [(128, 128, 64, 64, True)] + list(SWA_BRANCHES))
+def test_swa_attention_kernel_bf16(cuda, t, s, d, window, causal):
     from repro_torch.kernels import swa_attention as sw
-    q, k, v = _swa_case(cuda, 2, 128, 128, 64, torch.bfloat16, 7)
-    got = sw.swa_attention_cuda(q, k, v, window=64)
+    q, k, v = _swa_case(cuda, 2, t, s, d, torch.bfloat16, 7 + t + d)
+    got = sw.swa_attention_cuda(q, k, v, window=window, causal=causal)
     assert got.dtype == torch.bfloat16
-    want = sw.swa_attention_plain(q, k, v, window=64)
+    want = sw.swa_attention_plain(q, k, v, window=window, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
                                atol=3e-2)
+    assert torch.equal(got, sw.swa_attention_cuda(q, k, v, window=window,
+                                                  causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_attention_kernel_unaligned_planes(cuda, dtype):
+    """k and v one element past 16-byte alignment (a pitch that is a 16-byte
+    multiple): the kernel stages them by plain loads, with the same result
+    as aligned copies."""
+    from repro_torch.kernels import swa_attention as sw
+    q, k, v = _swa_case(cuda, 2, 150, 150, 128, dtype, 11)
+    ks, vs = (torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:]
+              .view(x.shape) for x in (k, v))
+    ks.copy_(k)
+    vs.copy_(v)
+    assert ks.data_ptr() % 16 and ks.is_contiguous()
+    got = sw.swa_attention_cuda(q, ks, vs, window=70)
+    assert torch.equal(got, sw.swa_attention_cuda(q, k, v, window=70))
 
 
 def test_swa_attention_gqa_route(cuda):

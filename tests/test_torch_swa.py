@@ -141,3 +141,118 @@ def test_swa_twin_windowed_bidirectional_matches_reference_oracle(t, s, d,
                                   interpret=True)
     # the known disagreement between the reference's kernel and its oracle
     assert np.abs(np.asarray(pallas) - np.asarray(want)).max() > 0.1
+
+
+# The band plan the CUDA kernel reads (band_plan), held against band_mask:
+# T != S and ragged T and S, windows around the 64-key tile (and 0, where no
+# row has a key, and W > T), causal on and off, at both tile shapes the
+# kernel instantiates (tiles()).
+PLAN_TS = [(130, 130), (100, 170), (170, 100), (256, 256), (65, 300)]
+PLAN_WINDOWS = [None, 0, 1, 63, 64, 65, 1000]
+KERNEL_TILES = sorted({sw.tiles(d)[1:] for d in range(1, 257)})
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", PLAN_WINDOWS)
+@pytest.mark.parametrize("t,s", PLAN_TS)
+def test_band_plan_matches_band_mask(t, s, window, causal):
+    mask = sw.band_mask(t, s, window, causal, "cpu")
+    for block_q, block_k in KERNEL_TILES:
+        plan = sw.band_plan(t, s, window, causal, block_q, block_k)
+        assert plan.dtype == torch.int32
+        assert tuple(plan.shape) == (-(-t // block_q), 4)
+        covered = torch.zeros_like(mask)
+        for qt, (lo, ilo, ihi, hi) in enumerate(plan.tolist()):
+            assert lo <= ilo <= ihi <= hi
+            rows = slice(qt * block_q, (qt + 1) * block_q)
+            for j in range(-(-s // block_k)):
+                keys = slice(j * block_k, (j + 1) * block_k)
+                tile = mask[rows, keys]
+                if lo <= j < hi:
+                    covered[rows, keys] = True
+                    # no visited tile is empty: the cost is the band's
+                    assert tile.any()
+                else:
+                    assert not tile.any(), (qt, j)
+                if ilo <= j < ihi:
+                    assert (j + 1) * block_k <= s and tile.all(), (qt, j)
+        # every allowed pair lies in a visited tile
+        assert not (mask & ~covered).any()
+
+
+def test_band_plan_edges_at_the_main_shape():
+    """T = S = 8192, W = 4096, causal, the f32 D = 128 tiles: a query tile
+    visits at most 66 key tiles, of which at most 4 carry a mask (two at the
+    window's start, two on the diagonal); the first tile has edges only."""
+    _, block_q, block_k = sw.tiles(128)
+    plan = sw.band_plan(8192, 8192, 4096, True, block_q, block_k)
+    lo, ilo, ihi, hi = plan.T
+    assert int((hi - lo).max()) == 66
+    assert int(((hi - lo) - (ihi - ilo)).max()) == 4
+    assert plan[0].tolist() == [0, 0, 0, 2]
+
+
+def test_tiles_cover_every_head_dim():
+    for d in range(1, sw.MAX_HEAD_DIM + 1):
+        dp, block_q, block_k = sw.tiles(d)
+        assert dp in sw.HEAD_DIMS and d <= dp and dp % 16 == 0
+        assert block_q % 16 == 0 and block_k % 16 == 0
+
+
+# 3xTF32 in plain torch, the kernel's f32 precision scheme: hi rounds to
+# TF32 with ties away from zero (cvt.rna), by integer ops on the f32 bits;
+# the tensor cores read lo = x - hi truncated to TF32; a product is
+# lo * hi + hi * lo + hi * hi.
+def _tf32_rna(x):
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(x):
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention_tf32(q, k, v, window, causal, passes):
+    mask = sw.band_mask(q.shape[1], k.shape[1], window, causal, "cpu")
+    logits = _mm_tf32(q, k.transpose(1, 2), passes)
+    logits.mul_(torch.tensor(1.0 / q.shape[-1] ** 0.5, dtype=torch.float32))
+    logits.masked_fill_(~mask, sw.NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    probs.masked_fill_(~mask.any(-1, keepdim=True), 0.0)
+    return _mm_tf32(probs, v, passes)
+
+
+def test_tf32_rounding_is_ties_away_from_zero():
+    # 1 + 2^-11 lies halfway between two TF32 values: up, and down for -x
+    x = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 3.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + 2**-10, -(1 + 2**-10), 1.0, 3.0])
+    assert torch.equal(_tf32_rna(x), want)
+    lo = x - _tf32_rna(x)
+    assert torch.equal(_tf32_rna(x) + lo, x)
+
+
+@pytest.mark.parametrize("amp", [1.0, 2.0])
+@pytest.mark.parametrize("t,s,d,window,causal", [
+    case[:5] for case in SWEEP] + [(256, 256, 112, 128, True),
+                                   (100, 170, 48, 40, True)])
+def test_3xtf32_attention_within_the_kernel_tolerance(t, s, d, window,
+                                                      causal, amp):
+    """The f32 kernel's products in 3xTF32 (emulated) stay within 3e-5 of
+    the twin at the sweep's shapes and zamba2's D = 112, for q, k, v of
+    scale 1 and 2; one TF32 pass does not."""
+    rng = np.random.default_rng(t + s + d)
+    q, k, v = (torch.from_numpy((amp * rng.normal(size=(3, n, d))).astype(
+        np.float32)) for n in (t, s, s))
+    want = sw.swa_attention_plain(q, k, v, window=window, causal=causal)
+    got = _attention_tf32(q, k, v, window, causal, passes=3)
+    torch.testing.assert_close(got, want, **TOL)
+    one_pass = _attention_tf32(q, k, v, window, causal, passes=1)
+    assert float((one_pass - want).abs().max()) > 1e-4
