@@ -98,7 +98,8 @@ SWA_SWEEP = ((128, 128, 64, None, True), (200, 200, 32, 64, True),
              (256, 256, 64, 96, True), (256, 256, 128, 128, True),
              (64, 64, 16, None, False), (96, 96, 64, 32, True),
              (130, 130, 64, 64, True))
-# the tensor-core kernel's branches (T, S, D, W, causal), f32 and bf16:
+# the tensor-core kernel's branches (T, S, D, W, causal), f32 and bf16
+# (the same list as tests/test_torch_cuda.py's SWA_BRANCHES: change both):
 # every instance's head dim (16 to 256; 33 and 40 with pitches that are no
 # 16-byte multiple), ragged T and S both ways, windows around the 64-key
 # tile and beyond T, a query tile of edge tiles only (T = 64, no window),
@@ -1332,8 +1333,12 @@ def swa_time(dev, name, dtype, flush, bw, flops, tf32):
     once. Bounds: the operations in f32 on the CUDA cores, and the kernel's
     passes on the tensor cores (f32: three TF32 passes of both products;
     bf16: one pass of Q K^T and two of P V at the bf16 rate, twice TF32's on
-    every card of CARDS); bound_ms is the first for f32 inputs and, for
-    bf16, one pass of each product at the bf16 rate."""
+    every card of CARDS). bound_ms is the fastest f32-accurate form on the
+    card: for f32 inputs three TF32 passes of each product, for bf16 one
+    pass of each at the bf16 rate. Raises where the kernel is off the twin:
+    f32 by more than 3e-5; bf16 by more than half a bf16 step of the twin's
+    f32 value (2^-8 of it) plus 1e-4, far under a typical output (about
+    0.025 here), where the twin's 3e-2 would pass any answer."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import swa_attention as sw
@@ -1349,7 +1354,7 @@ def swa_time(dev, name, dtype, flush, bw, flops, tf32):
     cuda_ms = nops / flops * 1e3
     if dtype == torch.float32:
         tensor_ms = 3 * nops / tf32 * 1e3
-        bound = _bound(nbytes, nops, bw, flops)
+        bound = _bound(nbytes, 3 * nops, bw, tf32)
     else:
         tensor_ms = (2 * d * pairs + 2 * 2 * d * pairs) / bf16 * 1e3
         bound = _bound(nbytes, nops, bw, bf16)
@@ -1362,16 +1367,27 @@ def swa_time(dev, name, dtype, flush, bw, flops, tf32):
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
-    got = sw.swa_attention_cuda(qf, kf, vf, window=SWA_WINDOW)
-    err = float((got.float() - sw.swa_attention_plain(
-        qf, kf, vf, window=SWA_WINDOW).float()).abs().max())
-    lib_err = float((library().view(h, t, d).float()
-                     - got.float()).abs().max())
-    del got
+    got = sw.swa_attention_cuda(qf, kf, vf, window=SWA_WINDOW).float()
+    # the twin in f32 on the same inputs: rounded to q's dtype, it is
+    # swa_attention_plain(qf, kf, vf)
+    want = sw.swa_attention_plain(qf.float(), kf.float(), vf.float(),
+                                  window=SWA_WINDOW)
+    err = float((got - want.to(dtype).float()).abs().max())
+    off = (got - want).abs()
+    if dtype != torch.float32:
+        off.sub_(2.0 ** -8 * want.abs())
+    limit = 3e-5 if dtype == torch.float32 else 1e-4
+    excess = float(off.max())
+    if excess > limit:
+        raise AssertionError(f"swa_attention {name} {dtype}: {excess} off "
+                             f"the twin (limit {limit})")
+    lib_err = float((library().view(h, t, d).float() - got).abs().max())
+    del got, want, off
     rec = {
         "model": name, "shape": [h, t, d], "kv_heads": hkv,
         "window": SWA_WINDOW, "dtype": str(dtype).split(".")[-1],
-        "max_abs_err": err,
+        "max_abs_err": err, "max_off_twin_beyond_rounding": excess,
+        "off_twin_limit": limit,
         "ms": time_ms(lambda: sw.swa_attention_cuda(qf, kf, vf,
                                                     window=SWA_WINDOW),
                       flush),
@@ -1593,6 +1609,7 @@ def main() -> int:
             "dtype": "float32"})
         if kname == "swa_attention":
             kernels[-1].update(
+                bound_cuda_cores_ms=t["bound_cuda_cores_ms"],
                 bound_tensor_cores_ms=t["bound_tensor_cores_ms"],
                 other_shapes=[{k: o[k] for k in (
                     "model", "shape", "dtype", "max_abs_err", "ms",
