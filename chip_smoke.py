@@ -10,6 +10,12 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
 
 - the fused PAOTA round through ``FusedPAOTA.advance`` (100 rounds per
   transmit mode, and K = 1000);
+- every knob of the fused round: the pytree carry (``params_mode=
+  "pytree"``, both sweeps launched once per leaf, 100 rounds per mode, held
+  against the raveled run), the bf16 carry (``pending_dtype="bfloat16"``,
+  100 rounds per mode), fault injection with screening, the norm fence and
+  the divergence rollback (``faults``), and checkpoint/resume bit for bit
+  (dense f32, dense bf16 with rollback, the compressed int8 cohort);
 - the host-path ``PAOTAServer`` (30 rounds without and 30 with
   ``use_kernel``, the ``aircomp_sum`` kernel's route), held against the
   fused round on the same counter draws;
@@ -33,7 +39,9 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   through the prefill step, 64 greedy decode steps, prefill -> decode
   continuity against a full forward, and a 300-token prompt.
 
-It times the seven kernels and prints one JSON record per phase. Its last
+It times the seven kernels (the two sweeps also in bf16 and as the
+pytree carry's six per-leaf launches) and prints one JSON record per
+phase. Its last
 three lines are the ``kernels`` record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line; without a GPU, or outside a checkout, it exits 2 at once.
@@ -46,6 +54,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -64,10 +73,12 @@ CARDS = (("H200", 4.8e12, 67e12, 495e12),
          ("H100", 3.35e12, 67e12, 495e12))
 
 # the sweeps' parity shapes (K, D): odd D, D = 8070 (float2 loads), D % 8 ==
-# 0 (16-byte loads), several passes per row in sweep 1 (K = 1, D = 20000)
-# and several rounds of row loads per warp in sweep 2 (K = 1000, D = 511)
+# 0 (16-byte loads), several passes per row in sweep 1 (K = 1, D = 20000),
+# several rounds of row loads per warp in sweep 2 (K = 1000, D = 511), and
+# the pytree carry's leaf widths of the paper's MLP (10, 100, 7840)
 PARITY_SHAPES = ((1, 1), (3, 511), (64, 8191), (100, 8070), (100, 8192),
-                 (1000, 8070), (1, 20000), (1000, 511))
+                 (1000, 8070), (1, 20000), (1000, 511), (100, 10),
+                 (100, 100), (100, 7840))
 MAIN_ROUNDS = 100
 SCALE_ROUNDS = 20
 HOST_ROUNDS = 30
@@ -297,9 +308,13 @@ def gather_superpose_parity(dev, main_err):
 # phase 4/5: the main path
 # ---------------------------------------------------------------------------
 
-def run_path(dev, data, *, k, sizes, transmit, rounds, tag):
+def run_path(dev, data, *, k, sizes, transmit, rounds, tag, leaves=1,
+             compare=None, **knobs):
     """Drive FusedPAOTA.advance for ``rounds`` rounds with the launch
-    counters set to 0 just before and read just after."""
+    counters set to 0 just before and read just after; ``knobs`` go to
+    FusedPAOTA, and each sweep must launch ``leaves`` times a round (6 for
+    the MLP's pytree carry). ``compare(drv)`` returns more (fields,
+    checks) for the record."""
     from repro_torch.core import ChannelConfig, SchedulerConfig
     from repro_torch.data.partition import partition_noniid
     from repro_torch.data.pipeline import build_federation
@@ -318,7 +333,7 @@ def run_path(dev, data, *, k, sizes, transmit, rounds, tag):
                                      lat_hi=15.0, seed=1),
                      PAOTAConfig(omega=3.0, smooth_l=10.0, eps_bound=0.05,
                                  transmit=transmit, seed=0),
-                     device=dev)
+                     device=dev, **knobs)
     test = {"x": torch.as_tensor(xt, device=dev),
             "y": torch.as_tensor(yt, device=dev).long()}
     acc0 = float(mlp_accuracy(drv.global_params(), test))
@@ -341,9 +356,15 @@ def run_path(dev, data, *, k, sizes, transmit, rounds, tag):
         "some_uploaders": any(r["n_participants"] > 0 for r in rows),
         "some_staleness": any(r["mean_staleness"] > 0 for r in rows),
         "accuracy_rose": acc > acc0,
-        "launches_equal_rounds": all(v == rounds for v in launches.values()),
+        "launches_equal_rounds": all(v == leaves * rounds
+                                     for v in launches.values()),
     }
-    rec = {"phase": tag, "transmit": transmit, "clients": k,
+    if compare is not None:
+        fields, more = compare(drv)
+        checks.update(more)
+    else:
+        fields = {}
+    rec = {"phase": tag, "transmit": transmit, "clients": k, **knobs,
            "model_dim": drv.d, "rounds": rounds,
            "ms_per_round": (t2 - t0) * 1e3 / rounds,
            "ms_per_round_after_warmup": (t2 - t1) * 1e3 / (rounds - warm),
@@ -351,12 +372,333 @@ def run_path(dev, data, *, k, sizes, transmit, rounds, tag):
            "mean_participants": float(np.mean([r["n_participants"]
                                                for r in rows])),
            "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
-           "launches": launches, "checks": checks}
+           "launches": launches, **fields, "checks": checks}
     log(rec)
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{tag} transmit={transmit}: failed {failed}")
     return rec, drv
+
+
+# ---------------------------------------------------------------------------
+# phases 5b-5e: the pytree carry, the bf16 carry, faults, checkpoint/resume
+# ---------------------------------------------------------------------------
+
+def plane_bytes(carry) -> int:
+    """Bytes of the carry's (K, ...) planes: pending (when carried) and the
+    deltas, every leaf of them."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for plane in (carry.pending, carry.deltas) if plane is not None
+               for t in tree_leaves(plane))
+
+
+# pytree against raveled after MAIN_ROUNDS rounds: model transmit at
+# tests/test_pytree_round.py:125's tolerance; delta transmit at the fused
+# round's standing delta tolerance (ROADMAP Queue 3 item 1: its water-filling
+# carries sqrt(eps_f32) into the weights, and the leaf-order sums of sweep 1
+# move it)
+PYTREE_TOL = {"model": dict(rtol=1e-4, atol=1e-5),
+              "delta": dict(rtol=1e-4, atol=5e-5)}
+
+
+def carry_parity(drv) -> dict:
+    """Both sweeps on the run's own carry, leaf by leaf, at the shapes and
+    dtypes the path gave them: the CUDA kernel against its plain version
+    on the same inputs (sweep 1 on the deltas with and without the
+    payload and on the direction w_g - w_g^prev; sweep 2 on the payload
+    with seeded powers, a half mask and the leaf's slice of one noise
+    draw), at ``_tol``. Returns each kernel's largest error; raises when
+    one disagrees. These launches come after the path's counters were
+    read."""
+    from repro_torch.core.aggregation import stacked_tree_noise
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.tree import tree_leaves, tree_map
+    carry = drv._carry
+    payload = carry.deltas if carry.pending is None else carry.pending
+    gdir = tree_map(lambda a, b: a - b, carry.global_vec, carry.prev_global)
+    d_leaves, p_leaves = tree_leaves(carry.deltas), tree_leaves(payload)
+    k, dev = d_leaves[0].shape[0], d_leaves[0].device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = 0.1 + 15.0 * torch.rand((k,), generator=gen, device=dev)
+    m = (torch.rand((k,), generator=gen, device=dev) < 0.5).float()
+    noise = 2.8e-7 * torch.randn((drv.d,), generator=gen, device=dev)
+    err = {"round_stats": 0.0, "superpose_normalize": 0.0}
+    for dl, pl, gl, nz in zip(d_leaves, p_leaves, tree_leaves(gdir),
+                              stacked_tree_noise(noise, p_leaves)):
+        rows, prow, g = dl.reshape(k, -1), pl.reshape(k, -1), gl.reshape(-1)
+        tol = _tol(rows.dtype)
+        for pay in (None, prow):
+            got, got_g = rs.round_stats_cuda(rows, g, pay)
+            want, want_g = rs.round_stats_plain(rows, g, pay)
+            torch.testing.assert_close(got, want, **tol)
+            torch.testing.assert_close(got_g, want_g, rtol=3e-5, atol=0.0)
+            err["round_stats"] = max(err["round_stats"],
+                                     float((got - want).abs().max()))
+        got, raw = ac.superpose_normalize_cuda(prow, p, m, nz.reshape(-1))
+        want, want_raw = ac.superpose_normalize_plain(prow, p, m,
+                                                      nz.reshape(-1))
+        torch.testing.assert_close(got, want, **(
+            tol if rows.dtype == torch.bfloat16
+            else dict(rtol=3e-5, atol=3e-5)))
+        torch.testing.assert_close(raw, want_raw, rtol=3e-5, atol=0.0)
+        err["superpose_normalize"] = max(err["superpose_normalize"],
+                                         float((got - want).abs().max()))
+    return err
+
+
+def pytree_path(dev, data, main_recs):
+    """params_mode="pytree" at the paper's size, MAIN_ROUNDS per transmit
+    mode: each sweep launches six times a round (once per leaf of the
+    MLP), the accuracy rises, the final global stays within PYTREE_TOL
+    of the raveled main path's on the same counter draws, and each
+    leaf's kernels agree with their plain versions on the run's own
+    carry (``carry_parity``)."""
+    from repro_torch.data.partition import PAPER_SIZES
+    out = {}
+    for transmit in ("model", "delta"):
+        raveled = main_recs[transmit]["global"]
+
+        def compare(drv):
+            g = drv.global_vec
+            return ({"max_abs_diff_vs_raveled":
+                     float(np.abs(g - raveled).max()),
+                     "accuracy_raveled":
+                         main_recs[transmit]["accuracy_final"],
+                     "max_abs_err": carry_parity(drv)},
+                    {"within_raveled_tolerance": bool(np.allclose(
+                        g, raveled, **PYTREE_TOL[transmit])),
+                     "carry_is_six_leaves": all(
+                         len(plane) == 3 for plane in (
+                             drv._carry.deltas, drv._carry.global_vec))})
+        rec, _ = run_path(dev, data, k=100, sizes=PAPER_SIZES,
+                          transmit=transmit, rounds=MAIN_ROUNDS,
+                          tag="pytree_path", leaves=6, compare=compare,
+                          params_mode="pytree")
+        out[transmit] = rec
+    return out
+
+
+def bf16_carry(dev, data, main_recs):
+    """pending_dtype="bfloat16" at the paper's size, MAIN_ROUNDS per
+    transmit mode: the (K, d) planes in bf16 at half their f32 bytes, both
+    sweeps once a round on them, the accuracy above round 0's (printed
+    beside the f32 run's), and the kernels agree with their plain
+    versions on the run's own bf16 planes (``carry_parity``)."""
+    from repro_torch.data.partition import PAPER_SIZES
+    out = {}
+    for transmit in ("model", "delta"):
+        def compare(drv):
+            carry = drv._carry
+            planes = [p for p in (carry.pending, carry.deltas)
+                      if p is not None]
+            nbytes = plane_bytes(carry)
+            f32_bytes = 4 * sum(p.numel() for p in planes)
+            return ({"plane_bytes": nbytes, "plane_bytes_f32": f32_bytes,
+                     "carry_bytes": carry_bytes(carry),
+                     "accuracy_f32": main_recs[transmit]["accuracy_final"],
+                     "max_abs_diff_vs_f32": float(np.abs(
+                         drv.global_vec - main_recs[transmit]["global"]
+                     ).max()),
+                     "max_abs_err": carry_parity(drv)},
+                    {"planes_bf16": all(p.dtype == torch.bfloat16
+                                        for p in planes),
+                     "planes_at_half_the_f32_bytes": 2 * nbytes == f32_bytes,
+                     "global_f32": carry.global_vec.dtype == torch.float32})
+        rec, _ = run_path(dev, data, k=100, sizes=PAPER_SIZES,
+                          transmit=transmit, rounds=MAIN_ROUNDS,
+                          tag="bf16_carry", compare=compare,
+                          pending_dtype="bfloat16")
+        out[transmit] = rec
+    return out
+
+
+FAULT_ROUNDS = 30
+
+
+def _paper_driver(dev, clients, transmit, **kw):
+    from repro_torch.core import ChannelConfig, SchedulerConfig
+    from repro_torch.fl import FusedPAOTA, PAOTAConfig
+    from repro_torch.models.mlp import init_mlp_params
+    return FusedPAOTA(init_mlp_params(0), clients, ChannelConfig(**CHAN),
+                      SchedulerConfig(n_clients=len(clients), **SCHED),
+                      PAOTAConfig(transmit=transmit, seed=0), device=dev,
+                      **kw)
+
+
+# broadcast rounds whose local models the blowup scales 100x: every upload
+# of round 4 was trained in round 3 or 4 (a session lasts at most two
+# periods), so the power cap (7) cannot dilute it with clean rows
+BLOWUP_ROUNDS = (3, 4)
+
+
+def _blowup(drv, scale=100.0):
+    """Scale every local model trained at a broadcast round of
+    BLOWUP_ROUNDS by ``scale``."""
+    base = drv._streams
+
+    def train(g, r):
+        tr = base.local_train(g, r)
+        return tr * scale if r in BLOWUP_ROUNDS else tr
+    drv._streams = base._replace(local_train=train)
+
+
+def faults(dev, data):
+    """Fault injection at the paper's size (K = 100), FAULT_ROUNDS rounds
+    each, stepped one round at a time so that every round's injected rows
+    can be counted: a NaN storm unscreened (the aggregate guard holds w_g
+    in every round with a NaN upload) and screened (n_screened equals the
+    non-finite rows among the round's uploaders; the run stays finite and
+    learns), Byzantine uploads without and with the norm fence, deep
+    fades, and the divergence rollback on a one-round blowup."""
+    from repro_torch.core.scheduler import FaultConfig
+    from repro_torch.data.partition import PAPER_SIZES
+    from repro_torch.models.mlp import mlp_accuracy
+    clients, test = _federation(dev, data, 100, PAPER_SIZES)
+
+    def acc(drv):
+        return float(mlp_accuracy(drv.global_params(), test))
+
+    def run(tag, transmit, blowup=False, **kw):
+        drv = _paper_driver(dev, clients, transmit, **kw)
+        if blowup:
+            _blowup(drv)
+        acc0 = acc(drv)
+        zero_counters()
+        per_round = []
+        t0 = time.perf_counter()
+        for _ in range(FAULT_ROUNDS):
+            carry = drv._ensure_carry()
+            bad = ~torch.isfinite(carry.deltas).all(dim=1)
+            t, before = carry.t, drv.global_vec
+            row = drv.advance(1)[0]
+            upl = drv._carry.model_round == t + 1   # this round's uploaders
+            per_round.append((int((bad & upl).sum()), int(row["n_screened"]),
+                              not np.array_equal(before, drv.global_vec)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FAULT_ROUNDS
+        g = drv.global_vec
+        rec = {"phase": "faults", "case": tag, "transmit": transmit,
+               "clients": 100, "rounds": FAULT_ROUNDS, "ms_per_round": ms,
+               "accuracy_round0": acc0, "accuracy_final": acc(drv),
+               "finite": bool(np.isfinite(g).all()),
+               "global_norm": float(np.linalg.norm(g)),
+               "injected_among_uploaders": sum(p[0] for p in per_round),
+               "n_screened": sum(p[1] for p in per_round),
+               "rounds_updated": sum(p[2] for p in per_round),
+               "rolled_back": [r["round"] for r in drv.history
+                               if r["rolled_back"]],
+               "launches": read_counters(("round_stats",
+                                          "superpose_normalize"))}
+        return rec, drv, per_round
+
+    recs, checks = [], {}
+    storm = FaultConfig(nan_frac=0.3, start=1)
+    rec, _, per = run("nan_storm_unscreened", "delta", faults=storm)
+    recs.append(rec)
+    checks["unscreened_storm_injects"] = rec["injected_among_uploaders"] > 0
+    checks["unscreened_storm_holds_w_g"] = rec["finite"] and all(
+        not changed for n_bad, _, changed in per if n_bad)
+    rec, _, per = run("nan_storm_screened", "delta", faults=storm,
+                      screen=True)
+    recs.append(rec)
+    checks["screened_storm_counts_injected_rows"] = all(
+        n_bad == n_scr for n_bad, n_scr, _ in per)
+    checks["screened_storm_screens"] = rec["n_screened"] > 0
+    checks["screened_storm_finite_and_learns"] = (
+        rec["finite"] and rec["accuracy_final"] > rec["accuracy_round0"])
+    rec, clean, _ = run("clean_model", "model")
+    recs.append(rec)
+    g_clean, n_clean = clean.global_vec, rec["global_norm"]
+    byz = FaultConfig(byzantine_frac=0.3, byzantine_scale=-50.0, start=1)
+    rec, drv, _ = run("byzantine_unscreened", "model", faults=byz)
+    dev_unscr = float(np.linalg.norm(drv.global_vec - g_clean))
+    rec["deviation_from_clean"] = dev_unscr
+    recs.append(rec)
+    rec, drv, _ = run("byzantine_fenced", "model", faults=byz, screen=True,
+                      screen_max_norm=BYZ_FENCE)
+    dev_fence = float(np.linalg.norm(drv.global_vec - g_clean))
+    rec.update(deviation_from_clean=dev_fence, screen_max_norm=BYZ_FENCE)
+    recs.append(rec)
+    checks["fence_screens"] = rec["n_screened"] > 0
+    checks["fence_contains"] = rec["finite"] and dev_fence < 0.5 * dev_unscr
+    rec, _, _ = run("deep_fade", "delta",
+                    faults=FaultConfig(deep_fade_frac=0.3))
+    recs.append(rec)
+    checks["deep_fade_finite_and_learns"] = (
+        rec["finite"] and rec["accuracy_final"] > rec["accuracy_round0"])
+    rec, _, _ = run("blowup_unguarded", "model", blowup=True)
+    recs.append(rec)
+    n_bare = rec["global_norm"]
+    checks["blowup_corrupts"] = rec["finite"] and n_bare > 5.0 * n_clean
+    rec, _, _ = run("blowup_rollback", "model", blowup=True,
+                    divergence_factor=4.0)
+    recs.append(rec)
+    # the blown rows upload at rounds 3 to 5
+    checks["rollback_fires_on_the_blowup_only"] = bool(
+        rec["rolled_back"]) and set(rec["rolled_back"]) <= {3, 4, 5}
+    checks["rollback_recovers"] = (
+        rec["finite"] and rec["global_norm"] < 0.1 * n_bare
+        and rec["accuracy_final"] > rec["accuracy_round0"])
+    for r in recs:
+        log(r)
+    log({"phase": "faults", "checks": checks})
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"faults: failed {failed}")
+    return recs
+
+
+# the Byzantine norm fence (model transmit): clean payload rows carry the
+# model, whose norm stays near ||w_g^0|| (about 8 for init_mlp_params(0));
+# a Byzantine row w_g - 50 (w - w_g) lands well above it
+BYZ_FENCE = 12.0
+
+
+def checkpoint_resume(dev, data, tmpdir):
+    """10 straight rounds against 5 + save + a new FusedPAOTA + restore +
+    5, bit for bit on the card: the dense f32 carry (model transmit), the
+    dense bf16 carry with rollback (delta), and the compressed cohort with
+    int8 slots at K = 1000 (m = 64, top-k 1/16)."""
+    from repro_torch.data.partition import FAST_SIZES, PAPER_SIZES
+    cases = (("dense_f32", 100, PAPER_SIZES, "model", {}),
+             ("dense_bf16_rollback", 100, PAPER_SIZES, "delta",
+              dict(pending_dtype="bfloat16", divergence_factor=4.0)),
+             ("cohort_topk_int8", COHORT_K, FAST_SIZES, "delta",
+              dict(cohort_size=COHORT_M, compress="topk",
+                   compress_ratio=1 / 16, slot_dtype="int8")))
+    checks = {}
+    for name, k, sizes, transmit, kw in cases:
+        clients, _ = _federation(dev, data, k, sizes)
+        full = _paper_driver(dev, clients, transmit, **kw)
+        full.advance(10)
+        part = _paper_driver(dev, clients, transmit, **kw)
+        part.advance(5)
+        path = str(Path(tmpdir) / f"{name}.npz")
+        t0 = time.perf_counter()
+        part.save_checkpoint(path)
+        t_save = time.perf_counter() - t0
+        res = _paper_driver(dev, clients, transmit, **kw)
+        t0 = time.perf_counter()
+        step = res.restore_checkpoint(path)
+        t_load = time.perf_counter() - t0
+        res.advance(5)
+        same_rows = all(
+            a.keys() == b.keys() and all(
+                np.array_equal(a[key], b[key], equal_nan=True) for key in a)
+            for a, b in zip(full.history, res.history))
+        checks[name] = bool(step == 5 and np.array_equal(
+            full.global_vec, res.global_vec) and same_rows
+            and len(res.history) == 10)
+        log({"phase": "checkpoint_resume", "case": name, "clients": k,
+             "transmit": transmit, **kw, "file_bytes":
+                 Path(path).stat().st_size,
+             "save_s": t_save, "restore_s": t_load,
+             "bit_identical": checks[name]})
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"checkpoint_resume: failed {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -1234,6 +1576,166 @@ def kernel_times(dev, bw, flops):
     return out
 
 
+MLP_LEAVES = {"l1": {"w": (784, 10), "b": (10,)},
+              "l2": {"w": (10, 10), "b": (10,)},
+              "l3": {"w": (10, 10), "b": (10,)}}
+
+
+def _sweep_work(widths, k, itemsize, planes):
+    """(bytes, operations) of sweep 1 over rows of the given widths: each
+    plane and g read once, the (k, planes + 1) stats and gn2 written."""
+    nbytes = sum(itemsize * planes * k * w + 4 * (w + k * (planes + 1) + 1)
+                 for w in widths)
+    nops = sum(2 * k * w * (planes + 1) + 2 * w for w in widths)
+    return nbytes, nops
+
+
+def _superpose_work(widths, k, itemsize):
+    """(bytes, operations) of sweep 2 over payload rows of the given
+    widths: the plane, powers, mask and noise read once, the aggregate
+    and varsigma written."""
+    nbytes = sum(itemsize * k * w + 4 * (2 * k + 2 * w + 1) for w in widths)
+    nops = sum(2 * k * w + k + 2 * w for w in widths)
+    return nbytes, nops
+
+
+def graph_ms(fn, flush):
+    """``time_ms`` of ``fn`` captured once in a CUDA graph and replayed:
+    the device's time for its launches, without the host's time to issue
+    them."""
+    fn()                                    # warm the plans and the pool
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, flush)
+
+
+def carry_sweep_times(dev, bw, flops, flush):
+    """The sweeps as the bf16 and pytree carries launch them, at K x D =
+    100 x 8070 and 1000 x 8070: both sweeps on bf16 planes (yardsticks
+    ``x @ g`` and ``mv`` in bf16 on the same plane), and one round's six
+    per-leaf launches of each sweep on the MLP's leaves (f32), timed as
+    the six launches alone and through the round's entry (``ops
+    .round_stats`` / ``paota_aggregate_stacked``), each as issued from the
+    host (``ms``, ``entry_ms``: the Python wrappers outlast the flush, so
+    the host's issue time shows) and replayed from a CUDA graph
+    (``graph_ms``, ``entry_graph_ms``: the device's time), beside the
+    bound of the same bytes, the plain versions' time (``plain_ms``) and
+    the largest difference from them on the same inputs
+    (``max_abs_err``, held at ``_tol``)."""
+    from repro_torch.core.aggregation import paota_aggregate_stacked
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.tree import tree_leaves, tree_map
+    d = 8070
+    out = {}
+    for k in (100, 1000):
+        gen = torch.Generator(device=dev).manual_seed(7 * k)
+        x = torch.randn((k, d), generator=gen, device=dev).to(torch.bfloat16)
+        pay = torch.randn((k, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        g = torch.randn((d,), generator=gen, device=dev)
+        g16 = g.to(torch.bfloat16)
+        p = 15.0 * torch.rand((k,), generator=gen, device=dev)
+        m = (torch.rand((k,), generator=gen, device=dev) < 0.5).float()
+        bp16 = (p * m).to(torch.bfloat16)
+        noise = 2.8e-7 * torch.randn((d,), generator=gen, device=dev)
+        for payload in (pay, None):
+            name = "round_stats" + ("" if payload is None else "+payload")
+            nbytes, nops = _sweep_work((d,), k, 2, 1 if payload is None
+                                       else 2)
+            got, want = (fn(x, g, payload)[0] for fn in (
+                rs.round_stats_cuda, rs.round_stats_plain))
+            torch.testing.assert_close(got, want, **_tol(torch.bfloat16))
+            out[(name, "bf16", k)] = {
+                "max_abs_err": float((got - want).abs().max()),
+                "ms": time_ms(lambda: rs.round_stats_cuda(x, g, payload),
+                              flush),
+                "plain_ms": time_ms(lambda: rs.round_stats_plain(
+                    x, g, payload), flush),
+                "yardstick_ms": time_ms(lambda: x @ g16, flush),
+                "yardstick": "x @ g in bf16 (partial: the dot column only)",
+                **_bound(nbytes, nops, bw, flops)}
+        nbytes, nops = _superpose_work((d,), k, 2)
+        got, want = (fn(x, p, m, noise)[0] for fn in (
+            ac.superpose_normalize_cuda, ac.superpose_normalize_plain))
+        torch.testing.assert_close(got, want, **_tol(torch.bfloat16))
+        out[("superpose_normalize", "bf16", k)] = {
+            "max_abs_err": float((got - want).abs().max()),
+            "ms": time_ms(lambda: ac.superpose_normalize_cuda(x, p, m, noise),
+                          flush),
+            "plain_ms": time_ms(lambda: ac.superpose_normalize_plain(
+                x, p, m, noise), flush),
+            "yardstick_ms": time_ms(lambda: torch.mv(x.t(), bp16), flush),
+            "yardstick": "torch.mv(x.t(), bp) in bf16 (partial: the "
+                         "contraction only)",
+            **_bound(nbytes, nops, bw, flops)}
+        # one round of the pytree carry: six leaves, each its own tensor
+        tree = {layer: {n: torch.randn((k,) + shape, generator=gen,
+                                       device=dev)
+                        for n, shape in leaves.items()}
+                for layer, leaves in MLP_LEAVES.items()}
+        ptree = tree_map(lambda t: t * 0.5, tree)
+        gtree = tree_map(lambda t: t[0].clone(), tree)
+        rows = [(l.reshape(k, -1), pl.reshape(k, -1), gl.reshape(-1))
+                for l, pl, gl in zip(tree_leaves(tree), tree_leaves(ptree),
+                                     tree_leaves(gtree))]
+        widths = [r[0].shape[1] for r in rows]
+        for with_payload in (True, False):
+            name = "round_stats" + ("+payload" if with_payload else "")
+            nbytes, nops = _sweep_work(widths, k, 4,
+                                       2 if with_payload else 1)
+
+            def six(fn=rs.round_stats_cuda):
+                return [fn(dl, gl, pl if with_payload else None)[0]
+                        for dl, pl, gl in rows]
+            def entry():
+                ops.round_stats(tree, gtree, ptree if with_payload
+                                else None)
+            err = 0.0
+            for got, want in zip(six(), six(rs.round_stats_plain)):
+                torch.testing.assert_close(got, want, **_tol(torch.float32))
+                err = max(err, float((got - want).abs().max()))
+            out[(name, "pytree", k)] = {
+                "leaves": widths, "max_abs_err": err,
+                "ms": time_ms(six, flush),
+                "plain_ms": time_ms(lambda: six(rs.round_stats_plain),
+                                    flush),
+                "graph_ms": graph_ms(six, flush),
+                "entry_ms": time_ms(entry, flush),
+                "entry_graph_ms": graph_ms(entry, flush),
+                **_bound(nbytes, nops, bw, flops)}
+        nbytes, nops = _superpose_work(widths, k, 4)
+        offs = np.cumsum([0] + widths)
+        pieces = [noise[a:b] for a, b in zip(offs[:-1], offs[1:])]
+
+        def six_sp(fn=ac.superpose_normalize_cuda):
+            return [fn(pl, p, m, nz)[0] for (_, pl, _), nz in zip(rows,
+                                                                  pieces)]
+        def entry_sp():
+            paota_aggregate_stacked(ptree, p, m, noise)
+        err = 0.0
+        for got, want in zip(six_sp(), six_sp(ac.superpose_normalize_plain)):
+            torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+            err = max(err, float((got - want).abs().max()))
+        out[("superpose_normalize", "pytree", k)] = {
+            "leaves": widths, "max_abs_err": err,
+            "ms": time_ms(six_sp, flush),
+            "plain_ms": time_ms(
+                lambda: six_sp(ac.superpose_normalize_plain), flush),
+            "graph_ms": graph_ms(six_sp, flush),
+            "entry_ms": time_ms(entry_sp, flush),
+            "entry_graph_ms": graph_ms(entry_sp, flush),
+            **_bound(nbytes, nops, bw, flops)}
+    for (name, layout, k), rec in out.items():
+        log({"phase": "kernel_time", "kernel": name, "shape": [k, d],
+             "layout": layout, "dtype": ("bfloat16" if layout == "bf16"
+                                         else "float32"), **rec})
+    return out
+
+
 def _bound(nbytes, nops, bw, flops):
     return {"bound_ms": max(nbytes / bw, nops / flops) * 1e3,
             "bound_by": "bytes" if nbytes / bw >= nops / flops
@@ -1427,11 +1929,12 @@ def stage_times(drv, flush):
     log(rec)
 
 
-def no_host_sync(drv) -> None:
-    """Three more rounds of the main path with torch's sync debug mode set
-    to error: a round must read nothing back to the host between stages
-    (the one copy per advance comes after scan_rounds)."""
+def no_host_sync(drv, tag="main_path") -> None:
+    """Three more rounds of a driver with torch's sync debug mode set to
+    error: a round must read nothing back to the host between stages (the
+    one copy per advance comes after scan_rounds)."""
     from repro_torch.fl.runtime import scan_rounds
+    drv._ensure_carry()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1441,7 +1944,7 @@ def no_host_sync(drv) -> None:
         torch.cuda.synchronize()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    log({"phase": "no_host_sync", "rounds": 3, "ok": True})
+    log({"phase": "no_host_sync", "driver": tag, "rounds": 3, "ok": True})
 
 
 def main() -> int:
@@ -1489,6 +1992,7 @@ def main() -> int:
     launches = {"round_stats": 0, "superpose_normalize": 0}
     by_path = {}
     drv_main = None
+    main_recs = {}
     for transmit in ("model", "delta"):
         rec, drv = run_path(dev, data, k=100, sizes=PAPER_SIZES,
                             transmit=transmit, rounds=MAIN_ROUNDS,
@@ -1496,10 +2000,39 @@ def main() -> int:
         by_path[transmit] = rec["launches"]
         for key in launches:
             launches[key] += rec["launches"][key]
+        main_recs[transmit] = {"global": drv.global_vec,
+                               "accuracy_final": rec["accuracy_final"],
+                               "ms_per_round_after_warmup":
+                                   rec["ms_per_round_after_warmup"]}
         if transmit == "model":
             drv_main = drv
 
     no_host_sync(drv_main)
+
+    # 4b-4e. every knob of the fused round: the pytree carry (six launches
+    # of each sweep a round), the bf16 carry, faults with screening and
+    # rollback, checkpoint/resume
+    from repro_torch.core.scheduler import FaultConfig
+    clients, _ = _federation(dev, data, 100, PAPER_SIZES)
+    no_host_sync(_paper_driver(
+        dev, clients, "model", params_mode="pytree",
+        pending_dtype="bfloat16", screen=True, divergence_factor=4.0,
+        faults=FaultConfig(nan_frac=0.1, byzantine_frac=0.1,
+                           deep_fade_frac=0.1)),
+        "pytree+bf16+faults+screen+rollback")
+    del clients
+    for tag, fn in (("pytree_path", pytree_path), ("bf16_carry", bf16_carry)):
+        for transmit, rec in fn(dev, data, main_recs).items():
+            by_path[f"{tag} {transmit}"] = rec["launches"]
+            for key in launches:
+                launches[key] += rec["launches"][key]
+    for rec in faults(dev, data):
+        by_path[f"faults {rec['case']}"] = rec["launches"]
+        for key in launches:
+            launches[key] += rec["launches"][key]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
+        checkpoint_resume(dev, data, tmpdir)
 
     # 5. scale: K = 1000
     run_path(dev, data, k=1000, sizes=FAST_SIZES, transmit="delta",
@@ -1549,6 +2082,9 @@ def main() -> int:
 
     # 16. kernel and stage times
     times = kernel_times(dev, bw, flops)
+    carry_times = carry_sweep_times(
+        dev, bw, flops, torch.empty(64 * 2**20, dtype=torch.float32,
+                                    device=dev))
     stage_times(drv_main,
                 torch.empty(64 * 2**20, dtype=torch.float32, device=dev))
     lm_times = lm_kernel_times(dev, bw, flops, tf32)
@@ -1583,6 +2119,14 @@ def main() -> int:
             "yardstick_ms": t["yardstick_ms"], "yardstick": t["yardstick"],
             "launch_floor_ms": times["launch_floor"],
             "shape": list(shape), "dtype": "float32"})
+        # the bf16 and pytree carries' launches of the sweeps (100 x 8070)
+        others = [{"layout": layout, "shape": [100, 8070],
+                   "dtype": "bfloat16" if layout == "bf16" else "float32",
+                   **carry_times[(tkey, layout, 100)]}
+                  for layout in ("bf16", "pytree")
+                  if (tkey, layout, 100) in carry_times]
+        if others:
+            kernels[-1]["other_shapes"] = others
     lm_rows = {"ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                              "src/repro/kernels/ssd_chunk.py:58",
                              dict(zip("Bz NC H G Q N P".split(),

@@ -1,11 +1,12 @@
 """PAOTA aggregation (eqs. 6, 8 and 9), torch form.
 
-Port of the dense, raveled, single-device branch of
-``repro.core.aggregation``: the params dict <-> flat vector ravel in the
-reference's leaf order, the AirComp superposition of the stacked (K, d)
-payload (sweep 2 of the round, ``repro_torch.kernels.ops
-.superpose_normalize``, or with ``use_kernel`` the host path's
-``aircomp_sum`` route), the active cohort's superposition of its
+Port of the single-device branches of ``repro.core.aggregation``: the
+params dict <-> flat vector ravel in the reference's leaf order, the
+AirComp superposition of the stacked payload (sweep 2 of the round,
+``repro_torch.kernels.ops.superpose_normalize``, once on a raveled (K, d)
+plane or once per leaf of a params dict of (K, ...) leaves, with one flat
+AWGN realization split across the leaves; with ``use_kernel`` the host
+path's ``aircomp_sum`` route), the active cohort's superposition of its
 compressed (m, s) plane (``gather_superpose``), and the zero-uploader
 guarded update.
 """
@@ -18,43 +19,15 @@ import torch
 from repro_torch.core.aircomp import VARSIGMA_MIN, aircomp_aggregate
 from repro_torch.device import f32
 from repro_torch.kernels.ops import gather_superpose, superpose_normalize
-
-
-def _leaves(tree, prefix=()):
-    """(path, tensor) pairs in JAX's tree_flatten order for nested dicts:
-    keys sorted at every level (so the MLP ravels biases first:
-    l1.b, l1.w, l2.b, l2.w, l3.b, l3.w)."""
-    if isinstance(tree, dict):
-        out = []
-        for key in sorted(tree):
-            out.extend(_leaves(tree[key], prefix + (key,)))
-        return out
-    return [(prefix, tree)]
-
-
-def tree_map(fn, tree, *rest):
-    """Map over the leaves of nested params dicts of one structure."""
-    if isinstance(tree, dict):
-        return {key: tree_map(fn, tree[key], *(r[key] for r in rest))
-                for key in tree}
-    return fn(tree, *rest)
-
-
-def _build(paths, values):
-    tree: dict = {}
-    for path, v in zip(paths, values):
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = v
-    return tree
+from repro_torch.tree import (build, leaf2d, leaves_with_paths, tree_leaves,
+                              tree_map)
 
 
 def ravel(params) -> Tuple[torch.Tensor, Callable]:
     """Flatten a nested params dict into one (d,) vector in the reference's
     ``ravel_pytree`` order. Returns (vector, unravel); ``unravel`` maps a
     (d,) vector back to a dict of views of it."""
-    leaves = _leaves(params)
+    leaves = leaves_with_paths(params)
     paths = [p for p, _ in leaves]
     shapes = [tuple(t.shape) for _, t in leaves]
     sizes = [t.numel() for _, t in leaves]
@@ -63,7 +36,7 @@ def ravel(params) -> Tuple[torch.Tensor, Callable]:
     def unravel(v: torch.Tensor):
         parts = torch.split(v, sizes, dim=-1)
         lead = tuple(v.shape[:-1])
-        return _build(paths, [p.reshape(lead + s)
+        return build(paths, [p.reshape(lead + s)
                               for p, s in zip(parts, shapes)])
 
     return vec, unravel
@@ -72,7 +45,7 @@ def ravel(params) -> Tuple[torch.Tensor, Callable]:
 def ravel_stacked(params) -> torch.Tensor:
     """Client-stacked params dict ((K, ...) leaves) -> (K, d) in ravel
     order: one concatenate, value-identical to raveling every row."""
-    leaves = [t for _, t in _leaves(params)]
+    leaves = tree_leaves(params)
     k = leaves[0].shape[0]
     return torch.cat([t.reshape(k, -1) for t in leaves], dim=1)
 
@@ -84,31 +57,74 @@ def guarded_global_update(global_vec, prev_global, agg, varsigma, *,
 
     If the normalizer sits at or below the clamp (nobody uploaded) or the
     aggregate holds a NaN/Inf, both w_g and prev_global are held bit for
-    bit. Returns (new_global, new_prev_global)."""
-    ok = (varsigma > f32(threshold)) & torch.isfinite(agg).all()
-    cand = global_vec + agg if delta else agg
-    return (torch.where(ok, cand, global_vec),
-            torch.where(ok, global_vec, prev_global))
+    bit, every leaf of them for a params dict. Returns (new_global,
+    new_prev_global)."""
+    ok = varsigma > f32(threshold)
+    for leaf in tree_leaves(agg):
+        ok = ok & torch.isfinite(leaf).all()
+    return (tree_map(lambda g, a: torch.where(ok, g + a if delta else a, g),
+                     global_vec, agg),
+            tree_map(lambda g, pg: torch.where(ok, g, pg), global_vec,
+                     prev_global))
 
 
-def paota_aggregate_stacked(stacked: torch.Tensor, powers: torch.Tensor,
-                            mask: torch.Tensor, noise: torch.Tensor,
+def stacked_tree_noise(noise: torch.Tensor, stacked_leaves) -> list:
+    """One eq.-6 AWGN realization for the whole model: the flat (d,) draw
+    split per leaf in leaf order (leaf i takes the next prod(shape[1:])
+    entries, shaped to its trailing dims), so a params dict and its
+    raveled plane consume the same realization."""
+    out, off = [], 0
+    for leaf in stacked_leaves:
+        size = leaf[0].numel()
+        out.append(noise[off:off + size].reshape(leaf.shape[1:]))
+        off += size
+    return out
+
+
+def paota_aggregate_stacked(stacked, powers: torch.Tensor,
+                            mask: torch.Tensor, noise,
                             use_kernel: bool = False):
-    """Eq. (8) over the raveled (K, d) payload: w = (sum_k b_k p_k w_k + n)
-    / sum_k b_k p_k, with the AWGN realization ``noise`` (d,) already
-    scaled by sigma_n. Returns ((d,) f32 aggregate, clamped varsigma).
+    """Eq. (8) over the stacked payload: w = (sum_k b_k p_k w_k + n) /
+    sum_k b_k p_k, with the AWGN realization ``noise`` (d,) already scaled
+    by sigma_n. Returns (aggregate, clamped varsigma): a params dict of
+    f32 leaves for a dict of (K, ...) leaves (f32 or bf16), which sweep 2
+    takes one leaf at a time on its slice of the flat noise
+    (``stacked_tree_noise``), or a (d,) f32 vector for a raveled (K, d)
+    plane, the one-leaf tree.
 
-    ``use_kernel`` takes the reference's ``aircomp_aggregate`` route (the
-    ``aircomp_sum`` kernel). Otherwise sweep 2 runs, and where the reference
-    re-sums b*p for varsigma the kernel's raw sum comes back with the
-    aggregate and is clamped, so no second reduction runs (an all-zero
-    mask sums to exactly 0 either way)."""
-    if use_kernel:
+    ``noise=None`` is the noiseless channel: each leaf is the
+    f32-accumulating b*p contraction over the clamped varsigma, and no
+    AWGN is added (the fused round passes it when sigma_n = 0, where the
+    reference skips the draw). ``use_kernel`` takes the reference's
+    ``aircomp_aggregate`` route for a raveled plane (the ``aircomp_sum``
+    kernel).
+    Otherwise sweep 2 runs, and where the reference re-sums b*p for
+    varsigma the kernel's raw sum comes back with the aggregate and is
+    clamped, so no second reduction runs (an all-zero mask sums to exactly
+    0 either way)."""
+    if use_kernel and isinstance(stacked, torch.Tensor):
         return aircomp_aggregate(stacked, powers, mask, noise,
                                  use_kernel=True)
-    agg, raw = superpose_normalize(stacked, powers, mask, noise,
-                                   vs_min=VARSIGMA_MIN)
-    return agg, torch.clamp_min(raw, f32(VARSIGMA_MIN))
+    leaves = tree_leaves(stacked)
+    if noise is None:
+        bp = powers * mask
+        varsigma = torch.clamp_min(bp.sum(), f32(VARSIGMA_MIN))
+        agg = [(bp @ leaf2d(l).float() / varsigma).reshape(l.shape[1:])
+               for l in leaves]
+        return _like(stacked, agg), varsigma
+    agg, raw = [], None
+    for leaf, nz in zip(leaves, stacked_tree_noise(noise, leaves)):
+        out, raw = superpose_normalize(leaf2d(leaf), powers, mask,
+                                       nz.reshape(-1), vs_min=VARSIGMA_MIN)
+        agg.append(out.reshape(leaf.shape[1:]))
+    return _like(stacked, agg), torch.clamp_min(raw, f32(VARSIGMA_MIN))
+
+
+def _like(tree, leaves):
+    """``leaves`` (in leaf order) in the structure of ``tree``."""
+    if not isinstance(tree, dict):
+        return leaves[0]
+    return build([p for p, _ in leaves_with_paths(tree)], leaves)
 
 
 def paota_aggregate_compressed(values: torch.Tensor, idx: torch.Tensor,
@@ -119,8 +135,11 @@ def paota_aggregate_compressed(values: torch.Tensor, idx: torch.Tensor,
     (``repro_torch.kernels.ops.gather_superpose``), with the same (d,)
     AWGN realization the dense round takes. ``scale`` folds int8
     dequantization into the weights; varsigma sums the raw b*p and is
-    clamped here, after the call. Returns ((d,) f32 aggregate, clamped
-    varsigma)."""
+    clamped here, after the call. ``noise=None`` (the noiseless channel)
+    superposes zeros, as the reference does. Returns ((d,) f32 aggregate,
+    clamped varsigma)."""
+    if noise is None:
+        noise = torch.zeros((d,), dtype=torch.float32, device=values.device)
     agg, raw = gather_superpose(values, idx, powers * mask, noise, d=d,
                                 scale=scale, vs_min=VARSIGMA_MIN)
     return agg, torch.clamp_min(raw, f32(VARSIGMA_MIN))

@@ -1,15 +1,18 @@
 """Power-control factors of eq. 25 (Section III-B), torch form.
 
-Port of ``repro.core.power_control`` over a raveled (K, d) federation:
+Port of ``repro.core.power_control``:
 
     p_k = p_max_k * ( beta_k * rho_k + (1 - beta_k) * theta_k )
     rho_k   = Omega / (s_k + Omega)
     theta_k = (cos(dw_k, w_g^t - w_g^{t-1}) + 1) / 2
 
 with the per-client reductions (``client_sq_norms``, ``client_dots``,
-``cosine_similarity``) as torch ops on the device and the P2 problem data
-(``P2Problem``, ``build_p2``) in numpy f64 for the host solvers. The
-reference's pytree and TP forms of the reductions are not ported.
+``global_sq_norm``, ``cosine_similarity``) as torch ops on the device and
+the P2 problem data (``P2Problem``, ``build_p2``) in numpy f64 for the
+host solvers. The reductions take a params dict of client-stacked
+(K, ...) leaves, whose per-leaf partials are summed in the reference's
+leaf order; a raveled (K, d) plane is the one-leaf tree and runs the one
+contraction it always did. The reference's TP forms are not ported.
 ``cosine_similarity(use_kernel=True)`` is the one entry point of the
 ``cosine_partials`` kernel (``repro_torch.kernels.ops.cosine_sim``).
 """
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.device import f32
 from repro_torch.kernels.ops import cosine_sim
+from repro_torch.tree import leaf2d, tree_leaves
 
 
 def staleness_factor(s: torch.Tensor, omega: float) -> torch.Tensor:
@@ -36,27 +40,42 @@ def similarity_factor(cos_sim: torch.Tensor) -> torch.Tensor:
     return (cos_sim + 1.0) / 2.0
 
 
-def client_sq_norms(stacked: torch.Tensor) -> torch.Tensor:
+def _sum_leaves(parts):
+    """Per-leaf partials summed left to right, in leaf order."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def client_sq_norms(stacked) -> torch.Tensor:
     """(K,) per-client ||x_k||^2 of a (K, d) plane, as the reference's
-    ``einsum("kd,kd->k")`` (an XLA contraction there, a torch one here)."""
-    return torch.einsum("kd,kd->k", stacked, stacked)
+    ``einsum("kd,kd->k")`` (an XLA contraction there, a torch one here),
+    or of a params dict of (K, ...) leaves, summed across leaves."""
+    return _sum_leaves([torch.einsum("kd,kd->k", l, l)
+                        for l in map(leaf2d, tree_leaves(stacked))])
 
 
-def client_dots(stacked: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
-    """(K,) per-client <x_k, vec>."""
-    return stacked @ vec
+def client_dots(stacked, vec) -> torch.Tensor:
+    """(K,) per-client <x_k, vec>; on params dicts, summed across the
+    leaves of ``stacked`` against the matching leaves of ``vec``."""
+    return _sum_leaves([leaf2d(l) @ g.reshape(-1) for l, g
+                        in zip(tree_leaves(stacked), tree_leaves(vec))])
 
 
-def global_sq_norm(vec: torch.Tensor) -> torch.Tensor:
-    """Scalar ||vec||^2."""
-    return (vec * vec).sum()
+def global_sq_norm(vec) -> torch.Tensor:
+    """Scalar ||vec||^2 of a vector or of every leaf of a params dict."""
+    return _sum_leaves([(g * g).sum() for g in tree_leaves(vec)])
 
 
 def cosine_similarity(deltas, global_dir, use_kernel: bool = False,
                       eps: float = 1e-12):
-    """(K,) cos(dw_k, g) of a (K, d) delta plane against a (d,) direction.
-    ``use_kernel`` takes the reference's kernel route, whose finishing
-    formula clamps differently (``repro_torch.kernels.ops.cosine_sim``)."""
+    """(K,) cos(dw_k, g) of a (K, d) delta plane against a (d,) direction,
+    or of a params dict of stacked deltas against the matching direction
+    dict. ``use_kernel`` takes the reference's kernel route (raveled
+    only), whose finishing formula clamps differently
+    (``repro_torch.kernels.ops.cosine_sim``). ``clamp_min`` passes NaN
+    through, so a corrupt row's cosine stays NaN for the screen."""
     if use_kernel:
         return cosine_sim(deltas, global_dir, eps=eps)
     eps = f32(eps)

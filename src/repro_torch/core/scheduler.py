@@ -4,7 +4,9 @@ Port of ``repro.core.scheduler``: the consumer tags, the exact slot
 predicate, the scheduler state transition over (K,) tensors (the fused
 round), the client-state scenario simulator (``ScenarioConfig``: its
 masks, static traits and lognormal latencies as pure functions of their
-draws, and the counter draws that feed them), and ``SemiAsyncScheduler``,
+draws, and the counter draws that feed them), fault injection
+(``FaultConfig``: payload and channel fault masks from their (K,)
+uniforms, ``inject_payload_faults``), and ``SemiAsyncScheduler``,
 the host-side numpy scheduler of the host-path servers, with both of the
 reference's rng modes and the scenario. The reference
 keys its draws with JAX's threefry ``round_tag_key``; the port
@@ -230,6 +232,128 @@ def counter_scenario_masks(base_seed: int, round_idx: int, k: int,
                                  device)
     return scenario_masks(sc, round_idx, k, phase, u_avail, u_drop,
                           device=device)
+
+
+# ---------------------------------------------------------------------------
+# fault injection (the scenario simulator's counter-draw family, TAG_FAULT)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FaultConfig:
+    """Injectable client, channel and pod faults (the reference's
+    ``FaultConfig``, same fields and validation). The default is the
+    identity: no faults, and the round skips every fault stage.
+
+    Payload faults corrupt a client's trained model the round it restarts,
+    from one uniform per client and round split into disjoint bands:
+    ``nan_frac`` overwrites the row with NaN (``nan_mode="nan"``) or +Inf
+    (``"inf"``); ``byzantine_frac`` scales its delta from the global,
+    w' = w_g + byzantine_scale * (w - w_g). ``deep_fade_frac`` scales a
+    client's channel draw by ``deep_fade_gain``. ``pod_blackout`` needs
+    the reference's grouped sharded driver, which the port does not have.
+    ``start`` / ``stop`` gate the payload and channel faults to rounds in
+    [start, stop) (stop = -1: no upper bound)."""
+    nan_frac: float = 0.0
+    nan_mode: str = "nan"          # "nan" | "inf"
+    byzantine_frac: float = 0.0
+    byzantine_scale: float = -50.0
+    deep_fade_frac: float = 0.0
+    deep_fade_gain: float = 1e-4
+    pod_blackout: tuple = ()       # pod indices (grouped sharded mode)
+    blackout_start: int = 0
+    blackout_stop: int = 0         # blackout rounds: [start, stop)
+    start: int = 0
+    stop: int = -1
+
+    def __post_init__(self):
+        if self.nan_mode not in ("nan", "inf"):
+            raise ValueError(f"nan_mode={self.nan_mode!r} (expected 'nan' "
+                             "or 'inf')")
+        for name in ("nan_frac", "byzantine_frac", "deep_fade_frac"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name}={v} (expected [0, 1])")
+        if self.nan_frac + self.byzantine_frac > 1.0:
+            raise ValueError(
+                f"nan_frac + byzantine_frac = "
+                f"{self.nan_frac + self.byzantine_frac} > 1 (the payload "
+                "bands partition one uniform draw)")
+        if any(int(p) < 0 for p in self.pod_blackout):
+            raise ValueError(f"pod_blackout={self.pod_blackout} (expected "
+                             "non-negative pod indices)")
+
+    @property
+    def has_payload_faults(self) -> bool:
+        return self.nan_frac > 0.0 or self.byzantine_frac > 0.0
+
+    @property
+    def has_channel_faults(self) -> bool:
+        return self.deep_fade_frac > 0.0
+
+    @property
+    def has_blackout(self) -> bool:
+        return (len(self.pod_blackout) > 0
+                and self.blackout_stop > self.blackout_start)
+
+    @property
+    def any(self) -> bool:
+        return (self.has_payload_faults or self.has_channel_faults
+                or self.has_blackout)
+
+
+def fault_active(fc: FaultConfig, round_idx: int) -> bool:
+    """Payload and channel faults are live at ``round_idx``."""
+    t = int(round_idx)
+    return t >= fc.start and (fc.stop < 0 or t < fc.stop)
+
+
+def fault_payload_masks(u, round_idx: int, fc: FaultConfig):
+    """(nan_mask, byzantine_mask) (K,) bool from the round's (K,) uniforms
+    ``u`` (keyed on (seed, round, TAG_FAULT)): the disjoint bands
+    [0, nan_frac) and [nan_frac, nan_frac + byzantine_frac)."""
+    if not fault_active(fc, round_idx):
+        off = torch.zeros_like(u, dtype=torch.bool)
+        return off, off
+    nan_m = u < f32(fc.nan_frac)
+    byz_m = (u >= f32(fc.nan_frac)) & (
+        u < f32(fc.nan_frac + fc.byzantine_frac))
+    return nan_m, byz_m
+
+
+def fault_channel_mask(u, round_idx: int, fc: FaultConfig):
+    """Deep-fade (K,) bool mask from the round's fade uniforms ``u`` (a
+    sub-stream of the round's TAG_FAULT key, fold 1, so it never
+    correlates with the payload bands)."""
+    if not fault_active(fc, round_idx):
+        return torch.zeros_like(u, dtype=torch.bool)
+    return u < f32(fc.deep_fade_frac)
+
+
+def blackout_active(fc: FaultConfig, round_idx: int) -> bool:
+    """The pod-blackout window covers ``round_idx``."""
+    return fc.blackout_start <= int(round_idx) < fc.blackout_stop
+
+
+def inject_payload_faults(trained, global_tree, nan_mask, byz_mask,
+                          fc: FaultConfig):
+    """Corrupt the faulty rows of freshly trained rows ((rows, ...) leaves
+    of a params dict, or a raveled (rows, d) plane) against the matching
+    unstacked ``global_tree``: a NaN-faulted row becomes NaN (or +Inf) in
+    every leaf; a Byzantine row's delta from the global is scaled by
+    ``byzantine_scale``. Masks are (rows,) bool."""
+    if isinstance(trained, dict):
+        return {key: inject_payload_faults(trained[key], global_tree[key],
+                                           nan_mask, byz_mask, fc)
+                for key in trained}
+    fill = float("nan") if fc.nan_mode == "nan" else float("inf")
+    shape = (trained.shape[0],) + (1,) * (trained.dim() - 1)
+    gb = global_tree[None].to(trained.dtype)
+    out = torch.where(byz_mask.reshape(shape),
+                      (gb + f32(fc.byzantine_scale) * (trained - gb)
+                       ).to(trained.dtype), trained)
+    return torch.where(nan_mask.reshape(shape),
+                       torch.full((), fill, dtype=trained.dtype,
+                                  device=trained.device), out)
 
 
 def slot_ready(lat, model_round, round_idx: int, delta_t: float):

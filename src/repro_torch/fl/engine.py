@@ -101,7 +101,7 @@ class BatchedEngine:
         """Every client runs M SGD steps from the broadcast ``params``
         (a params dict) on its rows of the (K, M, B) plan ``idx``.
         Returns the (K, d) raveled trained models."""
-        return self._train(params, idx, self._rows, self._steps_k)
+        return ravel_stacked(self.train_all_tree(params, idx))
 
     def train_rows(self, params, idx: torch.Tensor,
                    ids: torch.Tensor) -> torch.Tensor:
@@ -109,8 +109,21 @@ class BatchedEngine:
         ``ids`` ((m,) global ids) train, on their (m, M, B) rows of the
         broadcast plan and with their own step counts. Returns the (m, d)
         trained rows; a client's row equals its ``train_all`` row."""
-        rows = ids.long()[:, None]
-        return self._train(params, idx, rows, self.steps_for(ids))
+        return ravel_stacked(self.train_rows_tree(params, idx, ids))
+
+    def train_all_tree(self, params, idx: torch.Tensor) -> dict:
+        """``train_all`` with the trained models as a client-stacked params
+        dict ((K, ...) leaves, one contiguous tensor each), the form the
+        pytree round carries (the reference's ``_train_all_tree``). The
+        same SGD ops: only the final ravel is left out."""
+        return self._train(params, idx, self._rows, self._steps_k)
+
+    def train_rows_tree(self, params, idx: torch.Tensor,
+                        ids: torch.Tensor) -> dict:
+        """``train_rows`` with the trained rows as a stacked params dict of
+        (m, ...) leaves."""
+        return self._train(params, idx, ids.long()[:, None],
+                           self.steps_for(ids))
 
     def _train(self, params, idx, rows, n_steps):
         n = rows.shape[0]
@@ -126,7 +139,7 @@ class BatchedEngine:
                 step = (lr * (m < n_steps).float()).reshape(n, 1)
             p = tree_map(lambda t, g: t - _bcast(step, t) * g, p,
                          self._grad(p, batch))
-        return ravel_stacked(p)
+        return p
 
     def enable_counter_plan(self, plan_fn: Callable[[int], torch.Tensor]):
         """Plan every broadcast with ``plan_fn(round)`` ((K, M, B) indices

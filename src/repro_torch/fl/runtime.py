@@ -1,6 +1,6 @@
 """The PAOTA aggregation period as one function on device tensors.
 
-Port of the dense, raveled, f32 path of ``repro.fl.runtime``:
+Port of the single-device paths of ``repro.fl.runtime``:
 ``paota_round_step`` takes a ``RoundCarry`` and returns the next one, with
 the stages in the reference's order — scheduler advance, eq.-25 factors
 (sweep 1 of the delta plane: ``repro_torch.kernels.ops.round_stats``),
@@ -35,8 +35,19 @@ draw, so chunking an ``advance`` never changes the trajectory;
 ``ArrayDraws`` replays given tensors, which is how the tests feed the
 reference's own draws to the port.
 
-Left out (the reference's fault, screen, rollback, grouped, TP and pytree
-branches): FusedPAOTA refuses each knob.
+The model is a raveled (d,) vector with (K, d) planes, or a params dict
+whose (K, ...) leaves are one contiguous tensor each (the pytree carry):
+the sweeps then run once per leaf, and the noise (d,) splits per leaf in
+leaf order. ``RoundCfg.pending_dtype="bfloat16"`` stores the (K, ...)
+planes in bf16: deltas are formed in f32 from the f32 trained rows before
+the cast, every sum accumulates in f32 and the globals stay f32.
+``RoundCfg.screen`` masks rows whose sweep-1 stats are non-finite (or
+whose payload norm passes ``screen_max_norm``) out of the superposition,
+zeroed before sweep 2 (0 * NaN is NaN); ``divergence_factor`` rolls w_g
+back to the carry's last good global when its norm jumps. Each knob left
+off keeps the round's program as it was without it.
+
+Left out (the reference's grouped and TP branches): they need a mesh.
 """
 from __future__ import annotations
 
@@ -57,11 +68,12 @@ from repro_torch.core.compress import (dequantize_int8, ef_residual,
                                        gather_rows, quantize_int8_stochastic,
                                        scatter_rows, sparsify, topk_support)
 from repro_torch.core.power_control import (client_sq_norms,
+                                            global_sq_norm,
                                             power_from_beta,
                                             similarity_factor,
                                             staleness_factor)
-from repro_torch.core.scheduler import (TAG_COMPRESS, TAG_NOISE, TAG_QUANT,
-                                        TAG_SCHED, ScenarioConfig,
+from repro_torch.core.scheduler import (TAG_COMPRESS, TAG_FAULT, TAG_NOISE,
+                                        TAG_QUANT, TAG_SCHED, ScenarioConfig,
                                         ScenarioTraits, counter_latencies,
                                         counter_scenario_latencies,
                                         counter_scenario_masks,
@@ -71,15 +83,22 @@ from repro_torch.core.scheduler import (TAG_COMPRESS, TAG_NOISE, TAG_QUANT,
 from repro_torch.data.pipeline import counter_batch_plan
 from repro_torch.device import f32, resolve_device
 from repro_torch.kernels.ops import round_stats, round_stats_compressed
+from repro_torch.tree import tree_leaves, tree_map
 
 # per-round metrics that live on the device, in the order they are stacked
 DEVICE_METRICS = ("n_participants", "mean_staleness", "beta_mean",
                   "varsigma", "p2_objective")
+# their screening and rollback counterparts, on the device only while the
+# branch is on (0 otherwise, with nothing computed)
+FAULT_METRICS = ("n_screened", "rolled_back")
 
 
 @dataclass
 class RoundCarry:
-    """PAOTA state threaded through the rounds (dense, raveled, f32)."""
+    """PAOTA state threaded through the rounds. The model quantities are a
+    (d,) vector and (K, d) planes, or params dicts of such leaves; the
+    planes are stored in ``RoundCfg.pending_dtype``, the globals in
+    f32."""
     t: int                      # scheduler round counter (host-side)
     time: float                 # simulated clock in seconds (report-only)
     ready: torch.Tensor         # (K,) bool: b_k at the aggregation slot
@@ -107,6 +126,10 @@ class RoundCarry:
     resid_val: Optional[torch.Tensor] = None    # (K, s) f32 parked EF
                                 # residuals, indexed by client
     resid_idx: Optional[torch.Tensor] = None    # (K, s) i32 parked supports
+    # divergence rollback only (RoundCfg.divergence_factor > 0)
+    good_global: Optional[torch.Tensor] = None  # last global that passed
+                                # the norm check (vector or params dict)
+    good_norm2: Optional[torch.Tensor] = None   # f32 ||good_global||^2
 
 
 class RoundCfg(NamedTuple):
@@ -126,6 +149,14 @@ class RoundCfg(NamedTuple):
     slot_dtype: str = ""        # compressed value storage: "float32" |
                                 # "bfloat16" | "int8" (absmax + dither)
     error_feedback: bool = False  # carry the EF residual planes
+    pending_dtype: str = "float32"  # (K, ...) plane storage: "float32" |
+                                # "bfloat16" (f32 accumulation throughout)
+    screen: bool = False        # mask non-finite (and norm-fenced) rows
+                                # out of the superposition
+    screen_max_norm: float = 0.0  # norm fence: ||payload|| above it is
+                                # screened too (0: finite-only)
+    divergence_factor: float = 0.0  # roll back when ||w_g|| passes factor *
+                                # max(||good||, 1); 0 = off
 
 
 class RoundStreams(NamedTuple):
@@ -134,7 +165,8 @@ class RoundStreams(NamedTuple):
     local_train: Callable       # (global (d,), round) -> (K, d) trained
     latencies: Callable         # (round) -> (K,) f32 latency draws
     channel: Callable           # (round) -> (K,) f32 |h_k|
-    noise: Callable             # (round) -> (d,) f32 sigma_n * N(0, 1)
+    noise: Callable             # (round) -> (d,) f32 sigma_n * N(0, 1),
+                                # or None on a noiseless channel
     scenario: Optional[Callable] = None  # (round) -> (K,) bool
                                 # (available, dropped) masks
     cohort_train: Optional[Callable] = None  # (global, round, (m,) ids)
@@ -158,7 +190,9 @@ class CounterDraws:
     row k is a pure function of (seed, round, k). The scheduler seed keys
     latencies, scenario masks, slot priorities and the static traits; the
     server seed keys channel, noise, batch plans, the randmask support and
-    the int8 dither, the roles the reference's two keys play.
+    the int8 dither, the roles the reference's two keys play. The fault
+    uniforms are keyed on the scheduler seed under ``TAG_FAULT``, the fade
+    mask's on a sub-stream of it (fold 1), as the reference's are.
 
     ``scenario`` (a ``ScenarioConfig``) shapes the latencies, adds the
     masks and draws the static ``traits`` once; ``m`` and ``s`` are the
@@ -229,6 +263,14 @@ class CounterDraws:
         return counter_uniform(self.srv_seed, t, TAG_QUANT,
                                (self.m, self.s), self.device)
 
+    def fault_uniform(self, r: int) -> torch.Tensor:
+        return counter_uniform(self.sched_seed, r, TAG_FAULT, (self.k,),
+                               self.device)
+
+    def fade_uniform(self, t: int) -> torch.Tensor:
+        return counter_uniform(self.sched_seed, t, TAG_FAULT, (self.k,),
+                               self.device, fold=1)
+
 
 class ArrayDraws:
     """Replays given draws: ``latencies`` (R+1, K) and ``batch_plan``
@@ -236,14 +278,17 @@ class ArrayDraws:
     for rounds 0..R-1 — the noise already scaled by sigma_n. The cohort,
     scenario and compressed branches add ``priority`` (R, K), ``avail`` and
     ``drop`` (R, K) masks, ``compress_mask`` (R+1, s), ``quant_uniform``
-    (R+1, m, s), and the static ``traits`` (a ``ScenarioTraits``). A draw
-    left None is one the run must not ask for (a host-mode server draws
-    its latencies and plans on the host)."""
+    (R+1, m, s), and the static ``traits`` (a ``ScenarioTraits``); fault
+    injection adds the payload-fault uniforms ``fault_uniform`` (R+1, K)
+    and the deep-fade uniforms ``fade_uniform`` (R, K). A draw left None
+    is one the run must not ask for (a host-mode server draws its
+    latencies and plans on the host)."""
 
     def __init__(self, latencies=None, channel=None, noise=None,
                  batch_plan=None, device=None, *, priority=None,
                  avail=None, drop=None, compress_mask=None,
-                 quant_uniform=None, traits: Optional[ScenarioTraits] = None):
+                 quant_uniform=None, traits: Optional[ScenarioTraits] = None,
+                 fault_uniform=None, fade_uniform=None):
         self.device = resolve_device(device)
 
         def put(a, dtype):
@@ -260,6 +305,8 @@ class ArrayDraws:
         self._drop = put(drop, torch.bool)
         self._mask = put(compress_mask, torch.int32)
         self._quant = put(quant_uniform, torch.float32)
+        self._fault = put(fault_uniform, torch.float32)
+        self._fade = put(fade_uniform, torch.float32)
         self.traits = None if traits is None else ScenarioTraits(
             *(put(a, dt) for a, dt in zip(
                 traits, (torch.int32, torch.float32, torch.int32,
@@ -298,6 +345,12 @@ class ArrayDraws:
     def quant_uniform(self, t: int):
         return self._at(self._quant, t, "int8 dither uniforms")
 
+    def fault_uniform(self, r: int):
+        return self._at(self._fault, r, "payload-fault uniforms")
+
+    def fade_uniform(self, t: int):
+        return self._at(self._fade, t, "deep-fade uniforms")
+
 
 # ---------------------------------------------------------------------------
 # stage helpers
@@ -311,7 +364,7 @@ def round_factors(deltas, payload, global_vec, prev_global, stal, omega,
     means the payload IS the deltas (transmit='delta').
 
     Returns (rho, theta, w_norm2)."""
-    gdir = global_vec - prev_global
+    gdir = tree_map(torch.sub, global_vec, prev_global)
     dots, dn2, pn2, gn2 = round_stats(deltas, gdir, payload)
     eps = f32(eps)
     den = torch.sqrt(torch.clamp_min(dn2, eps) * torch.clamp_min(gn2, eps))
@@ -351,7 +404,7 @@ def compressed_round_factors(values, idx, resid, resid_idx, global_vec,
     den = torch.sqrt(torch.clamp_min(dn2, eps) * torch.clamp_min(gn2, eps))
     cos = torch.where(torch.sqrt(gn2) < f32(1e-12), torch.zeros_like(dots),
                       dots / den)
-    return similarity_factor(cos), staleness_factor(stal, omega), pn2
+    return staleness_factor(stal, omega), similarity_factor(cos), pn2
 
 
 def _compress_plane(comp, *, rcfg: RoundCfg, streams: RoundStreams, t: int):
@@ -433,6 +486,73 @@ def constraint7_powers(powers, h, p_max: float, w_norm2=None, payload=None):
     return torch.minimum(powers, effective_power_cap(w_norm2, h, p_max))
 
 
+# divergence detector: a global whose norm sits below this floor compares
+# against the floor (a near-zero initial model must be allowed to grow)
+DIVERGENCE_NORM_FLOOR = 1.0
+
+
+def _zero_rows(tree, ok):
+    """The stacked tree with the rows failing ``ok`` set to +0.0, which
+    sweep 2 must see before it runs: it computes b * p * x, and 0 * NaN
+    is NaN. A screened row then adds exactly what a b = 0 row adds."""
+    def leaf(l):
+        m = ok.reshape((ok.shape[0],) + (1,) * (l.dim() - 1))
+        return torch.where(m, l, torch.zeros((), dtype=l.dtype,
+                                             device=l.device))
+    return tree_map(leaf, tree)
+
+
+def _divergence_rollback(new_global, new_prev, carry: RoundCarry,
+                         rcfg: RoundCfg):
+    """Post-update divergence detector: when ||w_g^new||^2 passes
+    factor^2 * max(||good||^2, floor^2), or is not finite (the test is
+    written so NaN lands on the diverged side), both w_g and prev_global
+    return to the carry's last good global and the slot stays; otherwise
+    the accepted global becomes the new last good one. Device selects
+    only. Returns (global, prev, good_global, good_norm2, rolled_back)."""
+    n_new = global_sq_norm(new_global)
+    limit = f32(f32(rcfg.divergence_factor) ** 2) * torch.clamp_min(
+        carry.good_norm2, f32(DIVERGENCE_NORM_FLOOR ** 2))
+    diverged = ~(n_new <= limit)
+
+    def sel(good, cand):
+        return torch.where(diverged, good, cand)
+
+    new_global = tree_map(sel, carry.good_global, new_global)
+    new_prev = tree_map(sel, carry.good_global, new_prev)
+    good_n2 = torch.where(diverged, carry.good_norm2, n_new)
+    return new_global, new_prev, new_global, good_n2, diverged.float()
+
+
+def _storage_dtype(rcfg: Optional[RoundCfg]) -> torch.dtype:
+    name = "float32" if rcfg is None else rcfg.pending_dtype
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _cast_rows(tree, dtype):
+    return tree_map(lambda l: l.to(dtype), tree)
+
+
+def _screen(payload, theta, w_norm2, b, rcfg: RoundCfg):
+    """Stage 2b (``rcfg.screen``), read off the stats sweep the round
+    already ran: a row with a NaN or Inf anywhere shows a non-finite theta
+    or sq-norm, and ``screen_max_norm`` fences rows by their payload norm.
+    Failing rows leave the superposition like phantom clients: b = 0, the
+    payload row +0.0 (``_zero_rows``), and their theta and w_norm2 set to
+    0, so the water-filling never meets a NaN (NaN * b survives b = 0).
+    Returns (payload, theta, w_norm2, b, ok, n_screened)."""
+    ok = torch.isfinite(theta) & torch.isfinite(w_norm2)
+    if rcfg.screen_max_norm > 0.0:
+        ok = ok & (w_norm2 <= f32(f32(rcfg.screen_max_norm) ** 2))
+    zero = torch.zeros_like(theta)
+    theta, w_norm2 = torch.where(ok, theta, zero), torch.where(ok, w_norm2,
+                                                               zero)
+    n_screened = (b * (~ok).float()).sum()
+    b = b * ok.float()
+    return (None if payload is None else _zero_rows(payload, ok), theta,
+            w_norm2, b, ok, n_screened)
+
+
 # ---------------------------------------------------------------------------
 # the round transition
 # ---------------------------------------------------------------------------
@@ -453,10 +573,11 @@ def _upload_masks(ready, streams: RoundStreams, t: int):
     return ready & avail & ~drop, ready & avail, avail
 
 
-def _metrics(b, stal, beta, varsigma, p2_obj):
+def _metrics(b, stal, beta, varsigma, p2_obj, n_screened=None,
+             rolled=None):
     n_upl = b.sum()
     denom = torch.clamp_min(n_upl, 1.0)
-    return {
+    out = {
         "n_participants": n_upl,
         "mean_staleness": (stal * b).sum() / denom,
         "beta_mean": (beta * b).sum() / denom,
@@ -466,6 +587,11 @@ def _metrics(b, stal, beta, varsigma, p2_obj):
         "p2_objective": torch.where(n_upl > 0, p2_obj,
                                     torch.full_like(p2_obj, float("inf"))),
     }
+    if n_screened is not None:
+        out["n_screened"] = n_screened
+    if rolled is not None:
+        out["rolled_back"] = rolled
+    return out
 
 
 def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
@@ -493,6 +619,12 @@ def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
         carry.deltas, None if rcfg.transmit_delta else carry.pending,
         carry.global_vec, carry.prev_global, stal, rcfg.omega)
 
+    # 2b. screening: corrupt or fenced rows leave as phantom clients
+    n_screened = None
+    if rcfg.screen:
+        payload, theta, w_norm2, b, _, n_screened = _screen(
+            payload, theta, w_norm2, b, rcfg)
+
     # 3. P2 -> beta -> powers
     p_max = torch.full_like(b, f32(rcfg.p_max_watts))
     beta, p2_obj = waterfill_beta(rho, theta, p_max, b, rcfg.c1, rcfg.c0)
@@ -510,9 +642,17 @@ def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
         carry.global_vec, carry.prev_global, agg, varsigma,
         delta=rcfg.transmit_delta)
 
+    # 6b. divergence rollback, before the broadcast: a rolled-back round
+    # retrains from the restored model
+    good, good_n2, rolled = carry.good_global, carry.good_norm2, None
+    if rcfg.divergence_factor > 0.0:
+        new_global, new_prev, good, good_n2, rolled = _divergence_rollback(
+            new_global, new_prev, carry, rcfg)
+
     # 7. broadcast w^{r+1} to the restarters (the uploaders, and the
     # dropped uploaders whose update was lost), who restart local
     # training; their delta rows are refreshed as f32 trained - w_g^{r+1}
+    # before the storage cast
     t_next = t + 1
     n_ready, n_lat, n_model = sched_broadcast(
         ready, carry.busy_lat, carry.model_round, restart,
@@ -521,19 +661,25 @@ def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
     pending, deltas = _refresh_rows(carry, restart, trained, new_global)
     nxt = RoundCarry(t=t_next, time=time, ready=n_ready, busy_lat=n_lat,
                      model_round=n_model, global_vec=new_global,
-                     prev_global=new_prev, pending=pending, deltas=deltas)
-    return nxt, _metrics(b, stal, beta, varsigma, p2_obj)
+                     prev_global=new_prev, pending=pending, deltas=deltas,
+                     good_global=good, good_norm2=good_n2)
+    return nxt, _metrics(b, stal, beta, varsigma, p2_obj, n_screened,
+                         rolled)
 
 
 def _refresh_rows(carry: RoundCarry, take, trained, new_global):
     """The payload rows under ``take`` get the freshly trained models:
-    pending (when carried) and the f32 delta trained - w_g^{r+1}."""
-    rows = take[:, None]
-    if carry.pending is not None:
-        pending = torch.where(rows, trained, carry.pending)
-        return pending, torch.where(rows, pending - new_global,
-                                    carry.deltas)
-    return None, torch.where(rows, trained - new_global, carry.deltas)
+    pending (when carried) and the delta trained - w_g^{r+1}, formed in
+    f32 from the f32 trained rows and then cast to the planes' storage
+    dtype (never a difference of two rounded models)."""
+    def sel(new, old):
+        return torch.where(take.reshape((-1,) + (1,) * (new.dim() - 1)),
+                           new, old)
+
+    pending = None if carry.pending is None else tree_map(
+        lambda tr, p: sel(tr.to(p.dtype), p), trained, carry.pending)
+    return pending, tree_map(lambda tr, dl, g: sel((tr - g).to(dl.dtype), dl),
+                             trained, carry.deltas, new_global)
 
 
 def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
@@ -569,7 +715,7 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
     # 2-4. stats (compressed: on the (m, s) plane; the identity support
     # and the uncompressed cohort: the dense stats), P2, (7)
     payload = carry.deltas if rcfg.transmit_delta else carry.pending
-    d_model = carry.global_vec.shape[0]
+    d_model = carry.global_vec.shape[0] if rcfg.compress else 0
     identity = bool(rcfg.compress) and rcfg.compress_s >= d_model
     if rcfg.compress:
         v_id = (carry.deltas if carry.slot_scale is None
@@ -587,6 +733,19 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
         rho, theta, w_norm2 = round_factors(
             carry.deltas, None if rcfg.transmit_delta else carry.pending,
             carry.global_vec, carry.prev_global, stal, rcfg.omega)
+
+    # 2b. screening over the slots; compressed slots zero their value rows
+    # and their int8 scales, so a NaN scale adds 0 * 0, never 0 * NaN
+    n_screened = None
+    vals_s, scale_s = carry.deltas, carry.slot_scale
+    if rcfg.screen:
+        payload, theta, w_norm2, b, ok, n_screened = _screen(
+            None if rcfg.compress else payload, theta, w_norm2, b, rcfg)
+        if rcfg.compress:
+            vals_s = _zero_rows(vals_s, ok)
+            if scale_s is not None:
+                scale_s = torch.where(ok, scale_s, torch.zeros_like(scale_s))
+            v_id = _zero_rows(v_id, ok)
     p_max = torch.full((m,), f32(rcfg.p_max_watts), device=dev)
     beta, p2_obj = waterfill_beta(rho, theta, p_max, b, rcfg.c1, rcfg.c0)
     powers = power_from_beta(beta, rho, theta, p_max)
@@ -598,14 +757,20 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
     # the zero-uploader-guarded update
     if rcfg.compress and not identity:
         agg, varsigma = paota_aggregate_compressed(
-            carry.deltas, carry.slot_idx, powers, b, streams.noise(t),
-            d_model, scale=carry.slot_scale)
+            vals_s, carry.slot_idx, powers, b, streams.noise(t),
+            d_model, scale=scale_s)
     else:
         agg, varsigma = paota_aggregate_stacked(
             v_id if rcfg.compress else payload, powers, b, streams.noise(t))
     new_global, new_prev = guarded_global_update(
         carry.global_vec, carry.prev_global, agg, varsigma,
         delta=rcfg.transmit_delta)
+
+    # 6b. divergence rollback, before the slots refill and train
+    good, good_n2, rolled = carry.good_global, carry.good_norm2, None
+    if rcfg.divergence_factor > 0.0:
+        new_global, new_prev, good, good_n2, rolled = _divergence_rollback(
+            new_global, new_prev, carry, rcfg)
 
     # 7a. slot turnover: the highest-priority available idle clients fill
     # the freed slots, in slot order
@@ -648,6 +813,11 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
         new_l = new_occ.long()
         pr_val = torch.where(take[:, None], resid_val[new_l],
                              torch.zeros((), device=dev))
+        if rcfg.screen:
+            # a screened slot's parked residual may be the corrupt row's
+            # NaN complement: resuming it would poison the client again
+            pr_val = torch.where(torch.isfinite(pr_val), pr_val,
+                                 torch.zeros((), device=dev))
         pr_idx = resid_idx[new_l]
         resid_val = _set_rows(resid_val, new_occ,
                               torch.zeros_like(carry.slot_resid), take)
@@ -660,7 +830,8 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
                      model_round=n_model, global_vec=new_global,
                      prev_global=new_prev, pending=None, deltas=carry.deltas,
                      slot_client=new_occ, slot_live=new_live,
-                     resid_val=resid_val, resid_idx=resid_idx)
+                     resid_val=resid_val, resid_idx=resid_idx,
+                     good_global=good, good_norm2=good_n2)
     if rcfg.compress:
         comp = trained - new_global[None]
         if pr_val is not None:
@@ -679,24 +850,41 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
     else:
         nxt.pending, nxt.deltas = _refresh_rows(carry, take, trained,
                                                 new_global)
-    return nxt, _metrics(b, stal, beta, varsigma, p2_obj)
+    return nxt, _metrics(b, stal, beta, varsigma, p2_obj, n_screened,
+                         rolled)
+
+
+def _init_planes(vec, trained, keep_pending: bool, rcfg):
+    """(pending, deltas, good_global, good_norm2) of a round-0 carry: the
+    f32 delta trained - w_g^0 formed before the storage cast, and the
+    rollback slot seeded from w_g^0 when the detector is on."""
+    dtype = _storage_dtype(rcfg)
+    pending = _cast_rows(trained, dtype) if keep_pending else None
+    deltas = tree_map(lambda tr, g: (tr - g).to(dtype), trained, vec)
+    if rcfg is None or rcfg.divergence_factor <= 0.0:
+        return pending, deltas, None, None
+    return pending, deltas, vec, global_sq_norm(vec)
 
 
 def init_round_carry(vec, *, streams: RoundStreams,
-                     keep_pending: bool = True) -> RoundCarry:
+                     keep_pending: bool = True,
+                     rcfg: Optional[RoundCfg] = None) -> RoundCarry:
     """Round-0 kick-off: broadcast w_g^0 to every client and run their
     local training. ``keep_pending=False`` (transmit='delta') carries the
-    delta plane only."""
+    delta plane only; ``rcfg`` (its storage dtype and rollback knob)
+    shapes the planes."""
     trained = streams.local_train(vec, 0)
-    k = trained.shape[0]
+    k = tree_leaves(trained)[0].shape[0]
+    dev = tree_leaves(vec)[0].device
+    pending, deltas, good, good_n2 = _init_planes(vec, trained,
+                                                  keep_pending, rcfg)
     return RoundCarry(
         t=0, time=0.0,
-        ready=torch.zeros((k,), dtype=torch.bool, device=vec.device),
+        ready=torch.zeros((k,), dtype=torch.bool, device=dev),
         busy_lat=streams.latencies(0),
-        model_round=torch.zeros((k,), dtype=torch.int32, device=vec.device),
-        global_vec=vec, prev_global=vec,
-        pending=trained if keep_pending else None,
-        deltas=trained - vec)
+        model_round=torch.zeros((k,), dtype=torch.int32, device=dev),
+        global_vec=vec, prev_global=vec, pending=pending, deltas=deltas,
+        good_global=good, good_norm2=good_n2)
 
 
 def init_cohort_carry(vec, *, streams: RoundStreams, k: int, m: int,
@@ -709,22 +897,25 @@ def init_cohort_carry(vec, *, streams: RoundStreams, k: int, m: int,
     parked-residual planes when error feedback is on."""
     if not 1 <= m <= k:
         raise ValueError(f"cohort_size={m} must lie in [1, K={k}]")
-    dev = vec.device
+    dev = tree_leaves(vec)[0].device
     occ = torch.arange(m, dtype=torch.int32, device=dev)
     live = torch.ones((m,), dtype=torch.bool, device=dev)
     lat = streams.latencies(0)
     busy = torch.full_like(lat, float("inf"))
     busy[:m] = lat[:m]
     trained = streams.cohort_train(vec, 0, occ)
+    compress = rcfg is not None and bool(rcfg.compress)
+    pending, deltas, good, good_n2 = _init_planes(
+        vec, trained, keep_pending and not compress, rcfg)
     carry = RoundCarry(
         t=0, time=0.0,
         ready=torch.zeros((k,), dtype=torch.bool, device=dev),
         busy_lat=busy,
         model_round=torch.zeros((k,), dtype=torch.int32, device=dev),
-        global_vec=vec, prev_global=vec,
-        pending=trained if keep_pending else None,
-        deltas=trained - vec, slot_client=occ, slot_live=live)
-    if rcfg is None or not rcfg.compress:
+        global_vec=vec, prev_global=vec, pending=pending, deltas=deltas,
+        slot_client=occ, slot_live=live, good_global=good,
+        good_norm2=good_n2)
+    if not compress:
         return carry
     stored, idx, scale, e_val, e_idx = _compress_plane(
         trained - vec[None], rcfg=rcfg, streams=streams, t=0)
@@ -742,14 +933,15 @@ def init_cohort_carry(vec, *, streams: RoundStreams, k: int, m: int,
 def scan_rounds(carry: RoundCarry, n_rounds: int, *, rcfg: RoundCfg,
                 streams: RoundStreams):
     """``n_rounds`` periods in a Python loop. Returns (carry, metrics):
-    ``metrics`` maps each of ``DEVICE_METRICS`` to an (n_rounds,) device
-    tensor, plus ``"time"`` to a host list."""
-    outs = {k: [] for k in DEVICE_METRICS}
+    ``metrics`` maps each of ``DEVICE_METRICS`` (and of ``FAULT_METRICS``
+    whose branch is on) to an (n_rounds,) device tensor, plus ``"time"``
+    to a host list."""
+    outs = {}
     times = []
     for _ in range(n_rounds):
         carry, out = paota_round_step(carry, rcfg=rcfg, streams=streams)
-        for k in DEVICE_METRICS:
-            outs[k].append(out[k])
+        for k, v in out.items():
+            outs.setdefault(k, []).append(v)
         times.append(carry.time)
     stacked = {k: torch.stack(v) for k, v in outs.items()}
     stacked["time"] = times

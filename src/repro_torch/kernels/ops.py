@@ -15,6 +15,7 @@ from repro_torch.kernels import gather_superpose as _gs
 from repro_torch.kernels import round_stats as _rs
 from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels import swa_attention as _swa
+from repro_torch.tree import leaf2d, tree_leaves
 
 
 def _route(device, what: str) -> bool:
@@ -27,14 +28,30 @@ def _route(device, what: str) -> bool:
 
 
 def round_stats(deltas, g, payload=None):
-    """Fused eq.-25 stats over the raveled (K, D) plane in one sweep:
-    ``(dots, dn2, pn2 | None, gn2)`` — (K,) f32 vectors and an f32
-    scalar."""
-    fn = (_rs.round_stats_cuda if _route(deltas.device, "round_stats")
+    """Fused eq.-25 stats in one sweep: ``(dots, dn2, pn2 | None, gn2)`` —
+    (K,) f32 vectors and an f32 scalar. ``deltas`` is a params dict of
+    (K, ...) leaves (f32 or bf16) with ``g`` (and ``payload``) of the same
+    structure, or the raveled (K, D) plane, the one-leaf tree. Every leaf
+    is viewed as (K, prod(trailing)) and swept on its own, the 10-wide
+    bias leaves too, and the stats are summed across leaves in leaf order
+    (the reference's per-leaf route, ``repro.kernels.ops.round_stats``)."""
+    d_leaves = tree_leaves(deltas)
+    p_leaves = (tree_leaves(payload) if payload is not None
+                else [None] * len(d_leaves))
+    fn = (_rs.round_stats_cuda if _route(d_leaves[0].device, "round_stats")
           else _rs.round_stats_plain)
-    stats, gn2 = fn(deltas, g, payload)
-    pn2 = None if payload is None else stats[:, 2]
-    return stats[:, 0], stats[:, 1], pn2, gn2
+    dots = dn2 = pn2 = gn2 = None
+    for dl, pl, gl in zip(d_leaves, p_leaves, tree_leaves(g)):
+        stats, g2 = fn(leaf2d(dl), gl.reshape(-1),
+                       None if pl is None else leaf2d(pl))
+        if dots is None:
+            dots, dn2, gn2 = stats[:, 0], stats[:, 1], g2
+            pn2 = None if pl is None else stats[:, 2]
+        else:
+            dots, dn2, gn2 = dots + stats[:, 0], dn2 + stats[:, 1], gn2 + g2
+            if pl is not None:
+                pn2 = pn2 + stats[:, 2]
+    return dots, dn2, pn2, gn2
 
 
 def superpose_normalize(stacked, powers, mask, noise, vs_min: float = 1e-12):

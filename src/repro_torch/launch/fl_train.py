@@ -20,9 +20,14 @@ accuracy) and writes the trajectory CSV with the reference's columns.
 ``PAOTAServer``; ``--engine fused`` runs the fused on-device round
 (``FusedPAOTA``, counter draws), with the baselines on the batched engine
 as the reference does. The reference's ``legacy`` and ``sharded`` engines
-are not ported and are refused by name; its other flags are not ported.
+are not ported and are refused by name, and so is its ``--group-period``
+(grouped aggregation needs the sharded engine).
 
-With ``--engine fused``, ``--cohort-size m`` runs the active-cohort round
+With ``--engine fused``, ``--params-mode pytree`` carries the model as its
+params dict (one contiguous tensor per leaf, the sweeps launched per
+leaf) instead of the raveled (K, d) plane, and ``--pending-dtype
+bfloat16`` stores the (K, ...) planes in bf16 (f32 accumulation, f32
+globals). ``--cohort-size m`` runs the active-cohort round
 (model rows only for the m in-flight slots), and ``--compress
 topk|randmask`` with ``--compress-ratio s/d`` sparsifies the slot payloads
 to (m, s) planes with per-client error-feedback residuals
@@ -77,6 +82,8 @@ class BenchSetting:
     compress_ratio: float = 1.0  # kept fraction s/d
     slot_dtype: str = ""         # "" (f32) | float32 | bfloat16 | int8
     error_feedback: bool = True
+    params_mode: str = "raveled"   # fused PAOTA: raveled | pytree carry
+    pending_dtype: str = "float32"  # fused PAOTA: plane storage
 
     @classmethod
     def from_env(cls, **kw):
@@ -121,7 +128,9 @@ def make_server(name: str, s: BenchSetting, clients, params, device):
                               compress=s.compress or None,
                               compress_ratio=s.compress_ratio,
                               slot_dtype=s.slot_dtype or None,
-                              error_feedback=s.error_feedback)
+                              error_feedback=s.error_feedback,
+                              params_mode=s.params_mode,
+                              pending_dtype=s.pending_dtype)
         return PAOTAServer(params, clients, chan, sched, cfg, device=device)
     sync = SyncConfig(n_select=s.n_select, seed=s.seed)
     if name == "local_sgd":
@@ -175,6 +184,14 @@ def main(argv=None):
                          "whole PAOTA round on the device (counter draws; "
                          "baselines stay batched)")
     ap.add_argument("--transmit", default="model", choices=["model", "delta"])
+    ap.add_argument("--params-mode", default="raveled",
+                    choices=["raveled", "pytree"],
+                    help="fused: model carry, the raveled (K, d) plane or "
+                         "the params dict (sweeps per leaf)")
+    ap.add_argument("--pending-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="fused: storage of the (K, ...) planes (f32 "
+                         "accumulation, f32 globals)")
     ap.add_argument("--cohort-size", type=int, default=0,
                     help="fused: active-cohort round with m slots")
     ap.add_argument("--compress", default="", choices=["", "topk",
@@ -194,10 +211,13 @@ def main(argv=None):
         raise NotImplementedError(
             f"--engine {args.engine} selects a reference engine the port "
             f"does not have; the ported engines are {ENGINES}")
-    if args.engine != "fused" and (args.cohort_size or args.compress
-                                   or args.slot_dtype):
-        raise ValueError("--cohort-size, --compress and --slot-dtype are "
-                         "options of the fused round: pass --engine fused")
+    if args.engine != "fused" and (
+            args.cohort_size or args.compress or args.slot_dtype
+            or args.params_mode != "raveled"
+            or args.pending_dtype != "float32"):
+        raise ValueError("--params-mode, --pending-dtype, --cohort-size, "
+                         "--compress and --slot-dtype are options of the "
+                         "fused round: pass --engine fused")
     dev = resolve_device(args.device)
 
     s = BenchSetting.from_env(n_rounds=args.rounds, n_clients=args.clients,
@@ -207,12 +227,16 @@ def main(argv=None):
                               compress=args.compress,
                               compress_ratio=args.compress_ratio,
                               slot_dtype=args.slot_dtype,
-                              error_feedback=not args.no_error_feedback)
+                              error_feedback=not args.no_error_feedback,
+                              params_mode=args.params_mode,
+                              pending_dtype=args.pending_dtype)
     clients, params, data = build_world(s)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"PAOTA vs Local SGD vs COTAF on {dev} ({name}): "
           f"K={s.n_clients}, rounds={s.n_rounds}, engine={s.engine}, "
           f"transmit={s.transmit}"
+          + (f", params={s.params_mode}, pending={s.pending_dtype}"
+             if s.engine == "fused" else "")
           + (f", cohort={s.cohort_size}, compress={s.compress or 'none'}"
              if s.cohort_size else ""))
     all_rows = []

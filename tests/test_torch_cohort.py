@@ -56,12 +56,12 @@ def _jax_params():
     return init_mlp_params(jax.random.PRNGKey(0))
 
 
-def reference(data, transmit, scenario=None, k=K, **kw):
+def reference(data, transmit, scenario=None, k=K, chan=None, **kw):
     x, y, parts = data
     clients = [FLClient(d, mlp_loss, batch_size=32, lr=0.1, local_steps=5)
                for d in build_federation(x, y, parts)]
     sc = None if scenario is None else ScenarioConfig(**scenario)
-    return FusedPAOTA(_jax_params(), clients, ChannelConfig(),
+    return FusedPAOTA(_jax_params(), clients, ChannelConfig(**(chan or {})),
                       SchedulerConfig(n_clients=k, seed=1),
                       PAOTAConfig(transmit=transmit), scenario=sc, **kw)
 
@@ -103,7 +103,7 @@ def reference_draws(ref, rounds):
     return out
 
 
-def port(data, transmit, draws=None, scenario=None, k=K, **kw):
+def port(data, transmit, draws=None, scenario=None, k=K, chan=None, **kw):
     x, y, parts = data
     clients = [tfl.FLClient(d, tloss, batch_size=32, lr=0.1, local_steps=5)
                for d in tbuild(x, y, parts)]
@@ -113,7 +113,8 @@ def port(data, transmit, draws=None, scenario=None, k=K, **kw):
     sc = None if scenario is None else tcore.ScenarioConfig(**scenario)
     if draws is not None:
         draws = tfl.ArrayDraws(device="cpu", **draws)
-    return tfl.FusedPAOTA(params, clients, tcore.ChannelConfig(),
+    return tfl.FusedPAOTA(params, clients,
+                          tcore.ChannelConfig(**(chan or {})),
                           tcore.SchedulerConfig(n_clients=k, seed=1),
                           tfl.PAOTAConfig(transmit=transmit), device="cpu",
                           draws=draws, scenario=sc, **kw)

@@ -36,6 +36,13 @@ SWEEP_KS = (1, 16, 64, 100, 300, 1000)
 SWEEP_DS = (1, 511, 8070, 8192, 20000)
 SWEEP_CASES = ([(k, d, 0) for k in SWEEP_KS for d in SWEEP_DS]
                + [(3, 511, 0), (100, 8070, 1), (100, 8192, 1)])
+# the MLP's leaves as the pytree carry sweeps them, in leaf order: l1.b,
+# l1.w, l2.b, l2.w, l3.b, l3.w (widths 10, 7840, 100), aligned and one
+# element off, at the paper's K and at K = 1000
+MLP_LEAF_WIDTHS = (10, 7840, 10, 100, 10, 100)
+SWEEP_CASES += sorted({(k, d, off) for k in (100, 1000)
+                       for d in MLP_LEAF_WIDTHS for off in (0, 1)}
+                      - set(SWEEP_CASES))
 
 
 def _plane(gen, k, d, dtype, offset, device):
@@ -630,3 +637,102 @@ def test_gather_superpose_all_dead_rows_at_the_state_plane_shape(cuda):
     torch.cuda.synchronize()
     assert float(raw) == 0.0
     torch.testing.assert_close(got, noise / 1e-12, rtol=3e-5, atol=0.0)
+
+
+def _mlp_leaves(gen, k, dtype, device):
+    """A stacked MLP tree as the pytree carry holds it: one contiguous
+    tensor per leaf, each its own allocation."""
+    shapes = {"l1": {"w": (784, 10), "b": (10,)},
+              "l2": {"w": (10, 10), "b": (10,)},
+              "l3": {"w": (10, 10), "b": (10,)}}
+    return {layer: {name: torch.randn((k,) + shape, generator=gen,
+                                      device=device).to(dtype)
+                    for name, shape in leaves.items()}
+            for layer, leaves in shapes.items()}
+
+
+@pytest.mark.parametrize("k", [100, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pytree_sweeps_launch_once_per_leaf(cuda, k, dtype):
+    """ops.round_stats and the pytree aggregate on a stacked MLP tree: six
+    launches of each kernel, one per leaf (the 10-wide ones too), summed
+    or split as the CPU twins on the same inputs do."""
+    from repro_torch.core.aggregation import paota_aggregate_stacked, ravel
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.tree import tree_map
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    deltas = _mlp_leaves(gen, k, dtype, cuda)
+    pay = _mlp_leaves(gen, k, dtype, cuda)
+    g = tree_map(lambda t: t[0].float().contiguous(),
+                 _mlp_leaves(gen, 1, torch.float32, cuda))
+    p = 0.1 + 15.0 * torch.rand((k,), generator=gen, device=cuda)
+    m = (torch.rand((k,), generator=gen, device=cuda) < 0.5).float()
+    noise = 1e-3 * torch.randn((8070,), generator=gen, device=cuda)
+    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)
+    before = rs.launches, ac.launches
+    got = ops.round_stats(deltas, g, pay)
+    agg, vs = paota_aggregate_stacked(pay, p, m, noise)
+    torch.cuda.synchronize()
+    assert (rs.launches, ac.launches) == (before[0] + 6, before[1] + 6)
+    want = ops.round_stats(cpu(deltas), cpu(g), cpu(pay))
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x.cpu(), w, **_tol(dtype))
+    w_agg, w_vs = paota_aggregate_stacked(cpu(pay), p.cpu(), m.cpu(),
+                                          noise.cpu())
+    tol = _tol(dtype) if dtype == torch.bfloat16 else dict(rtol=3e-5,
+                                                           atol=3e-5)
+    torch.testing.assert_close(ravel(agg)[0].cpu(), ravel(w_agg)[0], **tol)
+    torch.testing.assert_close(vs.cpu(), w_vs, rtol=3e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("d", [10, 7840, 8070])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_payload", [False, True])
+def test_round_stats_nonfinite_rows_stay_in_their_rows(cuda, d, dtype,
+                                                       with_payload):
+    """A NaN row and an Inf row (what fault injection uploads) give
+    non-finite stats in those rows only, which the screen reads; every
+    other row matches the twin."""
+    from repro_torch.kernels import round_stats as rs
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    k = 100
+    x = torch.randn((k, d), generator=gen, device=cuda).to(dtype)
+    x[3, d // 2] = float("nan")
+    x[7] = float("inf")
+    p = x.clone() if with_payload else None
+    g = torch.randn((d,), generator=gen, device=cuda)
+    got, gn2 = rs.round_stats_cuda(x, g, p)
+    want, want_g = rs.round_stats_plain(x, g, p)
+    torch.cuda.synchronize()
+    bad = torch.zeros((k,), dtype=torch.bool, device=cuda)
+    bad[[3, 7]] = True
+    assert not torch.isfinite(got[bad]).any(dim=1).any()
+    assert torch.isfinite(got[~bad]).all()
+    torch.testing.assert_close(got[~bad], want[~bad], **_tol(dtype))
+    assert torch.isfinite(gn2)
+    torch.testing.assert_close(gn2, want_g, rtol=3e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("k,d", [(100, 8070), (1000, 8070), (100, 10),
+                                 (100, 7840)])
+def test_bf16_sweeps_repeat_bit_identical(cuda, k, d):
+    """Both sweeps on a bf16 plane return the same bits on every call (a
+    fixed reduction order, no atomics)."""
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import round_stats as rs
+    gen = torch.Generator(device=cuda).manual_seed(k + d)
+    x = torch.randn((k, d), generator=gen, device=cuda).to(torch.bfloat16)
+    g = torch.randn((d,), generator=gen, device=cuda)
+    p = 0.1 + 15.0 * torch.rand((k,), generator=gen, device=cuda)
+    m = (torch.rand((k,), generator=gen, device=cuda) < 0.5).float()
+    n = 1e-3 * torch.randn((d,), generator=gen, device=cuda)
+    first = (rs.round_stats_cuda(x, g, x), ac.superpose_normalize_cuda(
+        x, p, m, n))
+    for _ in range(3):
+        again = (rs.round_stats_cuda(x, g, x),
+                 ac.superpose_normalize_cuda(x, p, m, n))
+        for a, b in zip(first, again):
+            for u, v in zip(a, b):
+                assert torch.equal(u, v)

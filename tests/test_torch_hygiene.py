@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 import repro_torch  # noqa: E402
+from repro_torch.core.scheduler import FaultConfig  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -32,10 +33,13 @@ def _imported_modules(path: Path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_neither_jax_nor_reference(path):
+    """Nor ``ml_dtypes``: the card's machine has only numpy, scipy, einops,
+    pytest and hypothesis beside torch (bf16 checkpoint planes go through
+    torch's own views)."""
     assert path.exists()
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), (
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), (
             f"{path.relative_to(ROOT)} imports {mod}")
 
 
@@ -59,7 +63,7 @@ def test_importing_the_port_loads_no_jax():
                 "kernels.ssd_chunk", "kernels.swa_attention", "configs",
                 "configs.mamba2_370m", "models.config", "models.layers",
                 "models.ssm", "models.transformer", "launch.steps",
-                "launch.serve"):
+                "launch.serve", "checkpoint.io", "tree"):
         assert f"repro_torch.{mod}" in names
 
 
@@ -124,21 +128,69 @@ def test_carry_across_and_p2_default_to_the_gpu(monkeypatch, call):
     assert np.isfinite(np.asarray(run(device="cpu"))).all()
 
 
+# knobs whose branch runs only with a partner knob set
+_PARTNERS = {"screen_max_norm": {"screen": True},
+             "checkpoint_every": {"checkpoint_dir": "ckpt"}}
+
+
 @pytest.mark.parametrize("knob,value", [
     ("params_mode", "pytree"), ("pending_dtype", "bfloat16"),
     ("screen_max_norm", 1.0), ("checkpoint_dir", "ckpt"),
-    ("faults", object()), ("screen", True),
+    ("faults", FaultConfig(nan_frac=0.1)), ("screen", True),
     ("divergence_factor", 2.0), ("checkpoint_every", 5)])
-def test_unported_branches_are_refused_by_name(knob, value):
-    with pytest.raises(NotImplementedError, match=knob):
-        _server(device="cpu", **{knob: value})
+def test_unported_branches_are_refused_by_name(knob, value, tmp_path):
+    """The eight knobs the port once refused as unported now select their
+    branch of the round: each is accepted and runs 2 rounds on the CPU
+    (``faults`` a FaultConfig, which the reference takes; the checkpoint
+    directory under ``tmp_path``)."""
+    kw = {knob: value, **_PARTNERS.get(knob, {})}
+    if "checkpoint_dir" in kw:
+        kw["checkpoint_dir"] = str(tmp_path / kw["checkpoint_dir"])
+    drv = _server(device="cpu", **kw)
+    rows = drv.advance(2)
+    assert [r["round"] for r in rows] == [0, 1]
+    assert np.isfinite(drv.global_vec).all()
+    assert all(set(r) >= {"n_screened", "rolled_back"} for r in rows)
+
+
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(params_mode="tree"), ValueError, "params_mode"),
+    (dict(pending_dtype="float16"), ValueError, "pending_dtype"),
+    (dict(faults=object()), ValueError, "FaultConfig"),
+    (dict(faults="pod_blackout"), NotImplementedError, "grouped sharded"),
+    (dict(screen_max_norm=1.0), ValueError, "screen=True"),
+    (dict(checkpoint_every=2), ValueError, "checkpoint_dir"),
+    (dict(divergence_factor=-1.0), ValueError, "divergence_factor"),
+    (dict(params_mode="pytree", cohort_size=1, compress="topk",
+          cfg="delta"), NotImplementedError, "params_mode='raveled'")],
+    ids=["params_mode", "pending_dtype", "faults", "pod_blackout",
+         "screen_max_norm", "checkpoint_every", "divergence_factor",
+         "compress_pytree"])
+def test_reference_refusals_keep_their_messages(kw, error, match):
+    """Values the reference's FusedPAOTA refuses, refused with its
+    messages; a pod blackout needs the grouped sharded driver."""
+    from repro_torch.fl import PAOTAConfig
+    if kw.get("faults") == "pod_blackout":
+        kw["faults"] = FaultConfig(nan_frac=0.1, pod_blackout=(0,),
+                                   blackout_start=1, blackout_stop=3)
+    if kw.pop("cfg", None):
+        kw["cfg"] = PAOTAConfig(transmit="delta")
+    with pytest.raises(error, match=match):
+        _server(device="cpu", **kw)
 
 
 def test_off_values_of_unported_knobs_are_accepted():
+    """Every knob at its off value is the plain round, row for row and bit
+    for bit."""
+    plain = _server(device="cpu")
     drv = _server(device="cpu", params_mode="raveled", cohort_size=0,
                   compress=None, screen=False, checkpoint_every=0,
-                  faults=None, divergence_factor=0.0)
+                  faults=FaultConfig(), divergence_factor=0.0,
+                  pending_dtype="float32", screen_max_norm=0.0,
+                  checkpoint_dir=None)
     assert drv.advance(2)[-1]["round"] == 1
+    assert drv.history == plain.advance(2)
+    np.testing.assert_array_equal(drv.global_vec, plain.global_vec)
 
 
 def test_bad_configurations_raise():
