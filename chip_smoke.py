@@ -39,9 +39,20 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   through the prefill step, 64 greedy decode steps, prefill -> decode
   continuity against a full forward, and a 300-token prompt.
 
+- the paper's harness (``repro_torch.bench``) at the reference's paper
+  scale (``REPRO_BENCH_FULL=1``: K = 100, 120 rounds, 50 synchronous
+  participants): the Theorem-1 bound, Table I with PAOTA on the host path
+  and on the fused round, Fig. 3 at both noise levels and the fixed-beta
+  ablation, each sweep launched once per PAOTA round and every algorithm
+  ending above its round-0 accuracy (``paper_harness``);
+- the kernel, fused-round, round-perf and engine benches through
+  ``python -m repro_torch.bench.run``'s entry into a temporary
+  ``REPRO_BENCH_OUT``, each artifact naming the card and its power limit,
+  and the differ over them (``bench_suite``).
+
 It times the seven kernels (the two sweeps also in bf16 and as the
-pytree carry's six per-leaf launches) and prints one JSON record per
-phase. Its last
+pytree carry's six per-leaf launches) with ``repro_torch.bench.timing``,
+the benches' own method, and prints one JSON record per phase. Its last
 three lines are the ``kernels`` record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line; without a GPU, or outside a checkout, it exits 2 at once.
@@ -50,19 +61,24 @@ It imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
+import csv
 import json
-import statistics
-import subprocess
+import os
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+if (SRC / "repro_torch").is_dir():
+    # one timing method for the benches and this script
+    sys.path.insert(0, str(SRC))
+    from repro_torch.bench.timing import graph_ms, l2_flush, time_ms
 
 # data-sheet HBM bandwidth (bytes/s), f32 rate outside the tensor cores and
 # dense TF32 tensor-core rate (FLOP/s) at the full power limit, matched on
@@ -74,17 +90,20 @@ CARDS = (("H200", 4.8e12, 67e12, 495e12),
 
 # the sweeps' parity shapes (K, D): odd D, D = 8070 (float2 loads), D % 8 ==
 # 0 (16-byte loads), several passes per row in sweep 1 (K = 1, D = 20000),
-# several rounds of row loads per warp in sweep 2 (K = 1000, D = 511), and
-# the pytree carry's leaf widths of the paper's MLP (10, 100, 7840)
+# several rounds of row loads per warp in sweep 2 (K = 1000, D = 511),
+# the pytree carry's leaf widths of the paper's MLP (10, 100, 7840), and
+# the round-perf bench's hidden-64 MLP at its K = 16 and 1000: the raveled
+# plane (D = 55,050) and its pytree carry's leaf widths
+ROUND_PERF_WIDTHS = (55050, 50176, 4096, 640, 64, 10)
 PARITY_SHAPES = ((1, 1), (3, 511), (64, 8191), (100, 8070), (100, 8192),
                  (1000, 8070), (1, 20000), (1000, 511), (100, 10),
-                 (100, 100), (100, 7840))
+                 (100, 100), (100, 7840)) + tuple(
+    (k, d) for k in (16, 1000) for d in ROUND_PERF_WIDTHS)
 MAIN_ROUNDS = 100
 SCALE_ROUNDS = 20
 HOST_ROUNDS = 30
 PARITY_ROUNDS = 5
 BASELINE_ROUNDS = 30
-TIMING_RUNS = 60
 COHORT_K, COHORT_M = 1000, 64
 COHORT_WARM, COHORT_ROUNDS, SCENARIO_ROUNDS = 10, 50, 30
 PLANE_K, PLANE_M, PLANE_D, PLANE_ROUNDS = 10**6, 256, 16384, 10
@@ -103,12 +122,13 @@ SSD_SHAPES = ((4, 32, 16, 32), (8, 64, 128, 64), (2, 256, 64, 64),
 SSD_GROUPED = (8, 4, 32, 1, 256, 128, 64)
 SSD_GROUPED_CASES = (SSD_GROUPED + (None,), SSD_GROUPED + (2048,),
                      (2, 3, 8, 2, 100, 40, 64, 3))
-# swa_attention: the reference's sweep (T, S, D, W, causal) and two
-# attention shapes of the zoo (H, Hkv, D) with their window
+# swa_attention: the reference's sweep (T, S, D, W, causal) with the
+# kernels bench's shape, and two attention shapes of the zoo (H, Hkv, D)
+# with their window
 SWA_SWEEP = ((128, 128, 64, None, True), (200, 200, 32, 64, True),
              (256, 256, 64, 96, True), (256, 256, 128, 128, True),
              (64, 64, 16, None, False), (96, 96, 64, 32, True),
-             (130, 130, 64, 64, True))
+             (130, 130, 64, 64, True), (512, 512, 64, 128, True))
 # the tensor-core kernel's branches (T, S, D, W, causal), f32 and bf16
 # (the same list as tests/test_torch_cuda.py's SWA_BRANCHES: change both):
 # every instance's head dim (16 to 256; 33 and 40 with pitches that are no
@@ -141,13 +161,6 @@ def card_rates(name: str):
         if key in name:
             return bw, flops, tf32
     raise RuntimeError(f"no data-sheet rates for {name!r}")
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1165,7 +1178,8 @@ def swa_inputs(dev, b, t, h, hkv, d, dtype, seed):
 
 def swa_parity(dev, main_err):
     """swa_attention against its twin: the reference's seven sweep shapes
-    (windowed, full, bidirectional, ragged) and its bf16 case, then two
+    (windowed, full, bidirectional, ragged), the kernels bench's (T = 512,
+    W = 128) and the reference's bf16 case, then two
     attention shapes of the zoo at T = 4608, W = 4096 through
     ops.swa_attention (mixtral-8x22b's 48 query heads over 8 kv heads,
     D = 128; zamba2-7b's 32/32 heads, D = 112), at the reference's 3e-5
@@ -1325,7 +1339,7 @@ def layer_stage_times(model, dev):
     over 8 x 1,024 tokens, the decode layer over 8 tokens."""
     cfg = model.cfg
     layer = model.layers[0]
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    flush = l2_flush(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     u = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen,
                     device=dev)
@@ -1447,33 +1461,179 @@ def lm_serve(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: kernel times
+# phases 16-17: the paper's harness and the bench suite
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, flush):
-    """Median ms of one call, CUDA events around it, the L2 cache flushed
-    before every call (the round finds the plane cold after local SGD)."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(TIMING_RUNS):
-        flush.zero_()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+SWEEPS = ("round_stats", "superpose_normalize")
 
+
+def _harness_run(tag, fn, trajectories):
+    """Run one paper module with the sweep counters at 0, appending every
+    trajectory it makes through ``common.run_algorithm`` to
+    ``trajectories``. Returns (rows, PAOTA rounds run, sweep launches)."""
+    from repro_torch.bench import common
+    made = []
+    orig = common.run_algorithm
+
+    def recording(name, s, *args, **kw):
+        rows = orig(name, s, *args, **kw)
+        made.append((name, s, rows))
+        return rows
+    common.run_algorithm = recording
+    zero_counters()
+    try:
+        rows = fn()
+    finally:
+        common.run_algorithm = orig
+    launches = read_counters(SWEEPS)
+    paota_rounds = sum(s.n_rounds for name, s, _ in made if name == "paota")
+    for name, s, traj in made:
+        trajectories.append((tag, name, s, traj))
+    return rows, paota_rounds, launches
+
+
+def paper_harness(dev, tmpdir):
+    """The reference's paper scale (REPRO_BENCH_FULL=1: K = 100, 120
+    rounds, 50 synchronous participants) on the card: the bound, Table I
+    with PAOTA on the host path and on the fused round, Fig. 3 at both
+    noise levels, and the fixed-beta ablation. Every PAOTA round launches
+    each sweep once; every algorithm ends above its round-0 accuracy."""
+    from repro_torch.bench import ablation, bound, common, fig3, table1
+    from repro_torch.fl import evaluate
+    from repro_torch.models.mlp import mlp_apply
+    from repro_torch.tree import tree_map
+    checks, by_path, trajectories = {}, {}, []
+    with mock.patch.dict(os.environ, REPRO_BENCH_FULL="1",
+                         REPRO_BENCH_OUT=tmpdir):
+        t = time.perf_counter()
+        rows = bound.run(dev)
+        log({"phase": "paper_harness", "module": "bound", "rows": rows,
+             "seconds": time.perf_counter() - t})
+        # the fixed-beta servers are built without run_algorithm: their
+        # rounds are the ablation setting's, once per variant
+        s = common.BenchSetting.from_env(n_rounds=30)
+        world = (s,) + common.build_world(s)
+        _, _, params, (_, _, x_te, y_te) = world
+        acc_init = evaluate(tree_map(lambda a: a.to(dev), params), x_te,
+                            y_te, mlp_apply)["accuracy"]
+        fixed = tuple(ablation.FIXED_BETA)
+        runs = [("table1 host", lambda: table1.run(dev)),
+                ("table1 fused", lambda: table1.run(dev, engine="fused")),
+                ("fig3", lambda: fig3.run(dev)),
+                ("ablation fixed beta", lambda: ablation.run_solver_ablation(
+                    dev, names=fixed, world=world))]
+        for tag, fn in runs:
+            t = time.perf_counter()
+            rows, paota_rounds, launches = _harness_run(tag, fn,
+                                                        trajectories)
+            if tag.startswith("ablation"):
+                paota_rounds = s.n_rounds * len(fixed)
+            per_round = {k: v / max(paota_rounds, 1)
+                         for k, v in launches.items()}
+            by_path[f"paper_harness {tag}"] = launches
+            checks[f"{tag}: one launch of each sweep per PAOTA round"] = (
+                paota_rounds > 0 and all(v == paota_rounds
+                                         for v in launches.values()))
+            rec = {"phase": "paper_harness", "module": tag,
+                   "seconds": time.perf_counter() - t,
+                   "ms_per_round": {r["name"]: r["us_per_call"] / 1e3
+                                    for r in rows},
+                   "paota_rounds": paota_rounds, "launches": launches,
+                   "launches_per_paota_round": per_round, "rows": rows}
+            if tag.startswith("table1"):
+                with open(os.path.join(tmpdir, "table1.csv")) as f:
+                    rec["table1"] = list(csv.DictReader(f))
+            if tag.startswith("ablation"):
+                accs = {r["name"]: float(r["derived"].split("=")[1])
+                        for r in rows}
+                rec["accuracy"] = accs
+                rec["accuracy_initial_params"] = acc_init
+                for variant, acc in accs.items():
+                    checks[f"{variant}: final accuracy above the initial "
+                           f"params'"] = acc > acc_init
+            log(rec)
+    for tag, algo, s, traj in trajectories:
+        first, last = traj[0], traj[-1]
+        key = f"{tag} {algo} n0={s.n0_dbm_hz:g}"
+        log({"phase": "paper_harness", "trajectory": key,
+             "engine": s.engine if algo == "paota" else "batched",
+             "clients": s.n_clients, "rounds": s.n_rounds,
+             "accuracy_round0": first["accuracy"],
+             "accuracy_final": last["accuracy"], "loss_final": last["loss"],
+             "sim_time_final": last["time"], "wall_s": last["wall_s"]})
+        checks[f"{key}: final accuracy above round 0's"] = (
+            last["accuracy"] > first["accuracy"]
+            and np.isfinite(last["loss"]))
+    failed = [c for c, ok in checks.items() if not ok]
+    log({"phase": "paper_harness", "checks": len(checks), "failed": failed})
+    if failed:
+        raise AssertionError(f"paper_harness: failed {failed}")
+    return by_path
+
+
+BENCH_MODULES = ("kernels", "fused_round", "round_perf", "fl_engine")
+
+
+def bench_suite(dev, tmpdir, smi, name):
+    """``python -m repro_torch.bench.run`` of the kernel, fused-round,
+    round-perf and engine benches into a temporary REPRO_BENCH_OUT: each
+    artifact parses and names the card and its power limit, and the
+    differ passes the artifacts against themselves. Then each kernels-bench
+    kernel against its twin on the bench's own inputs, at 3e-5 (these
+    launches come after the counters were read); the round-perf planes and
+    leaves are in PARITY_SHAPES."""
+    from repro_torch.bench import diff, kernels_bench, run
+    t = time.perf_counter()
+    zero_counters()
+    with mock.patch.dict(os.environ, REPRO_BENCH_OUT=tmpdir):
+        os.environ.pop("REPRO_BENCH_FULL", None)
+        run.main(list(BENCH_MODULES))
+    launches = read_counters()
+    checks, rows = {}, {}
+    for mod in BENCH_MODULES:
+        with open(os.path.join(tmpdir, f"BENCH_{mod}.json")) as f:
+            art = json.load(f)
+        rows[mod] = art["rows"]
+        checks[f"{mod}: names the card"] = (
+            art["backend"] == "cuda" and art["device_name"] == name
+            and art["nvidia_smi"] == smi and art["device_count"] >= 1)
+        checks[f"{mod}: finite rows"] = bool(art["rows"]) and all(
+            np.isfinite(r["us_per_call"]) for r in art["rows"])
+    checks["kernels: a kernel row beside each twin row"] = sorted(
+        r["name"].replace("_ref", "") for r in rows["kernels"]
+        if "_ref" in r["name"]) == sorted(
+        r["name"] for r in rows["kernels"] if "_ref" not in r["name"])
+    checks["diff of the artifacts against themselves exits 0"] = diff.main(
+        ["--baseline", tmpdir, "--current", tmpdir]) == 0
+    errs = {}
+    for _, kname, twin, kernel, args, _ in kernels_bench.cases(dev):
+        got = torch.utils._pytree.tree_leaves(kernel(*args))
+        want = torch.utils._pytree.tree_leaves(twin(*args))
+        torch.cuda.synchronize()
+        errs[kname] = max(float((a - w).abs().max())
+                          for a, w in zip(got, want))
+        checks[f"kernels: {kname} agrees with its twin"] = all(
+            torch.allclose(a, w, rtol=3e-5, atol=3e-5)
+            for a, w in zip(got, want))
+    failed = [c for c, ok in checks.items() if not ok]
+    log({"phase": "bench_suite", "modules": list(BENCH_MODULES),
+         "seconds": time.perf_counter() - t, "rows": rows,
+         "launches": launches, "kernels_max_abs_err": errs,
+         "checks": len(checks), "failed": failed})
+    if failed:
+        raise AssertionError(f"bench_suite: failed {failed}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: kernel times
+# ---------------------------------------------------------------------------
 
 def kernel_times(dev, bw, flops):
     from repro_torch.kernels import aircomp_sum as ac
     from repro_torch.kernels import cosine_sim as cs
     from repro_torch.kernels import round_stats as rs
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
+    flush = l2_flush(dev)
     # the method's own floor: one one-element kernel, timed the same way;
     # and two, what one more small node on the stream (a memset) adds
     one = torch.zeros((1,), device=dev)
@@ -1597,18 +1757,6 @@ def _superpose_work(widths, k, itemsize):
     nbytes = sum(itemsize * k * w + 4 * (2 * k + 2 * w + 1) for w in widths)
     nops = sum(2 * k * w + k + 2 * w for w in widths)
     return nbytes, nops
-
-
-def graph_ms(fn, flush):
-    """``time_ms`` of ``fn`` captured once in a CUDA graph and replayed:
-    the device's time for its launches, without the host's time to issue
-    them."""
-    fn()                                    # warm the plans and the pool
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return time_ms(graph.replay, flush)
 
 
 def carry_sweep_times(dev, bw, flops, flush):
@@ -1780,7 +1928,7 @@ def lm_kernel_times(dev, bw, flops, tf32):
     per-head (G, Q, N, P) = (1024, 256, 128, 64); swa_attention in the rows
     of SWA_TIMED (swa_time)."""
     from repro_torch.kernels import ssd_chunk as sc
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    flush = l2_flush(dev)
     out = {}
     bz, nc, h, g, q, n, p = SSD_GROUPED
     cum, b, c, xdt = ssd_grouped_inputs(dev, *SSD_GROUPED, 2048,
@@ -1956,7 +2104,7 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda is not available; this smoke needs "
               "one NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    from repro_torch.bench.common import nvidia_smi_line
     from repro_torch.data.partition import FAST_SIZES, PAPER_SIZES
     from repro_torch.data.synthetic import make_mnist_like
     from repro_torch.device import full_f32_matmul
@@ -1966,6 +2114,9 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
+    if smi is None:
+        raise RuntimeError("nvidia-smi did not report the card's name and "
+                           "power limit")
     name = torch.cuda.get_device_name(0)
     bw, flops, tf32 = card_rates(name)
     full_f32_matmul()
@@ -2080,13 +2231,17 @@ def main() -> int:
     by_path["lm_serve decode"] = lm["launches"]["decode_all"]
     launches["ssd_chunk"] = lm["launches"]["prefill"]
 
-    # 16. kernel and stage times
+    # 16-17. the paper's harness at paper scale, the bench suite
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
+        for path, counts in paper_harness(dev, tmpdir).items():
+            by_path[path] = counts
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
+        by_path["bench_suite"] = bench_suite(dev, tmpdir, smi, name)
+
+    # 18. kernel and stage times
     times = kernel_times(dev, bw, flops)
-    carry_times = carry_sweep_times(
-        dev, bw, flops, torch.empty(64 * 2**20, dtype=torch.float32,
-                                    device=dev))
-    stage_times(drv_main,
-                torch.empty(64 * 2**20, dtype=torch.float32, device=dev))
+    carry_times = carry_sweep_times(dev, bw, flops, l2_flush(dev))
+    stage_times(drv_main, l2_flush(dev))
     lm_times = lm_kernel_times(dev, bw, flops, tf32)
 
     sources = {"round_stats": ("round_stats+payload",

@@ -114,9 +114,10 @@ def test_cli_matches_reference_driver(tmp_path, monkeypatch, capsys):
     run_algorithm's: PAOTA runs first in both and moves the shared epoch
     cursors alike (its broadcasts follow the numpy scheduler alone)."""
     from benchmarks.common import BenchSetting, build_world, run_algorithm
+    from repro_torch.bench import common as tcommon
     from repro_torch.launch import fl_train
     monkeypatch.delenv("REPRO_BENCH_FULL", raising=False)
-    monkeypatch.setattr(fl_train, "init_mlp_params",
+    monkeypatch.setattr(tcommon, "init_mlp_params",
                         lambda seed: params_from_jax(_np_params(),
                                                      device="cpu"))
     out = tmp_path / "fl.csv"

@@ -43,6 +43,11 @@ MLP_LEAF_WIDTHS = (10, 7840, 10, 100, 10, 100)
 SWEEP_CASES += sorted({(k, d, off) for k in (100, 1000)
                        for d in MLP_LEAF_WIDTHS for off in (0, 1)}
                       - set(SWEEP_CASES))
+# the round-perf bench's hidden-64 MLP at its K = 16 and 1000: the raveled
+# plane (d = 55,050) and the pytree carry's leaf widths
+ROUND_PERF_WIDTHS = (55050, 50176, 4096, 640, 64, 10)
+SWEEP_CASES += sorted({(k, d, 0) for k in (16, 1000)
+                       for d in ROUND_PERF_WIDTHS} - set(SWEEP_CASES))
 
 
 def _plane(gen, k, d, dtype, offset, device):
@@ -736,3 +741,62 @@ def test_bf16_sweeps_repeat_bit_identical(cuda, k, d):
         for a, b in zip(first, again):
             for u, v in zip(a, b):
                 assert torch.equal(u, v)
+
+
+KERNEL_BENCH_ROWS = ("aircomp_sum", "cosine_partials", "round_stats",
+                     "superpose_normalize", "swa")
+
+
+@pytest.mark.parametrize("row", KERNEL_BENCH_ROWS)
+def test_kernels_bench_rows_time_kernel_and_twin_on_the_same_inputs(
+        cuda, row):
+    """Each kernels-bench pair holds the same inputs: the kernel row's call
+    agrees with the ``_ref_`` row's twin, and launches the kernel once."""
+    from repro_torch.bench import kernels_bench as kb
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import cosine_sim as cs
+    from repro_torch.kernels import round_stats as rs
+    from repro_torch.kernels import swa_attention as sw
+    counter = {"aircomp_sum": (ac, "aircomp_sum_launches"),
+               "cosine_partials": (cs, "launches"),
+               "round_stats": (rs, "launches"),
+               "superpose_normalize": (ac, "launches"),
+               "swa": (sw, "launches")}[row]
+    (case,) = [c for c in kb.cases(cuda) if c[1].startswith(row + "_")]
+    ref_name, name, twin, kernel, args, _ = case
+    assert ref_name == name.replace(row, row + "_ref", 1)
+    assert all(a.device.type == "cuda" for a in args)
+    before = getattr(*counter)
+    got = kernel(*args)
+    assert getattr(*counter) == before + 1
+    want = twin(*args)
+    for a, w in zip(torch.utils._pytree.tree_leaves(got),
+                    torch.utils._pytree.tree_leaves(want)):
+        torch.testing.assert_close(a, w, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("engine", ["batched", "fused"])
+def test_paper_harness_launches_each_sweep_once_per_paota_round(
+        cuda, engine, monkeypatch):
+    """The harness's servers at K = 8 for 6 rounds: PAOTA launches each
+    sweep once per round on the fused round, and once per aggregating
+    round on the host path (a period nobody finished in skips both); the
+    baselines launch neither."""
+    from repro_torch.bench import common
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import round_stats as rs
+    monkeypatch.delenv("REPRO_BENCH_FULL", raising=False)
+    s = common.BenchSetting(n_clients=8, n_rounds=6, n_select=4,
+                            engine=engine)
+    clients, params, data = common.build_world(s)
+    for name in ("paota", "local_sgd", "cotaf"):
+        monkeypatch.setattr(rs, "launches", 0)
+        monkeypatch.setattr(ac, "launches", 0)
+        srv = common.make_server(name, s, clients, params, device=cuda)
+        rows = [srv.round() for _ in range(s.n_rounds)]
+        want = 0
+        if name == "paota":
+            want = (s.n_rounds if engine == "fused" else
+                    sum(r["n_participants"] > 0 for r in rows))
+            assert want > 0
+        assert (rs.launches, ac.launches) == (want, want), name

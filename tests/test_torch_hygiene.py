@@ -35,11 +35,14 @@ def _imported_modules(path: Path):
 def test_port_file_imports_neither_jax_nor_reference(path):
     """Nor ``ml_dtypes``: the card's machine has only numpy, scipy, einops,
     pytest and hypothesis beside torch (bf16 checkpoint planes go through
-    torch's own views)."""
+    torch's own views). Nor the reference's harness, ``benchmarks`` and
+    ``examples``: the port keeps its own copies (``repro_torch.bench``,
+    ``repro_torch.launch``)."""
     assert path.exists()
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), (
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes",
+                           "benchmarks", "examples"), (
             f"{path.relative_to(ROOT)} imports {mod}")
 
 
@@ -49,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for n in {names!r}: importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+            "                                    'benchmarks', 'examples'))\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -63,7 +67,12 @@ def test_importing_the_port_loads_no_jax():
                 "kernels.ssd_chunk", "kernels.swa_attention", "configs",
                 "configs.mamba2_370m", "models.config", "models.layers",
                 "models.ssm", "models.transformer", "launch.steps",
-                "launch.serve", "checkpoint.io", "tree"):
+                "launch.serve", "checkpoint.io", "tree", "core.convergence",
+                "configs.mlp_mnist", "launch.quickstart", "bench.common",
+                "bench.timing", "bench.bound", "bench.fig3", "bench.fig4",
+                "bench.table1", "bench.ablation", "bench.kernels_bench",
+                "bench.fl_engine_bench", "bench.fused_round_bench",
+                "bench.round_perf_bench", "bench.diff", "bench.run"):
         assert f"repro_torch.{mod}" in names
 
 

@@ -52,11 +52,24 @@ def test_ssd_twin_matches_reference_oracle_pallas_and_f64(g, q, n, d):
                                     interpret=True)
     oracle = ref.ssd_intra_chunk_ref(*(_t(a) for a in arrs))
     assert [tuple(x.shape) for x in got] == [(g, q, d), (g, n, d), (g,)]
-    for a, w, p, o in zip(got, want, pallas, oracle):
+    for out, a, w, p, o in zip(("y", "state", "chunk_decay"), got, want,
+                               pallas, oracle):
         assert a.dtype == torch.float32
-        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
-        np.testing.assert_allclose(a.numpy(), np.asarray(p), **TOL)
-        np.testing.assert_allclose(a.numpy(), o.numpy(), **TOL)
+        # each comparison names itself, and the reference's two sides are
+        # also held against the f64 oracle, so a failure tells which side
+        # moved: the port's twin or the JAX reference
+        for side, val in (("port twin", a.numpy()),
+                          ("JAX ssd_intra_chunk_ref", np.asarray(w)),
+                          ("Pallas interpret", np.asarray(p))):
+            np.testing.assert_allclose(
+                val, o.numpy(), **TOL,
+                err_msg=f"{out}: {side} vs the torch f64 oracle")
+        np.testing.assert_allclose(
+            a.numpy(), np.asarray(w), **TOL,
+            err_msg=f"{out}: port twin vs JAX ssd_intra_chunk_ref")
+        np.testing.assert_allclose(
+            a.numpy(), np.asarray(p), **TOL,
+            err_msg=f"{out}: port twin vs Pallas interpret")
 
 
 def test_ssd_twin_bf16_inputs_give_bf16_y():
