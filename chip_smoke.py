@@ -37,7 +37,14 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   ``ops.swa_attention``, and mamba2-370m serving at full width (48
   layers, f32, random weights from a seed): batch 8, a 1,024-token prompt
   through the prefill step, 64 greedy decode steps, prefill -> decode
-  continuity against a full forward, and a 300-token prompt.
+  continuity against a full forward, and a 300-token prompt;
+- zamba2-7b serving at full width (81 Mamba2 layers and the shared
+  attention block at 14 slots, 6.75 B params, f32, random weights from a
+  seed; ``hybrid_serve``): batch 2, an 8,192-token prompt past the
+  4,096-token window through the prefill step (each layer's SSD and each
+  slot's attention on the two LM kernels), 32 greedy decode steps over a
+  wrapped ring, continuity, and both kernels held against their twins on
+  the inputs the model handed them.
 
 - the paper's harness (``repro_torch.bench``) at the reference's paper
   scale (``REPRO_BENCH_FULL=1``: K = 100, 120 rounds, 50 synchronous
@@ -150,6 +157,13 @@ SWA_WINDOW, SWA_PARITY_T, SWA_TIME_T = 4096, 4608, 8192
 # teacher-forced continuity steps
 LM_BATCH, LM_PROMPT, LM_STEPS, LM_CACHE, LM_SHORT, CONT_STEPS = (
     8, 1024, 64, 2048, 300, 5)
+# zamba2-7b serving: batch, prompt (past the 4,096-token window, so the
+# decode ring wraps and the attention band cuts), decode steps, warm-up
+# prompt, the continuity prefill (no multiple of the 256-token chunk), and
+# the (batch x head) rows of the in-model attention check (the twin's
+# (rows, T, T) logits bound its memory)
+HY_BATCH, HY_PROMPT, HY_STEPS, HY_WARM, HY_CONT_PRE, HY_CHECK_ROWS = (
+    2, 8192, 32, 512, 8187, 8)
 
 
 def log(record: dict) -> None:
@@ -1460,6 +1474,315 @@ def lm_serve(dev):
     return rec
 
 
+class _FirstCall:
+    """A wrapper that keeps the first call's (args, kwargs, output)."""
+
+    def __init__(self, fn):
+        self.fn, self.call = fn, None
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        if self.call is None:
+            self.call = (args, kw, out)
+        return out
+
+
+def hybrid_bounds(cfg, b, t, ring, bw, flops, tf32):
+    """The least time of zamba2's serving stages on the card, from shapes:
+    f32 products at the CUDA-core rate (the projections are plain f32
+    cuBLAS) with the SSD and attention kernels' own operation counts, and
+    for decode the bytes each step must read: every weight once per use
+    (the shared block's at each of its slots), the SSM states read and
+    written, the rings read."""
+    from repro_torch.models.ssm import _dims
+    from repro_torch.models.transformer import n_shared_slots
+    d, v, hd = cfg.d_model, cfg.vocab_size, cfg.head_dim
+    d_in, h, p, g, n, d_xbc = _dims(cfg)
+    q, tok, slots = cfg.ssm_chunk, b * t, n_shared_slots(cfg)
+    nc = -(-t // q)
+    layer_mm = d * (2 * d_in + 2 * g * n + h) + d_in * d
+    layer_w = layer_mm + cfg.conv_kernel * d_xbc + 3 * h + d_in + d
+    cuda_ops, mma_ops, _ = ssd_work(b * nc, h, g, q, n, p, 4)
+    attn_mm = d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads) \
+        + cfg.num_heads * hd * d
+    mlp_mm = 3 * d * cfg.d_ff
+    shared_w = attn_mm + mlp_mm + 2 * d
+    pairs = cfg.num_heads * b * sum(min(i + 1, cfg.sliding_window)
+                                    for i in range(t))
+    ms = {
+        "prefill_layer": (2 * tok * layer_mm + cuda_ops) / flops * 1e3
+        + 3 * mma_ops / tf32 * 1e3,
+        "prefill_shared": 2 * tok * (attn_mm + mlp_mm) / flops * 1e3
+        + 3 * 4 * hd * pairs / tf32 * 1e3,
+        "prefill_unembed_last": 2 * b * d * v / flops * 1e3,
+        "decode_layer": 4 * (layer_w + 2 * b * h * p * n) / bw * 1e3,
+        "decode_shared": 4 * (shared_w + 2 * b * ring * cfg.num_kv_heads
+                              * hd) / bw * 1e3,
+        "decode_unembed": 4 * d * v / bw * 1e3}
+    ms["prefill"] = (cfg.num_layers * ms["prefill_layer"]
+                     + slots * ms["prefill_shared"]
+                     + ms["prefill_unembed_last"])
+    ms["decode_step"] = (cfg.num_layers * ms["decode_layer"]
+                         + slots * ms["decode_shared"] + ms["decode_unembed"])
+    ms["prefill_flops_per_token"] = 2 * (cfg.num_layers * layer_mm
+                                         + slots * (attn_mm + mlp_mm))
+    ms["decode_bytes_per_step"] = 4 * (
+        cfg.num_layers * (layer_w + 2 * b * h * p * n)
+        + slots * (shared_w + 2 * b * ring * cfg.num_kv_heads * hd) + d * v)
+    return ms
+
+
+def hybrid_stage_times(model, dev, ring):
+    """ms of zamba2's serving stages at the phase's shapes (CUDA events, L2
+    flushed, the median of 3 calls after 5): one Mamba2 layer and the
+    shared block (and its MLP half) over 2 x 8,192 tokens, the same in
+    decode (the shared block over a full 4,096-slot ring) and the decode
+    unembedding."""
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    flush = l2_flush(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    u = torch.randn((HY_BATCH, HY_PROMPT, cfg.d_model), generator=gen,
+                    device=dev)
+    u1 = u[:, :1].contiguous()
+    layer, shared = model.layers[1], model.shared_attn
+    with torch.inference_mode():
+        state = model.init_decode_state(HY_BATCH, ring)
+        one = {"ssm": state["ssm"][0], "conv": state["conv"][0]}
+        cache = {k: torch.randn(r[0].shape, generator=gen, device=dev)
+                 for k, r in state["shared_kv"].items()}
+        del state
+        return {
+            "prefill_layer": time_ms(lambda: layer(u, cfg), flush, 3),
+            "prefill_shared": time_ms(lambda: shared(u, cfg), flush, 3),
+            "prefill_shared_mlp": time_ms(lambda: shared._mlp(u, cfg),
+                                          flush, 3),
+            "decode_layer": time_ms(lambda: layer.decode(u1, one, cfg),
+                                    flush, 3),
+            "decode_shared": time_ms(lambda: shared.decode(
+                u1, cache, HY_PROMPT, cfg), flush, 3),
+            "decode_unembed": time_ms(lambda: L.unembed(
+                model.embedding, u1, cfg), flush, 3)}
+
+
+def hybrid_kernel_checks(dev, ssd_call, swa_call, bw, flops, tf32):
+    """Each kernel against its twin on the inputs the model handed it in
+    the continuity prefill, at 3e-5: ssd_chunk on the first layer's grouped
+    inputs (the twin on all of them), swa_attention on the first shared
+    slot's q, k, v in HY_CHECK_ROWS of its (batch x head) rows; then both
+    kernels timed there, beside the twin and (attention) SDPA."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels import swa_attention as sw
+    flush = l2_flush(dev)
+    out = {}
+    with torch.inference_mode():
+        args, _, got = ssd_call
+        cum, b, c, xdt = args
+        want = sc.ssd_intra_chunk_grouped_plain(*args)
+        err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want))
+        close = all(bool(torch.allclose(a, w, rtol=3e-5, atol=3e-5))
+                    for a, w in zip(got, want))
+        del want
+        bz, nc, q, h = cum.shape
+        g, n, p = b.shape[3], b.shape[4], xdt.shape[4]
+        out["ssd_chunk"] = {
+            "shape": {"Bz": bz, "NC": nc, "H": h, "G": g, "Q": q, "N": n,
+                      "P": p}, "max_abs_err": err, "within_3e-5": close,
+            "ms": time_ms(lambda: sc.ssd_intra_chunk_grouped_cuda(*args),
+                          flush),
+            "plain_ms": time_ms(lambda: sc.ssd_intra_chunk_grouped_plain(
+                *args), flush, 10),
+            "library_ms": None,
+            **ssd_bounds(*ssd_work(bz * nc, h, g, q, n, p, 4), bw, flops,
+                         tf32)}
+        del args, got, cum, b, c, xdt
+
+        (q4, k4, v4), kw, got = swa_call
+        window = kw["window"]
+        bsz, t, hh, d = q4.shape
+        qf, kf, vf = _gqa_flat(q4, k4, v4)
+        gotf = got.transpose(1, 2).reshape(bsz * hh, t, d)
+        rows = torch.arange(0, bsz * hh, bsz * hh // HY_CHECK_ROWS,
+                            device=dev)
+        sub = [x[rows].contiguous() for x in (qf, kf, vf)]
+        want = sw.swa_attention_plain(*sub, window=window)
+        err = float((gotf[rows] - want).abs().max())
+        close = bool(torch.allclose(gotf[rows], want, rtol=3e-5, atol=3e-5))
+        rerun = bool(torch.equal(sw.swa_attention_cuda(*sub, window=window),
+                                 gotf[rows]))
+        del want, got, gotf
+        mask = sw.band_mask(t, t, window, True, dev)
+        pairs, nops, nbytes = swa_work(bsz * hh, t, d, window, 4, dev)
+        qs, ks, vs = (x.view(bsz, hh, t, d) for x in (qf, kf, vf))
+
+        def library():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(qs, ks, vs,
+                                                      attn_mask=mask)
+
+        out["swa_attention"] = {
+            "shape": [bsz * hh, t, d], "window": window,
+            "checked_rows": rows.tolist(), "max_abs_err": err,
+            "within_3e-5": close, "rerun_on_checked_rows_bit_equal": rerun,
+            "ms": time_ms(lambda: sw.swa_attention_cuda(
+                qf, kf, vf, window=window), flush),
+            "plain_ms_checked_rows": time_ms(lambda: sw.swa_attention_plain(
+                *sub, window=window), flush, 10),
+            "plain_ms": None,
+            "plain_ms_note": "the twin's (rows, T, T) logits take 17 GB at "
+                             "all 64 rows; timed on the checked rows only",
+            "library_ms": time_ms(library, flush, 10),
+            "library": "F.scaled_dot_product_attention(q, k, v, "
+                       "attn_mask=band) on (B, H, T, D), EFFICIENT_ATTENTION",
+            "flops_counted": nops, "bytes_counted": nbytes,
+            **_bound(nbytes, 3 * nops, bw, tf32)}
+    return out
+
+
+def hybrid_serve(dev, bw, flops, tf32):
+    """zamba2-7b at full width (81 Mamba2 layers, d_model 3584, 112 SSM
+    heads of P = 64, N = 64, chunk 256; one shared attention + SwiGLU
+    block of 32 heads, D = 112, W = 4096, d_ff 14336, before layers 0, 6,
+    ..., 78; vocab 32,000, untied), f32, random init from seed 0: a
+    512-token warm-up, then batch 2 through the prefill step on an
+    8,192-token prompt twice (the first call builds the band plan at the
+    new T; the second is the timed run) with 32 greedy decode steps after
+    it over a 4,096-slot ring; continuity of 5 teacher-forced steps after
+    an 8,187-token prefill against the 8,192-token forward; each kernel
+    against its twin on that prefill's own inputs; stage times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import decode_step, forward, init_model, \
+        param_count
+    cfg = get_config("zamba2-7b")
+    cache = HY_PROMPT + HY_STEPS
+    ring = min(cache, cfg.sliding_window)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_mb = (torch.cuda.memory_allocated() - mem_at_start) / 2**20
+    gen = torch.Generator(device=dev).manual_seed(2025)
+
+    def prompt(t):
+        return torch.randint(0, cfg.vocab_size, (HY_BATCH, t), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    warm = _prefill_decode(model, prompt(HY_WARM), 2, cache)
+    first = _prefill_decode(model, prompt(HY_PROMPT), 2, cache)
+    run = _prefill_decode(model, prompt(HY_PROMPT), HY_STEPS, cache)
+    _, block_q, block_k = sw.tiles(cfg.head_dim)
+    t0 = time.perf_counter()
+    sw.band_plan(HY_PROMPT, HY_PROMPT, cfg.sliding_window, True, block_q,
+                 block_k).to(dev)
+    torch.cuda.synchronize()
+    band_plan_ms = (time.perf_counter() - t0) * 1e3
+
+    # continuity: 5 teacher-forced decode steps after a prefill of
+    # HY_CONT_PRE tokens against the HY_PROMPT-token forward; the prefill
+    # keeps the first layer's SSD inputs and the first slot's q, k, v
+    toks = prompt(HY_PROMPT)
+    ssd_cap = _FirstCall(ops.ssd_intra_chunk_grouped)
+    swa_cap = _FirstCall(ops.swa_attention)
+    with torch.inference_mode():
+        full, _, _ = forward(model, {"tokens": toks})
+        ref_rows = full[:, HY_CONT_PRE - 1:].clone()
+        del full
+        with mock.patch.object(ops, "ssd_intra_chunk_grouped", ssd_cap), \
+                mock.patch.object(ops, "swa_attention", swa_cap):
+            last, caches = prefill(model, {"tokens": toks[:, :HY_CONT_PRE]})
+        state = model.cache_from_prefill(caches, HY_BATCH, HY_PROMPT,
+                                         HY_CONT_PRE)
+        del caches
+        outs = []
+        for i in range(HY_PROMPT - HY_CONT_PRE):
+            lg, state = decode_step(
+                model, toks[:, HY_CONT_PRE + i:HY_CONT_PRE + i + 1], state,
+                HY_CONT_PRE + i)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, 1)
+        del state
+    cont_err = float((dec - ref_rows[:, 1:]).abs().max())
+    pre_err = float((last[:, -1] - ref_rows[:, 0]).abs().max())
+    continuity = (bool(torch.allclose(dec, ref_rows[:, 1:], rtol=3e-3,
+                                      atol=3e-3))
+                  and bool(torch.allclose(last[:, -1], ref_rows[:, 0],
+                                          rtol=3e-3, atol=3e-3)))
+    peak = torch.cuda.max_memory_allocated()
+    in_model = hybrid_kernel_checks(dev, ssd_cap.call, swa_cap.call, bw,
+                                    flops, tf32)
+    del ssd_cap, swa_cap
+    stages = hybrid_stage_times(model, dev, ring)
+    bounds = hybrid_bounds(cfg, HY_BATCH, HY_PROMPT, ring, bw, flops, tf32)
+
+    zero = {k: 0 for k in run["prefill_counts"]}
+    per_prefill = dict(zero, ssd_chunk=cfg.num_layers,
+                       swa_attention=len(range(0, cfg.num_layers,
+                                               cfg.shared_attn_period)))
+    checks = {
+        "ssd_per_layer_swa_per_slot_per_prefill": all(
+            r["prefill_counts"] == per_prefill for r in (warm, first, run)),
+        "no_kernel_in_decode": all(r["decode_counts"] == zero
+                                   for r in (warm, first, run)),
+        "continuity_3e-3": continuity,
+        "ssd_chunk_in_model_within_3e-5": in_model["ssd_chunk"][
+            "within_3e-5"],
+        "swa_attention_in_model_within_3e-5": in_model["swa_attention"][
+            "within_3e-5"],
+        "finite_logits": all(bool(torch.isfinite(r["logits"]).all())
+                             for r in (warm, first, run)),
+        "tokens_in_vocab": bool(((run["tokens"] >= 0)
+                                 & (run["tokens"] < cfg.vocab_size)).all()),
+    }
+    tokens = HY_BATCH * HY_PROMPT
+    rec = {"phase": "hybrid_serve", "arch": cfg.name,
+           "dtype": cfg.param_dtype, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "shared_slots": per_prefill[
+               "swa_attention"], "window": cfg.sliding_window,
+           "params": param_count(model), "init_s": init_s,
+           "weights_mb": weights_mb, "batch": HY_BATCH,
+           "prompt_len": HY_PROMPT, "decode_steps": HY_STEPS,
+           "ring_slots": ring, "warmup_prompt_len": HY_WARM,
+           "warmup_prefill_ms": warm["prefill_ms"],
+           "prefill_ms": run["prefill_ms"],
+           "prefill_ms_first_call_at_t": first["prefill_ms"],
+           "band_plan_build_ms": band_plan_ms,
+           "prefill_tok_per_s": tokens * 1e3 / run["prefill_ms"],
+           "first_decode_ms": run["first_decode_ms"],
+           "decode_ms_per_step": run["decode_ms_per_step"],
+           "decode_tok_per_s": HY_BATCH * 1e3 / run["decode_ms_per_step"],
+           "bound_ms": bounds,
+           "prefill_share_of_bound": bounds["prefill"] / run["prefill_ms"],
+           "decode_share_of_bound": bounds["decode_step"]
+           / run["decode_ms_per_step"],
+           "stage_ms": stages,
+           "continuity_prefill_len": HY_CONT_PRE,
+           "continuity_max_abs_diff": cont_err,
+           "continuity_prefill_logits_max_abs_diff": pre_err,
+           "in_model_kernels": in_model,
+           "mem_at_start_mb": mem_at_start / 2**20,
+           "peak_mem_mb": peak / 2**20,
+           "peak_mem_above_start_mb": (peak - mem_at_start) / 2**20,
+           "sampled_ids": run["tokens"][:, :10].tolist(),
+           "launches": {"prefill": run["prefill_counts"],
+                        "decode": run["decode_counts"]},
+           "checks": checks}
+    log(rec)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"hybrid_serve: failed {failed}")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phases 16-17: the paper's harness and the bench suite
 # ---------------------------------------------------------------------------
@@ -1975,6 +2298,15 @@ def lm_kernel_times(dev, bw, flops, tf32):
     return out
 
 
+def swa_work(rows, t, d, window, itemsize, dev):
+    """swa_attention's work over ``rows`` (batch x head) rows of a causal
+    T = S = t band: (pairs inside the band, operations at 4 D a pair,
+    bytes with each input read once and each output written once)."""
+    from repro_torch.kernels import swa_attention as sw
+    pairs = rows * int(sw.band_mask(t, t, window, True, dev).sum())
+    return pairs, 4 * d * pairs, itemsize * 4 * rows * t * d
+
+
 def swa_time(dev, name, dtype, flush, bw, flops, tf32):
     """swa_attention at T = 8192, W = 4096 with a zoo entry's query heads
     (the GQA repeat done once, outside the timing), beside its twin and SDPA
@@ -1996,9 +2328,8 @@ def swa_time(dev, name, dtype, flush, bw, flops, tf32):
     t = SWA_TIME_T
     qf, kf, vf = _gqa_flat(*swa_inputs(dev, 1, t, h, hkv, d, dtype, 3))
     mask = sw.band_mask(t, t, SWA_WINDOW, True, dev)
-    pairs = h * int(mask.sum())
-    nops = 4 * d * pairs
-    nbytes = qf.element_size() * 4 * h * t * d
+    pairs, nops, nbytes = swa_work(h, t, d, SWA_WINDOW, qf.element_size(),
+                                   dev)
     bf16 = 2 * tf32
     bytes_ms = nbytes / bw * 1e3
     cuda_ms = nops / flops * 1e3
@@ -2230,6 +2561,15 @@ def main() -> int:
     by_path["lm_serve prefill"] = lm["launches"]["prefill_all"]
     by_path["lm_serve decode"] = lm["launches"]["decode_all"]
     launches["ssd_chunk"] = lm["launches"]["prefill"]
+    del lm
+
+    # 15b. zamba2-7b serving: both LM kernels on one model's path
+    hy = hybrid_serve(dev, bw, flops, tf32)
+    by_path["hybrid_serve prefill"] = hy["launches"]["prefill"]
+    by_path["hybrid_serve decode"] = hy["launches"]["decode"]
+    for kname in ("ssd_chunk", "swa_attention"):
+        launches[kname] += hy["launches"]["prefill"][kname]
+    torch.cuda.empty_cache()
 
     # 16-17. the paper's harness at paper scale, the bench suite
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
@@ -2315,6 +2655,12 @@ def main() -> int:
                     "plain_ms", "library_ms", "bound_ms", "bound_by",
                     "bound_cuda_cores_ms", "bound_tensor_cores_ms")}
                     for o in others])
+        kernels[-1]["in_model"] = dict(
+            {k: hy["in_model_kernels"][kname][k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")},
+            arch="zamba2-7b", launches_per_prefill=hy["launches"][
+                "prefill"][kname])
         if "reference_shape" in t:
             ref = t["reference_shape"]
             kernels[-1]["reference_shape"] = {

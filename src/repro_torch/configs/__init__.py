@@ -1,10 +1,11 @@
 """Registry of the architectures the port runs, as ``repro.configs`` names
 them.
 
-``get_config("mamba2-370m")`` returns the published config and
-``get_reduced`` its smoke-test variant. The reference's other arch ids are
-known but not ported yet: asking for one raises ``NotImplementedError``
-naming it; an id the reference does not know raises ``KeyError``.
+``get_config("mamba2-370m")`` (or ``"zamba2-7b"``) returns the published
+config and ``get_reduced`` its smoke-test variant. The reference's other
+arch ids are known but not ported yet: asking for one raises
+``NotImplementedError`` naming it; an id the reference does not know raises
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -15,12 +16,13 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 # the reference's other arch ids (repro/configs/__init__.py), not ported
 _UNPORTED = ("llama4-maverick-400b-a17b", "smollm-135m", "olmo-1b",
              "internvl2-1b", "minicpm-2b", "mixtral-8x22b", "hubert-xlarge",
-             "zamba2-7b", "granite-3-8b")
+             "granite-3-8b")
 
 ARCH_IDS: List[str] = list(_MODULES)
 

@@ -5,6 +5,9 @@ prefill of a random prompt.
         [--batch 4] [--steps 16] [--cache 128] [--demo] \\
         [--prompt-len T] [--device cuda|cpu]
 
+``--arch`` is ``mamba2-370m`` or ``zamba2-7b``; ``--cache`` sizes
+zamba2's KV rings (at most its 4,096-token window).
+
 The port's counterpart of ``repro.launch.serve`` / ``examples/
 serve_decode.py``, with their flags (``--demo`` runs the reduced config).
 ``--prompt-len 0`` (the default) decodes from one random token, as the

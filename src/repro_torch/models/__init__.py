@@ -1,4 +1,5 @@
-"""The paper's MLP and the LM zoo's ssm family (mamba2-370m), torch form."""
+"""The paper's MLP and the LM zoo's ssm and hybrid families (mamba2-370m,
+zamba2-7b), torch form."""
 from repro_torch.models.config import ModelConfig  # noqa: F401
 from repro_torch.models.transformer import (  # noqa: F401
     decode_step,

@@ -2,8 +2,9 @@
 ``repro.models.config`` (the port imports nothing of the reference).
 
 Families: dense | moe | ssm | hybrid | vlm | audio. The port runs the
-``ssm`` family (mamba2-370m) so far; the other families' fields stay so
-that ``reduced()`` and the field names match the reference's. The
+``ssm`` family (mamba2-370m) and the ``hybrid`` family (zamba2-7b) so
+far; the other families' fields stay so that ``reduced()`` and the field
+names match the reference's. The
 distribution hints (``act_dp``, ``act_tp``, ...) are inert here: the
 single-device port reads none of them.
 """

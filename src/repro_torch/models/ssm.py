@@ -66,7 +66,8 @@ def _split_proj(params, u, cfg: ModelConfig):
 def _causal_conv(params, xbc, conv_state=None):
     """Depthwise causal conv of width K via shifted adds. xbc: (B, T, C);
     conv_state: (B, K-1, C), the tail of the previous tokens. Returns
-    (silu(out), new (B, K-1, C) tail)."""
+    (silu(out), new (B, K-1, C) tail). The tail is a copy: a view would
+    keep the whole (B, T+K-1, C) input alive in the caller's cache."""
     w = params["conv_w"]                      # (K, C)
     k = w.shape[0]
     if conv_state is None:
@@ -76,7 +77,7 @@ def _causal_conv(params, xbc, conv_state=None):
     full = torch.cat([pad, xbc], dim=1)                 # (B, T+K-1, C)
     t = xbc.shape[1]
     out = sum(full[:, i:i + t, :] * w[i][None, None, :] for i in range(k))
-    new_state = full[:, full.shape[1] - (k - 1):, :]
+    new_state = full[:, full.shape[1] - (k - 1):, :].clone()
     return F.silu(out), new_state
 
 

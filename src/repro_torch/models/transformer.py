@@ -1,14 +1,23 @@
-"""Model assembly, torch form: the ``ssm`` family (mamba2-370m).
+"""Model assembly, torch form: the ``ssm`` family (mamba2-370m) and the
+``hybrid`` family (zamba2-7b: the Mamba2 trunk plus one shared attention +
+SwiGLU block applied before every ``shared_attn_period``-th layer).
 
-Port of the SSM branch of ``repro.models.transformer``. The reference
-stacks its layers along a leading L axis and scans them; the port keeps
-one ``nn.Module`` per block in a ``ModuleList`` and loops. Caches and
-decode states keep the reference's stacked layout and names:
-``{"ssm": (L, B, H, P, N) f32, "conv": (L, B, K-1, C)}``.
+Port of the recurrent branch of ``repro.models.transformer``. The
+reference stacks its layers along a leading L axis and scans them; the
+port keeps one ``nn.Module`` per block in a ``ModuleList`` and loops, and
+holds the shared block once. Caches and decode states keep the
+reference's stacked layout and names: ``{"ssm": (L, B, H, P, N) f32,
+"conv": (L, B, K-1, C)}``, and for the hybrid family ``shared_kv``, the
+shared block's K/V of shape (n_slots, B, T, Hkv, D) after a prefill and
+its rings (n_slots, B, S_c, Hkv, D) in a decode state. Where the
+reference makes a dummy K/V for every layer without the shared block and
+selects the slots afterwards, the port writes only the slots.
 
-The other families (dense, moe, hybrid, vlm, audio) and ``loss_fn`` are
-not ported yet and raise ``NotImplementedError`` naming themselves.
-Params hold no gradient: the port serves, it does not train yet.
+The other families (dense, moe, vlm, audio), the hybrid + ``kv_quant``
+prefill hand-off and ``loss_fn`` are not ported and raise
+``NotImplementedError`` naming themselves. Params hold no gradient: the
+port serves, it does not train yet. Decode writes the new K/V into the
+rings in place, under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -31,11 +40,30 @@ def _pdict(params: Optional[dict]) -> Optional[nn.ParameterDict]:
                              for k, v in params.items()})
 
 
+def _pnest(tree: Optional[dict]):
+    """A nested params dict as modules: a dict of tensors becomes an
+    ``nn.ParameterDict``, a dict of dicts an ``nn.ModuleDict`` of them, so
+    ``m["wq"]["w"]`` reads as the reference's ``params["wq"]["w"]``."""
+    if tree is None or all(isinstance(v, torch.Tensor)
+                           for v in tree.values()):
+        return _pdict(tree)
+    return nn.ModuleDict({k: _pnest(v) for k, v in tree.items()})
+
+
+PORTED_FAMILIES = ("ssm", "hybrid")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "ssm":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            f"port runs the 'ssm' family")
+            f"port runs the families {PORTED_FAMILIES}")
+
+
+def n_shared_slots(cfg: ModelConfig) -> int:
+    if cfg.shared_attn_period <= 0:
+        return 0
+    return -(-cfg.num_layers // cfg.shared_attn_period)
 
 
 class MambaBlock(nn.Module):
@@ -58,10 +86,41 @@ class MambaBlock(nn.Module):
         return x + cfg.residual_scale * out, new_state
 
 
+class SharedAttentionBlock(nn.Module):
+    """Zamba2's one shared block, reused at every slot: RMSNorm, attention,
+    residual, RMSNorm, SwiGLU MLP, residual (the reference's
+    ``_forward_recurrent`` / ``_decode_recurrent`` shared branch)."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        self.attn = _pnest(params["attn"])
+        self.mlp = _pnest(params["mlp"])
+        self.ln1 = _pdict(params["ln1"])
+        self.ln2 = _pdict(params["ln2"])
+
+    def _mlp(self, h, cfg: ModelConfig):
+        z = L.apply_norm(self.ln2, h, cfg)
+        return h + cfg.residual_scale * L.apply_mlp(self.mlp, z)
+
+    def forward(self, x, cfg: ModelConfig):
+        """Prefill over positions arange(T): (x, (k, v) (B, T, Hkv, D))."""
+        z = L.apply_norm(self.ln1, x, cfg)
+        a_out, kv = L.apply_attention(self.attn, z, cfg)
+        return self._mlp(x + cfg.residual_scale * a_out, cfg), kv
+
+    def decode(self, x, cache, index: int, cfg: ModelConfig):
+        """One token; writes its K/V into the slot's ring ``cache``."""
+        z = L.apply_norm(self.ln1, x, cfg)
+        a_out, _ = L.apply_attention_decode(self.attn, z, cache, index, cfg)
+        return self._mlp(x + cfg.residual_scale * a_out, cfg)
+
+
 class LanguageModel(nn.Module):
-    """Token embedding, L Mamba2 blocks, final norm and the (tied)
-    unembedding, built from params in the reference's structure:
-    ``{"embedding": {...}, "layers": [block, ...], "final_norm": ...}``."""
+    """Token embedding, L Mamba2 blocks (with the hybrid family's shared
+    attention block before every ``shared_attn_period``-th one), final norm
+    and the unembedding, built from params in the reference's structure:
+    ``{"embedding": {...}, "layers": [block, ...], "shared_attn": {...}
+    (hybrid), "final_norm": ...}``."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -70,7 +129,13 @@ class LanguageModel(nn.Module):
         self.embedding = _pdict(params["embedding"])
         self.layers = nn.ModuleList(MambaBlock(b["mamba"], b["norm"])
                                     for b in params["layers"])
+        self.shared_attn = (SharedAttentionBlock(params["shared_attn"])
+                            if cfg.family == "hybrid" else None)
         self.final_norm = _pdict(params["final_norm"])
+
+    def _shared_at(self, i: int) -> bool:
+        return (self.shared_attn is not None
+                and i % self.cfg.shared_attn_period == 0)
 
     @property
     def device(self) -> torch.device:
@@ -78,13 +143,28 @@ class LanguageModel(nn.Module):
 
     def forward(self, tokens, return_cache: bool = False,
                 return_hidden: bool = False):
-        """Full-sequence forward over (B, T) tokens. Returns (logits
-        (B, T, V) f32 | hidden (B, T, d), aux 0.0, caches | None), caches
-        being ``{"ssm_states": {"ssm", "conv"}}`` stacked over layers."""
+        """Full-sequence forward over (B, T) tokens at positions arange(T).
+        Returns (logits (B, T, V) f32 | hidden (B, T, d), aux 0.0, caches |
+        None), caches being ``{"ssm_states": {"ssm", "conv"}}`` stacked
+        over layers and, for the hybrid family, ``{"shared_kv": {"k",
+        "v"}}`` (n_slots, B, T, Hkv, D), written slot by slot."""
         cfg = self.cfg
         x = L.embed_tokens(self.embedding, tokens, cfg)
         ssm, conv = [], []
-        for block in self.layers:
+        shared_kv = None
+        if return_cache and self.shared_attn is not None:
+            b, t = tokens.shape
+            shape = (n_shared_slots(cfg), b, t, cfg.num_kv_heads,
+                     cfg.head_dim)
+            shared_kv = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
+        for i, block in enumerate(self.layers):
+            if self._shared_at(i):
+                x, (k, v) = self.shared_attn(x, cfg)
+                if shared_kv is not None:
+                    slot = i // cfg.shared_attn_period
+                    shared_kv["k"][slot] = k
+                    shared_kv["v"][slot] = v
+                del k, v
             x, state = block(x, cfg)
             if return_cache:
                 ssm.append(state["ssm"])
@@ -94,6 +174,8 @@ class LanguageModel(nn.Module):
         if return_cache:
             caches = {"ssm_states": {"ssm": torch.stack(ssm),
                                      "conv": torch.stack(conv)}}
+            if shared_kv is not None:
+                caches["shared_kv"] = shared_kv
         aux = torch.zeros((), device=x.device)
         if return_hidden:
             return x, aux, caches
@@ -107,21 +189,32 @@ class LanguageModel(nn.Module):
         return cache_from_prefill(caches, self.cfg, batch, seq_len,
                                   prefill_len)
 
-    def decode_step(self, tokens, state, index):
-        """One-token decode. tokens: (B, 1) int; index: tokens so far
-        (unused by the SSM family). Returns (logits (B, 1, V) f32, new
-        state)."""
+    def decode_step(self, tokens, state, index: int):
+        """One-token decode. tokens: (B, 1) int; index: a host int, the
+        tokens so far (the shared block's ring position; unused by the SSM
+        family). Returns (logits (B, 1, V) f32, new state); the hybrid
+        family's ``shared_kv`` rings are the state's own, updated in
+        place."""
         cfg = self.cfg
-        x = L.embed_tokens(self.embedding, tokens, cfg)
-        ssm, conv = [], []
-        for i, block in enumerate(self.layers):
-            x, st = block.decode(x, {"ssm": state["ssm"][i],
-                                     "conv": state["conv"][i]}, cfg)
-            ssm.append(st["ssm"])
-            conv.append(st["conv"])
-        x = L.apply_norm(self.final_norm, x, cfg)
-        logits = L.unembed(self.embedding, x, cfg)
-        return logits, {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+        with torch.inference_mode():
+            x = L.embed_tokens(self.embedding, tokens, cfg)
+            ssm, conv = [], []
+            for i, block in enumerate(self.layers):
+                if self._shared_at(i):
+                    slot = i // cfg.shared_attn_period
+                    x = self.shared_attn.decode(
+                        x, {name: ring[slot] for name, ring
+                            in state["shared_kv"].items()}, index, cfg)
+                x, st = block.decode(x, {"ssm": state["ssm"][i],
+                                         "conv": state["conv"][i]}, cfg)
+                ssm.append(st["ssm"])
+                conv.append(st["conv"])
+            x = L.apply_norm(self.final_norm, x, cfg)
+            logits = L.unembed(self.embedding, x, cfg)
+            new = {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+            if "shared_kv" in state:
+                new["shared_kv"] = state["shared_kv"]
+            return logits, new
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +224,7 @@ class LanguageModel(nn.Module):
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> LanguageModel:
     """Random init at the reference's scales from a seeded generator on the
     device (``None`` = cuda; raises without a GPU)."""
+    _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     dtype = L.torch_dtype(cfg.param_dtype)
@@ -138,8 +232,16 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> LanguageModel:
               "layers": [{"mamba": SSM.init_mamba2(gen, cfg, dtype),
                           "norm": L.maybe_init_norm(cfg.d_model, cfg, dtype,
                                                     dev)}
-                         for _ in range(cfg.num_layers)],
-              "final_norm": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev)}
+                         for _ in range(cfg.num_layers)]}
+    if cfg.family == "hybrid":
+        # Zamba2 [arXiv:2411.15242]: ONE shared attention + MLP block
+        # reused every `shared_attn_period` layers
+        params["shared_attn"] = {
+            "attn": L.init_attention(gen, cfg, dtype),
+            "mlp": L.init_mlp(gen, cfg, dtype),
+            "ln1": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev),
+            "ln2": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev)}
+    params["final_norm"] = L.maybe_init_norm(cfg.d_model, cfg, dtype, dev)
     return LanguageModel(cfg, params)
 
 
@@ -155,13 +257,15 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
                     device=None) -> LanguageModel:
     """The reference's params pytree (``init_model``'s, layer leaves
     stacked (L, ...)), carried across as numpy arrays, as a module on
-    ``device`` with the same values bit for bit."""
+    ``device`` with the same values bit for bit (the hybrid family's
+    ``shared_attn`` too)."""
     dev = resolve_device(device)
 
     def conv(tree):
         if tree is None:
             return None
-        return {k: _tensor(v, dev) for k, v in tree.items()}
+        return {k: (conv(v) if isinstance(v, dict) else _tensor(v, dev))
+                for k, v in tree.items()}
 
     stacked = np_params["layers"]
     layers = [{"mamba": {k: _tensor(v[i], dev)
@@ -170,9 +274,11 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
                         {k: _tensor(v[i], dev)
                          for k, v in stacked["norm"].items()})}
               for i in range(cfg.num_layers)]
-    return LanguageModel(cfg, {"embedding": conv(np_params["embedding"]),
-                               "layers": layers,
-                               "final_norm": conv(np_params["final_norm"])})
+    params = {"embedding": conv(np_params["embedding"]), "layers": layers,
+              "final_norm": conv(np_params["final_norm"])}
+    if "shared_attn" in np_params:
+        params["shared_attn"] = conv(np_params["shared_attn"])
+    return LanguageModel(cfg, params)
 
 
 def param_count(model: nn.Module) -> int:
@@ -180,7 +286,7 @@ def param_count(model: nn.Module) -> int:
 
 
 def active_param_count(model: LanguageModel, cfg: ModelConfig) -> int:
-    """All params are active outside MoE (the only family ported)."""
+    """All params are active outside MoE (not ported)."""
     if cfg.num_experts > 0:
         raise NotImplementedError("active_param_count for MoE is not "
                                   "ported yet")
@@ -195,26 +301,74 @@ def forward(model: LanguageModel, batch: dict, return_cache: bool = False,
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None):
-    """Zero SSM states stacked over layers (``seq_len`` sizes the KV ring
-    of the attention families, which are not ported)."""
+    """Zero SSM states stacked over layers and, for the hybrid family, the
+    shared block's zero KV rings stacked over its slots, each of
+    ``min(seq_len, window)`` slots (int8 with f16 scales under
+    ``kv_quant``)."""
     _check_family(cfg)
-    one = SSM.init_ssm_state(cfg, batch, L.torch_dtype(cfg.param_dtype),
-                             resolve_device(device))
-    return {name: t.expand((cfg.num_layers,) + t.shape).clone()
-            for name, t in one.items()}
+    dev = resolve_device(device)
+    dtype = L.torch_dtype(cfg.param_dtype)
+    one = SSM.init_ssm_state(cfg, batch, dtype, dev)
+    state = {name: t.expand((cfg.num_layers,) + t.shape).clone()
+             for name, t in one.items()}
+    if cfg.family == "hybrid":
+        state["shared_kv"] = _shared_rings(cfg, batch, seq_len, dev)
+    return state
+
+
+def _shared_rings(cfg: ModelConfig, batch: int, seq_len: int, device):
+    """``init_kv_cache``'s buffers stacked over the shared slots, zero
+    (its shapes read off the meta device, which allocates nothing)."""
+    one = L.init_kv_cache(cfg, batch, seq_len,
+                          L.torch_dtype(cfg.param_dtype), "meta")
+    return {name: torch.zeros((n_shared_slots(cfg),) + arr.shape,
+                              dtype=arr.dtype, device=device)
+            for name, arr in one.items()}
+
+
+def _fill_ring(ring, got, prefill_len: int):
+    """Write the last ``min(prefill_len, S_c)`` positions of ``got``
+    (n, B, T, Hkv, D) into ``ring`` (n, B, S_c, Hkv, D) in place, position
+    p in slot p % S_c, as decode expects."""
+    size = ring.shape[2]
+    take = min(prefill_len, size)
+    src = got[:, :, prefill_len - take:prefill_len]
+    if take == prefill_len:           # no wrap: slots [0, take)
+        ring[:, :, :take] = src
+    else:
+        slots = torch.arange(prefill_len - take, prefill_len,
+                             device=ring.device) % size
+        ring[:, :, slots] = src
+    return ring
 
 
 def cache_from_prefill(caches, cfg: ModelConfig, batch: int, seq_len: int,
                        prefill_len: int):
     """``forward(return_cache=True)``'s caches as a decode state: the SSM
-    states pass through (the serving path's prefill -> decode hand-off)."""
+    states pass through, and the hybrid family's shared K/V fill its rings
+    (the serving path's prefill -> decode hand-off)."""
     _check_family(cfg)
+    if cfg.family == "hybrid" and cfg.kv_quant:
+        raise NotImplementedError(
+            f"cache_from_prefill for the hybrid family with kv_quant "
+            f"({cfg.name}) is not ported: the reference casts the prefill "
+            f"K/V straight to int8 and leaves k_scale / v_scale out, so "
+            f"its next decode_step fails")
     st = caches["ssm_states"]
-    return {"ssm": st["ssm"].float(),
-            "conv": st["conv"].to(L.torch_dtype(cfg.param_dtype))}
+    new = {"ssm": st["ssm"].float(),
+           "conv": st["conv"].to(L.torch_dtype(cfg.param_dtype))}
+    if cfg.family == "hybrid":
+        with torch.inference_mode():
+            rings = _shared_rings(cfg, batch, seq_len, st["ssm"].device)
+            if "shared_kv" in caches:
+                for name in ("k", "v"):
+                    _fill_ring(rings[name], caches["shared_kv"][name],
+                               prefill_len)
+        new["shared_kv"] = rings
+    return new
 
 
-def decode_step(model: LanguageModel, tokens, state, index):
+def decode_step(model: LanguageModel, tokens, state, index: int):
     return model.decode_step(tokens, state, index)
 
 

@@ -559,6 +559,80 @@ def test_mamba2_prefill_runs_the_ssd_kernel_per_layer(cuda):
                                rtol=3e-3, atol=3e-3)
 
 
+def _reduced_zamba2():
+    """Reduced zamba2 with 5 layers (3 shared-attention slots), made on
+    the CPU from seed 0, and the same params on the card."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_model
+    cfg = dataclasses.replace(get_reduced("zamba2-7b"), num_layers=5)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = init_model(cfg, seed=0, device="cpu").to("cuda")
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("t_pre", [11, 100, 300])
+def test_zamba2_reduced_on_card_matches_cpu_route(cuda, t_pre):
+    """The reduced hybrid model on the card (kernels) against the same
+    model on the CPU (twins) at the reference's LM tolerance: the forward's
+    logits and caches, the hand-off (100 and 300 wrap the 64-slot ring; 300
+    spans three query tiles of the attention kernel) and 5 teacher-forced
+    decode steps. The prefill launches swa_attention once per shared slot
+    and ssd_chunk once per layer; decode launches neither."""
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import decode_step, forward
+    tol = dict(rtol=1e-4, atol=1e-5)
+    cfg, cpu, card = _reduced_zamba2()
+    toks = torch.from_numpy(np.random.default_rng(t_pre).integers(
+        0, cfg.vocab_size, (2, t_pre + 5)).astype(np.int32))
+    got, want = {}, {}
+    for name, model, dev in (("card", card, cuda), ("cpu", cpu, "cpu")):
+        out = got if name == "card" else want
+        tk = toks.to(dev)
+        with torch.inference_mode():
+            sc.launches = sw.launches = 0
+            logits, _, caches = forward(model, {"tokens": tk[:, :t_pre]},
+                                        return_cache=True)
+            if name == "card":
+                assert (sw.launches, sc.launches) == (3, cfg.num_layers)
+                sc.launches = sw.launches = 0
+                prefill(model, {"tokens": tk[:, :t_pre]})
+                assert (sw.launches, sc.launches) == (3, cfg.num_layers)
+                sc.launches = sw.launches = 0
+        out["logits"] = logits
+        out.update({f"kv_{k}": v for k, v in caches["shared_kv"].items()})
+        out.update(caches["ssm_states"])
+        state = model.cache_from_prefill(caches, 2, 128, t_pre)
+        for i in range(5):
+            lg, state = decode_step(model, tk[:, t_pre + i:t_pre + i + 1],
+                                    state, t_pre + i)
+            out[f"decode_{i}"] = lg
+        out.update({f"ring_{k}": v for k, v in state["shared_kv"].items()})
+        if name == "card":
+            assert (sw.launches, sc.launches) == (0, 0)
+    for key, w in want.items():
+        torch.testing.assert_close(got[key].cpu(), w, **tol, msg=key)
+
+
+def test_zamba2_serve_generates_on_card(cuda):
+    """The serve CLI's generate on the card: the first token after a
+    100-token prompt is the prefill's argmax, the rest continue it."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import forward
+    cfg, _, card = _reduced_zamba2()
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    out, t_pre, _, _ = generate(card, prompt, steps=3, cache=128)
+    assert tuple(out.shape) == (2, 4) and t_pre is not None
+    with torch.inference_mode():
+        full, _, _ = forward(card, {"tokens": torch.cat([prompt, out[:, :3]],
+                                                        1)})
+    torch.testing.assert_close(out, full[:, 99:].argmax(-1).to(out.dtype))
+
+
 def _grouped_case(dev, bz, nc, q, h, g, n, p, dtype, seed, offset=None):
     """Grouped SSD inputs: cum (Bz, NC, Q, H), xdt (Bz, NC, Q, H, P), and B,
     C (Bz, NC, Q, G, N), either contiguous or, with ``offset``, strided
@@ -583,10 +657,12 @@ def _grouped_case(dev, bz, nc, q, h, g, n, p, dtype, seed, offset=None):
     (2, 2, 64, 4, 4, 32, 32, None),        # rep 1
     (2, 3, 128, 8, 2, 64, 64, None),       # rep 4
     (8, 4, 256, 32, 1, 128, 64, None),     # rep 32, mamba2-370m's layer
+    (2, 4, 256, 112, 1, 64, 64, 7168),     # zamba2-7b's layer, its views
     (1, 2, 100, 8, 2, 40, 70, None),       # ragged Q, N, P
     (2, 2, 256, 32, 1, 128, 64, 2048),     # strided views, 16-byte rows
     (1, 2, 100, 8, 2, 40, 64, 3)],         # strided views, unaligned rows
-    ids=["rep1", "rep4", "rep32", "ragged", "strided", "unaligned"])
+    ids=["rep1", "rep4", "rep32", "zamba2", "ragged", "strided",
+         "unaligned"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_grouped_kernel_matches_twin(cuda, bz, nc, q, h, g, n, p, offset,
                                          dtype):

@@ -214,15 +214,26 @@ def test_serve_cli_generates_the_prompt_continuation():
 
 
 def test_unported_archs_families_and_losses_raise_by_name(monkeypatch):
-    with pytest.raises(NotImplementedError, match="zamba2-7b"):
-        get_config("zamba2-7b")
     with pytest.raises(NotImplementedError, match="smollm-135m"):
-        get_reduced("smollm_135m")
+        get_config("smollm-135m")
+    with pytest.raises(NotImplementedError, match="mixtral-8x22b"):
+        get_reduced("mixtral_8x22b")
     with pytest.raises(KeyError, match="no-such-arch"):
         get_config("no-such-arch")
-    hybrid = dataclasses.replace(get_reduced("mamba2-370m"), family="hybrid")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        init_model(hybrid, device="cpu")
+    for family in ("dense", "moe", "vlm", "audio"):
+        cfg = dataclasses.replace(get_reduced("mamba2-370m"), family=family,
+                                  num_experts=4 * (family == "moe"))
+        with pytest.raises(NotImplementedError, match=family):
+            init_model(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=family):
+            init_decode_state(cfg, B, 64, device="cpu")
+    # the hybrid + kv_quant prefill hand-off (the reference drops the
+    # int8 rings' scales there)
+    quant = dataclasses.replace(get_reduced("zamba2-7b"), kv_quant=True)
+    with pytest.raises(NotImplementedError, match="kv_quant"):
+        cache_from_prefill({"ssm_states": {"ssm": torch.zeros(1),
+                                           "conv": torch.zeros(1)}},
+                           quant, B, 64, 11)
     with pytest.raises(NotImplementedError, match="loss_fn"):
         loss_fn(None, None, None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
