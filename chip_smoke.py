@@ -44,7 +44,16 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   4,096-token window through the prefill step (each layer's SSD and each
   slot's attention on the two LM kernels), 32 greedy decode steps over a
   wrapped ring, continuity, and both kernels held against their twins on
-  the inputs the model handed them.
+  the inputs the model handed them;
+- the dense family at full width (``dense_serve``; f32, random weights
+  from seed 0): smollm-135m (batch 8 x 2,048 tokens), olmo-1b (4 x
+  2,048), minicpm-2b (2 x 4,096) and granite-3-8b (8.37 B params, 2 x
+  4,096), each a warm-up, the prefill step (every layer's attention on
+  the attention kernel over the whole causal triangle), the hand-off, 32
+  greedy decode steps, continuity, the kernel against its twin on the
+  first layer's inputs on every (batch x head) row, stage times;
+  granite-3-8b once more on int8 KV rings; then the serve CLI's default
+  run (smollm-135m, a 512-token prompt).
 
 - the paper's harness (``repro_torch.bench``) at the reference's paper
   scale (``REPRO_BENCH_FULL=1``: K = 100, 120 rounds, 50 synchronous
@@ -68,7 +77,10 @@ It imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import csv
+import dataclasses
 import json
 import os
 import sys
@@ -1172,16 +1184,6 @@ def ssd_parity(dev, main_err):
          "max_abs_err": errs, "max_abs_err_any_f32_case": worst})
 
 
-def _gqa_flat(q, k, v):
-    """ops.swa_attention's layout restated: the kv heads repeated over
-    their query heads, (B, T, H, D) -> (B H, T, D)."""
-    b, t, h, d = q.shape
-    rep = h // k.shape[2]
-    k, v = (torch.repeat_interleave(x, rep, dim=2) for x in (k, v))
-    return [x.transpose(1, 2).reshape(b * h, x.shape[1], d).contiguous()
-            for x in (q, k, v)]
-
-
 def swa_inputs(dev, b, t, h, hkv, d, dtype, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
@@ -1262,7 +1264,8 @@ def swa_parity(dev, main_err):
                              h + d)
         got = ops.swa_attention(q, k, v, window=SWA_WINDOW)
         again = ops.swa_attention(q, k, v, window=SWA_WINDOW)
-        want = sw.swa_attention_plain(*_gqa_flat(q, k, v), window=SWA_WINDOW)
+        want = sw.swa_attention_plain(*ops.swa_layout(q, k, v),
+                                      window=SWA_WINDOW)
         want = want.reshape(1, h, SWA_PARITY_T, d).transpose(1, 2)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
@@ -1347,6 +1350,44 @@ def _prefill_decode(model, prompt, steps, cache):
             "decode_counts": decode_counts}
 
 
+def continuity(model, toks, t_pre, cache, patches=()):
+    """Prefill -> decode continuity (tests/test_serving.py's contract on
+    the card): the prefill step over ``toks[:, :t_pre]``, its hand-off into
+    a ring of ``cache`` slots, then teacher-forced decode steps over the
+    rest of ``toks``, against the forward over all of ``toks``, at rtol /
+    atol 3e-3. ``patches`` (``mock.patch`` objects) hold during the prefill
+    only, whose launch counts are returned too."""
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import decode_step, forward
+    b, t = toks.shape
+    with torch.inference_mode():
+        full, _, _ = forward(model, {"tokens": toks})
+        ref = full[:, t_pre - 1:].clone()
+        del full
+        zero_counters()
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            last, caches = prefill(model, {"tokens": toks[:, :t_pre]})
+        counts = read_counters()
+        state = model.cache_from_prefill(caches, b, cache, t_pre)
+        del caches
+        outs = []
+        for i in range(t_pre, t):
+            lg, state = decode_step(model, toks[:, i:i + 1], state, i)
+            outs.append(lg[:, 0])
+        del state
+        dec = torch.stack(outs, 1)
+    ok = (bool(torch.allclose(dec, ref[:, 1:], rtol=3e-3, atol=3e-3))
+          and bool(torch.allclose(last[:, -1], ref[:, 0], rtol=3e-3,
+                                  atol=3e-3)))
+    return {"continuity_prefill_len": t_pre,
+            "continuity_max_abs_diff": float((dec - ref[:, 1:]).abs().max()),
+            "continuity_prefill_logits_max_abs_diff": float(
+                (last[:, -1] - ref[:, 0]).abs().max()),
+            "within_3e-3": ok, "prefill_counts": counts}
+
+
 def layer_stage_times(model, dev):
     """ms of one Mamba2 layer and of its two projections at the main run's
     shapes (CUDA events, L2 flushed before each call): the prefill layer
@@ -1381,9 +1422,7 @@ def lm_serve(dev):
     steps; prefill -> decode continuity against a 1,024-token forward; a
     300-token prompt (the chunk padding)."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.steps import prefill
-    from repro_torch.models import decode_step, forward, init_model, \
-        param_count
+    from repro_torch.models import init_model, param_count
     cfg = get_config("mamba2-370m")
     torch.cuda.synchronize()
     mem_at_start = torch.cuda.memory_allocated()
@@ -1403,26 +1442,8 @@ def lm_serve(dev):
 
     # (b) continuity: 5 teacher-forced decode steps after a prefill of
     # T - 5 tokens against the T-token forward
-    toks = prompt(LM_PROMPT)
-    t_pre = LM_PROMPT - CONT_STEPS
-    with torch.inference_mode():
-        full, _, _ = forward(model, {"tokens": toks})
-        ref_rows = full[:, t_pre - 1:].clone()
-        del full
-        last, caches = prefill(model, {"tokens": toks[:, :t_pre]})
-        state = model.cache_from_prefill(caches, LM_BATCH, LM_CACHE, t_pre)
-        outs = []
-        for i in range(CONT_STEPS):
-            lg, state = decode_step(model, toks[:, t_pre + i:t_pre + i + 1],
-                                    state, t_pre + i)
-            outs.append(lg[:, 0])
-        dec = torch.stack(outs, 1)
-    cont_err = float((dec - ref_rows[:, 1:]).abs().max())
-    pre_err = float((last[:, -1] - ref_rows[:, 0]).abs().max())
-    continuity = (bool(torch.allclose(dec, ref_rows[:, 1:], rtol=3e-3,
-                                      atol=3e-3))
-                  and bool(torch.allclose(last[:, -1], ref_rows[:, 0],
-                                          rtol=3e-3, atol=3e-3)))
+    cont = continuity(model, prompt(LM_PROMPT), LM_PROMPT - CONT_STEPS,
+                      LM_CACHE)
 
     # (c) a prompt that is not a multiple of the chunk
     short = _prefill_decode(model, prompt(LM_SHORT), 2, LM_CACHE)
@@ -1436,7 +1457,7 @@ def lm_serve(dev):
             r["prefill_counts"] == per_prefill for r in (warm, run, short)),
         "no_kernel_in_decode": all(r["decode_counts"] == zero
                                    for r in (warm, run, short)),
-        "continuity_3e-3": continuity,
+        "continuity_3e-3": cont["within_3e-3"],
         "finite_logits": all(bool(torch.isfinite(r["logits"]).all())
                              for r in (warm, run, short)),
         "tokens_in_vocab": bool(((run["tokens"] >= 0)
@@ -1455,9 +1476,7 @@ def lm_serve(dev):
            "decode_tok_per_s": LM_BATCH * 1e3 / run["decode_ms_per_step"],
            "short_prompt_len": LM_SHORT,
            "short_prefill_ms": short["prefill_ms"],
-           "continuity_prefill_len": t_pre,
-           "continuity_max_abs_diff": cont_err,
-           "continuity_prefill_logits_max_abs_diff": pre_err,
+           **{k: v for k, v in cont.items() if k.startswith("continuity")},
            "mem_at_start_mb": mem_at_start / 2**20,
            "peak_mem_mb": peak / 2**20,
            "layer_stage_ms": stages,
@@ -1573,6 +1592,7 @@ def hybrid_kernel_checks(dev, ssd_call, swa_call, bw, flops, tf32):
     kernels timed there, beside the twin and (attention) SDPA."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels import swa_attention as sw
     flush = l2_flush(dev)
@@ -1603,7 +1623,7 @@ def hybrid_kernel_checks(dev, ssd_call, swa_call, bw, flops, tf32):
         (q4, k4, v4), kw, got = swa_call
         window = kw["window"]
         bsz, t, hh, d = q4.shape
-        qf, kf, vf = _gqa_flat(q4, k4, v4)
+        qf, kf, vf = ops.swa_layout(q4, k4, v4)
         gotf = got.transpose(1, 2).reshape(bsz * hh, t, d)
         rows = torch.arange(0, bsz * hh, bsz * hh // HY_CHECK_ROWS,
                             device=dev)
@@ -1656,9 +1676,7 @@ def hybrid_serve(dev, bw, flops, tf32):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels import swa_attention as sw
-    from repro_torch.launch.steps import prefill
-    from repro_torch.models import decode_step, forward, init_model, \
-        param_count
+    from repro_torch.models import init_model, param_count
     cfg = get_config("zamba2-7b")
     cache = HY_PROMPT + HY_STEPS
     ring = min(cache, cfg.sliding_window)
@@ -1690,33 +1708,11 @@ def hybrid_serve(dev, bw, flops, tf32):
     # continuity: 5 teacher-forced decode steps after a prefill of
     # HY_CONT_PRE tokens against the HY_PROMPT-token forward; the prefill
     # keeps the first layer's SSD inputs and the first slot's q, k, v
-    toks = prompt(HY_PROMPT)
     ssd_cap = _FirstCall(ops.ssd_intra_chunk_grouped)
     swa_cap = _FirstCall(ops.swa_attention)
-    with torch.inference_mode():
-        full, _, _ = forward(model, {"tokens": toks})
-        ref_rows = full[:, HY_CONT_PRE - 1:].clone()
-        del full
-        with mock.patch.object(ops, "ssd_intra_chunk_grouped", ssd_cap), \
-                mock.patch.object(ops, "swa_attention", swa_cap):
-            last, caches = prefill(model, {"tokens": toks[:, :HY_CONT_PRE]})
-        state = model.cache_from_prefill(caches, HY_BATCH, HY_PROMPT,
-                                         HY_CONT_PRE)
-        del caches
-        outs = []
-        for i in range(HY_PROMPT - HY_CONT_PRE):
-            lg, state = decode_step(
-                model, toks[:, HY_CONT_PRE + i:HY_CONT_PRE + i + 1], state,
-                HY_CONT_PRE + i)
-            outs.append(lg[:, 0])
-        dec = torch.stack(outs, 1)
-        del state
-    cont_err = float((dec - ref_rows[:, 1:]).abs().max())
-    pre_err = float((last[:, -1] - ref_rows[:, 0]).abs().max())
-    continuity = (bool(torch.allclose(dec, ref_rows[:, 1:], rtol=3e-3,
-                                      atol=3e-3))
-                  and bool(torch.allclose(last[:, -1], ref_rows[:, 0],
-                                          rtol=3e-3, atol=3e-3)))
+    cont = continuity(model, prompt(HY_PROMPT), HY_CONT_PRE, HY_PROMPT, (
+        mock.patch.object(ops, "ssd_intra_chunk_grouped", ssd_cap),
+        mock.patch.object(ops, "swa_attention", swa_cap)))
     peak = torch.cuda.max_memory_allocated()
     in_model = hybrid_kernel_checks(dev, ssd_cap.call, swa_cap.call, bw,
                                     flops, tf32)
@@ -1733,7 +1729,7 @@ def hybrid_serve(dev, bw, flops, tf32):
             r["prefill_counts"] == per_prefill for r in (warm, first, run)),
         "no_kernel_in_decode": all(r["decode_counts"] == zero
                                    for r in (warm, first, run)),
-        "continuity_3e-3": continuity,
+        "continuity_3e-3": cont["within_3e-3"],
         "ssd_chunk_in_model_within_3e-5": in_model["ssd_chunk"][
             "within_3e-5"],
         "swa_attention_in_model_within_3e-5": in_model["swa_attention"][
@@ -1765,9 +1761,7 @@ def hybrid_serve(dev, bw, flops, tf32):
            "decode_share_of_bound": bounds["decode_step"]
            / run["decode_ms_per_step"],
            "stage_ms": stages,
-           "continuity_prefill_len": HY_CONT_PRE,
-           "continuity_max_abs_diff": cont_err,
-           "continuity_prefill_logits_max_abs_diff": pre_err,
+           **{k: v for k, v in cont.items() if k.startswith("continuity")},
            "in_model_kernels": in_model,
            "mem_at_start_mb": mem_at_start / 2**20,
            "peak_mem_mb": peak / 2**20,
@@ -1781,6 +1775,360 @@ def hybrid_serve(dev, bw, flops, tf32):
     if failed:
         raise AssertionError(f"hybrid_serve: failed {failed}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 15c: the dense family's serving
+# ---------------------------------------------------------------------------
+
+# the dense family at full width: (arch, batch, prompt), prompts within
+# each model's published context; decode steps after the timed prefill,
+# the short warm-up prompt; the kv_quant rerun (its arch and decode steps,
+# and the f32 run's top-2 margin above which its argmax must agree); the
+# serve CLI's run (its default arch, smollm-135m): batch, prompt, steps
+DENSE_RUNS = (("smollm-135m", 8, 2048), ("olmo-1b", 4, 2048),
+              ("minicpm-2b", 2, 4096), ("granite-3-8b", 2, 4096))
+DENSE_STEPS, DENSE_WARM = 32, 256
+QUANT_ARCH, QUANT_STEPS, QUANT_MARGIN = "granite-3-8b", 8, 1e-2
+CLI_BATCH, CLI_PROMPT, CLI_STEPS = 8, 512, 16
+
+
+def dense_bounds(cfg, b, t, steps, bw, flops, tf32):
+    """The least time of a dense model's serving, from shapes. Prefill:
+    the projections and the MLP as f32 products at the CUDA-core rate
+    (the port's are plain f32 cuBLAS), the attention's pairs over the
+    causal triangle at 4 D operations in three TF32 passes (the kernel's),
+    the last position's unembedding. A decode step: the bytes it must read
+    at the HBM rate, every weight once (the embedding's gather aside) and
+    the K/V of the positions it attends to, at the run's mean index."""
+    d, hd, v = cfg.d_model, cfg.head_dim, cfg.vocab_size
+    h, hkv, n = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    norm = 0 if cfg.norm == "nonparam_ln" else d
+    mm = d * hd * (h + 2 * hkv) + h * hd * d + 3 * d * cfg.d_ff
+    proj_flops = 2 * b * t * n * mm
+    attn_flops = 4 * hd * n * h * b * t * (t + 1) // 2
+    weights = n * (mm + 2 * norm) + d * v + norm
+    kv = 2 * n * b * (t + (steps + 1) / 2) * hkv * hd
+    ms = {"prefill_projections": proj_flops / flops * 1e3,
+          "prefill_attention": 3 * attn_flops / tf32 * 1e3,
+          "prefill_unembed_last": 2 * b * d * v / flops * 1e3,
+          "decode_weights": 4 * weights / bw * 1e3,
+          "decode_kv": 4 * kv / bw * 1e3}
+    ms.update(prefill=ms["prefill_projections"] + ms["prefill_attention"]
+              + ms["prefill_unembed_last"],
+              decode_step=ms["decode_weights"] + ms["decode_kv"],
+              prefill_projection_flops=proj_flops,
+              prefill_attention_flops=attn_flops,
+              decode_bytes_per_step=4 * (weights + kv))
+    return ms
+
+
+def dense_stage_times(model, dev, b, t):
+    """ms of one dense layer's stages at the run's shapes (CUDA events, L2
+    flushed, the median of 3 calls after 5): prefill over b x t tokens,
+    the Q, K, V projections, RoPE on q and k, the GQA repeat with the
+    (B H, T, D) copies ops.swa_attention makes, the swa_attention kernel,
+    the output projection, the SwiGLU MLP (norm, MLP, residual), the whole
+    layer; decode, one layer over a full t-slot ring and the unembedding
+    of one token a row."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.models import layers as L
+    cfg = model.cfg
+    block = model.layers[0]
+    attn = block.attn
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    flush = l2_flush(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    with torch.inference_mode():
+        x, o = randn(b, t, cfg.d_model), randn(b, t, h * hd)
+        q, k, v = randn(b, t, h, hd), randn(b, t, hkv, hd), randn(b, t, hkv,
+                                                                 hd)
+        flat = ops.swa_layout(q, k, v)
+        pos = torch.arange(t, device=dev)
+        x1 = x[:, :1].contiguous()
+        ring = {name: (randn(*r.shape) if r.is_floating_point() else r)
+                for name, r in L.init_kv_cache(cfg, b, t, torch.float32,
+                                               dev).items()}
+        out = {
+            "prefill_qkv_proj": time_ms(lambda: [
+                L.apply_dense(attn[w], x) for w in ("wq", "wk", "wv")],
+                flush, 3),
+            "prefill_rope": time_ms(lambda: (
+                L.rope_rotate(q, pos, cfg.rope_theta),
+                L.rope_rotate(k, pos, cfg.rope_theta)), flush, 3),
+            "prefill_gqa_repeat_layout": time_ms(
+                lambda: ops.swa_layout(q, k, v), flush, 3),
+            "prefill_swa_attention": time_ms(
+                lambda: sw.swa_attention_cuda(*flat), flush, 3),
+            "prefill_out_proj": time_ms(
+                lambda: L.apply_dense(attn["wo"], o), flush, 3),
+            "prefill_mlp": time_ms(lambda: block._mlp(x, cfg), flush, 3),
+            "prefill_layer": time_ms(lambda: block(x, cfg), flush, 3),
+            "decode_layer": time_ms(lambda: block.decode(x1, ring, t - 1,
+                                                         cfg), flush, 3),
+            "decode_unembed": time_ms(lambda: L.unembed(
+                model.embedding, x1, cfg), flush, 3)}
+    return out
+
+
+def dense_kernel_check(dev, call, bw, tf32):
+    """swa_attention on the first layer's q, k, v as the model handed them
+    to ops.swa_attention (window None, causal): the kernel's output there
+    against the twin on every (batch x head) row at 3e-5 and a rerun bit
+    for bit; then the kernel, the twin and SDPA timed on those inputs (SDPA
+    on the repeated K/V, the efficient backend forced, is_causal). Bound:
+    the causal triangle's pairs (swa_work) at 4 D operations in three TF32
+    passes, or the bytes."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    (q4, k4, v4), kw, got = call
+    if kw.get("window") is not None or not kw.get("causal", True):
+        raise AssertionError(f"dense attention called with {kw}")
+    b, t, h, d = q4.shape
+    flush = l2_flush(dev)
+    with torch.inference_mode():
+        flat = ops.swa_layout(q4, k4, v4)
+        gotf = got.transpose(1, 2).reshape(b * h, t, d)
+        want = sw.swa_attention_plain(*flat)
+        err = float((gotf - want).abs().max())
+        close = bool(torch.allclose(gotf, want, rtol=3e-5, atol=3e-5))
+        del want
+        rerun = bool(torch.equal(sw.swa_attention_cuda(*flat), gotf))
+        pairs, nops, nbytes = swa_work(b * h, t, d, None, 4, dev)
+        qs, ks, vs = (x.view(b, h, t, d) for x in flat)
+
+        def library():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=True)
+
+        lib_err = float((library().reshape(b * h, t, d) - gotf).abs()
+                        .max())
+        return {
+            "shape": [b * h, t, d], "kv_heads": k4.shape[2],
+            "window": None, "max_abs_err": err, "within_3e-5": close,
+            "rerun_bit_equal": rerun, "checked_rows": "all",
+            "ms": time_ms(lambda: sw.swa_attention_cuda(*flat), flush),
+            "plain_ms": time_ms(lambda: sw.swa_attention_plain(*flat),
+                                flush, 10),
+            "library_ms": time_ms(library, flush, 10),
+            "library": "F.scaled_dot_product_attention(q, k, v, "
+                       "is_causal=True) on (B, H, T, D), the K/V repeated, "
+                       "EFFICIENT_ATTENTION",
+            "library_max_abs_diff_vs_kernel": lib_err,
+            "pairs_counted": pairs, "flops_counted": nops,
+            "bytes_counted": nbytes, **_bound(nbytes, 3 * nops, bw, tf32)}
+
+
+def kv_quant_run(model, prompt, steps):
+    """The model once more with ``kv_quant=True`` (the same weights: a
+    shallow copy with the flag set) beside its f32 run on one prompt: each
+    through the prefill step and its hand-off (f32 rings; int8 rings with
+    f16 scales), then ``steps`` decode steps, the f32 run greedy and the
+    int8 run fed the f32 run's tokens."""
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import decode_step
+    b, t = prompt.shape
+    quant = copy.copy(model)
+    quant.cfg = dataclasses.replace(model.cfg, kv_quant=True)
+    runs, feeds = {}, None
+    for name, m in (("f32", model), ("int8", quant)):
+        with torch.inference_mode():
+            zero_counters()
+            last, caches = prefill(m, {"tokens": prompt})
+            pre = read_counters()
+            state = m.cache_from_prefill(caches, b, t + steps, t)
+            del caches
+            rings = {k: str(r.dtype).split(".")[-1] for k, r in state.items()}
+            zero_counters()
+            tok = torch.argmax(last[:, -1], -1).to(torch.int32)[:, None]
+            outs, fed = [], []
+            for i in range(steps):
+                tok = tok if feeds is None else feeds[i]
+                lg, state = decode_step(m, tok, state, t + i)
+                outs.append(lg[:, 0])
+                fed.append(tok)
+                tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+            del state
+            torch.cuda.synchronize()
+        runs[name] = {"last": last[:, -1], "logits": torch.stack(outs, 1),
+                      "prefill_counts": pre, "decode_counts": read_counters(),
+                      "rings": rings}
+        feeds = fed if feeds is None else feeds
+    f, q = runs["f32"]["logits"], runs["int8"]["logits"]
+    top2 = f.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > QUANT_MARGIN
+    agree = f.argmax(-1) == q.argmax(-1)
+    return {"decode_steps": steps, "rings": runs["int8"]["rings"],
+            "prefill_counts": runs["int8"]["prefill_counts"],
+            "decode_counts": runs["int8"]["decode_counts"],
+            "finite_logits": bool(torch.isfinite(q).all()),
+            "max_logit_diff_vs_f32": float((q - f).abs().max()),
+            "max_abs_f32_logit": float(f.abs().max()),
+            "prefill_logits_max_diff_vs_f32": float(
+                (runs["int8"]["last"] - runs["f32"]["last"]).abs().max()),
+            "margin": QUANT_MARGIN, "positions": int(sure.numel()),
+            "positions_past_margin": int(sure.sum()),
+            "argmax_agree_past_margin": bool(agree[sure].all()),
+            "argmax_agree_all": int(agree.sum())}
+
+
+def dense_run(dev, arch, b, t, bw, flops, tf32):
+    """One dense model at full width, f32, random init from seed 0: a
+    256-token warm-up, then the prefill step on a b x t random prompt
+    (timed), its hand-off into a ring of t + 32 slots and 32 greedy decode
+    steps; continuity of 5 teacher-forced steps after a t - 5 prefill
+    against the t-token forward, that prefill keeping the first layer's
+    attention inputs for the in-model kernel check; for QUANT_ARCH the
+    kv_quant rerun; bounds and stage times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model, param_count
+    cfg = get_config(arch)
+    cache = t + DENSE_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_mb = (torch.cuda.memory_allocated() - mem_at_start) / 2**20
+    gen = torch.Generator(device=dev).manual_seed(2026)
+
+    def prompt(n):
+        return torch.randint(0, cfg.vocab_size, (b, n), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    warm = _prefill_decode(model, prompt(DENSE_WARM), 2, cache)
+    run_prompt = prompt(t)
+    run = _prefill_decode(model, run_prompt, DENSE_STEPS, cache)
+
+    swa_cap = _FirstCall(ops.swa_attention)
+    cont = continuity(model, prompt(t), t - CONT_STEPS, t,
+                      (mock.patch.object(ops, "swa_attention", swa_cap),))
+    quant = (kv_quant_run(model, run_prompt, QUANT_STEPS)
+             if arch == QUANT_ARCH else None)
+    peak = torch.cuda.max_memory_allocated()
+    in_model = dense_kernel_check(dev, swa_cap.call, bw, tf32)
+    del swa_cap
+    stages = dense_stage_times(model, dev, b, t)
+    bounds = dense_bounds(cfg, b, t, DENSE_STEPS, bw, flops, tf32)
+
+    zero = {k: 0 for k in run["prefill_counts"]}
+    per_prefill = dict(zero, swa_attention=cfg.num_layers)
+    prefills = [warm["prefill_counts"], run["prefill_counts"],
+                cont["prefill_counts"]]
+    decodes = [warm["decode_counts"], run["decode_counts"]]
+    if quant is not None:
+        prefills.append(quant["prefill_counts"])
+        decodes.append(quant["decode_counts"])
+    checks = {
+        "swa_per_layer_per_prefill": all(c == per_prefill for c in prefills),
+        "no_kernel_in_decode": all(c == zero for c in decodes),
+        "continuity_3e-3": cont["within_3e-3"],
+        "swa_attention_in_model_within_3e-5": in_model["within_3e-5"],
+        "swa_attention_in_model_rerun_bit_equal": in_model["rerun_bit_equal"],
+        "finite_logits": all(bool(torch.isfinite(r["logits"]).all())
+                             for r in (warm, run)),
+        "tokens_in_vocab": bool(((run["tokens"] >= 0)
+                                 & (run["tokens"] < cfg.vocab_size)).all()),
+    }
+    if quant is not None:
+        checks.update(
+            kv_quant_int8_rings=quant["rings"] == {
+                "k": "int8", "v": "int8", "k_scale": "float16",
+                "v_scale": "float16"},
+            kv_quant_finite_logits=quant["finite_logits"],
+            kv_quant_argmax_agrees_past_margin=quant[
+                "argmax_agree_past_margin"])
+    rec = {"phase": "dense_serve", "arch": cfg.name,
+           "dtype": cfg.param_dtype, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+           "vocab": cfg.vocab_size, "params": param_count(model),
+           "init_s": init_s, "weights_mb": weights_mb, "batch": b,
+           "prompt_len": t, "decode_steps": DENSE_STEPS, "ring_slots": cache,
+           "warmup_prompt_len": DENSE_WARM,
+           "warmup_prefill_ms": warm["prefill_ms"],
+           "prefill_ms": run["prefill_ms"],
+           "prefill_tok_per_s": b * t * 1e3 / run["prefill_ms"],
+           "first_decode_ms": run["first_decode_ms"],
+           "decode_ms_per_step": run["decode_ms_per_step"],
+           "decode_tok_per_s": b * 1e3 / run["decode_ms_per_step"],
+           "bound_ms": bounds,
+           "prefill_share_of_bound": bounds["prefill"] / run["prefill_ms"],
+           "decode_share_of_bound": bounds["decode_step"]
+           / run["decode_ms_per_step"],
+           "stage_ms": stages,
+           **{k: v for k, v in cont.items() if k.startswith("continuity")},
+           "in_model_swa_attention": in_model,
+           "kv_quant": quant,
+           "mem_at_start_mb": mem_at_start / 2**20,
+           "peak_mem_mb": peak / 2**20,
+           "peak_mem_above_start_mb": (peak - mem_at_start) / 2**20,
+           "sampled_ids": run["tokens"][:2, :10].tolist(),
+           "launches": {"prefill": run["prefill_counts"],
+                        "decode": run["decode_counts"]},
+           "checks": checks}
+    log(rec)
+    del model
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dense_serve {arch}: failed {failed}")
+    return rec
+
+
+def serve_cli_run():
+    """The serve CLI's ``main`` with no ``--arch`` (smollm-135m at full
+    width, on the card): batch 8, a 512-token prompt, 16 greedy steps into
+    a ring that holds them; its printed lines kept."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as cli
+    cfg = get_config("smollm-135m")
+    buf = io.StringIO()
+    torch.cuda.empty_cache()
+    zero_counters()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(["--batch", str(CLI_BATCH), "--prompt-len",
+                        str(CLI_PROMPT), "--steps", str(CLI_STEPS),
+                        "--cache", str(CLI_PROMPT + CLI_STEPS)])
+    counts = read_counters()
+    lines = buf.getvalue().splitlines()
+    zero = {k: 0 for k in counts}
+    checks = {
+        "default_arch_smollm": lines[0].startswith("arch=smollm-135m "),
+        "tokens_shape": tuple(out.shape) == (CLI_BATCH, CLI_STEPS + 1),
+        "tokens_in_vocab": bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+        "swa_per_layer_one_prefill": counts == dict(
+            zero, swa_attention=cfg.num_layers)}
+    rec = {"phase": "dense_serve_cli", "argv": ["--batch", CLI_BATCH,
+                                                "--prompt-len", CLI_PROMPT,
+                                                "--steps", CLI_STEPS],
+           "stdout": lines, "launches": counts, "checks": checks}
+    log(rec)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dense_serve_cli: failed {failed}")
+    return rec
+
+
+def dense_serve(dev, bw, flops, tf32):
+    """The four dense models of DENSE_RUNS in turn (each freed before the
+    next), then the serve CLI's default run."""
+    runs = {arch: dense_run(dev, arch, b, t, bw, flops, tf32)
+            for arch, b, t in DENSE_RUNS}
+    return {"runs": runs, "cli": serve_cli_run()}
 
 
 # ---------------------------------------------------------------------------
@@ -2323,10 +2671,11 @@ def swa_time(dev, name, dtype, flush, bw, flops, tf32):
     0.025 here), where the twin's 3e-2 would pass any answer."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops
     from repro_torch.kernels import swa_attention as sw
     h, hkv, d = SWA_ZOO[name]
     t = SWA_TIME_T
-    qf, kf, vf = _gqa_flat(*swa_inputs(dev, 1, t, h, hkv, d, dtype, 3))
+    qf, kf, vf = ops.swa_layout(*swa_inputs(dev, 1, t, h, hkv, d, dtype, 3))
     mask = sw.band_mask(t, t, SWA_WINDOW, True, dev)
     pairs, nops, nbytes = swa_work(h, t, d, SWA_WINDOW, qf.element_size(),
                                    dev)
@@ -2571,6 +2920,16 @@ def main() -> int:
         launches[kname] += hy["launches"]["prefill"][kname]
     torch.cuda.empty_cache()
 
+    # 15c. the dense family's serving at full width, and the serve CLI
+    dense = dense_serve(dev, bw, flops, tf32)
+    for arch, rec in dense["runs"].items():
+        by_path[f"dense_serve {arch} prefill"] = rec["launches"]["prefill"]
+        by_path[f"dense_serve {arch} decode"] = rec["launches"]["decode"]
+        launches["swa_attention"] += rec["launches"]["prefill"][
+            "swa_attention"]
+    by_path["dense_serve cli"] = dense["cli"]["launches"]
+    torch.cuda.empty_cache()
+
     # 16-17. the paper's harness at paper scale, the bench suite
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
         for path, counts in paper_harness(dev, tmpdir).items():
@@ -2661,6 +3020,13 @@ def main() -> int:
                 "bound_ms", "bound_by")},
             arch="zamba2-7b", launches_per_prefill=hy["launches"][
                 "prefill"][kname])
+        if kname == "swa_attention":
+            kernels[-1]["in_model_by_arch"] = {
+                arch: dict({k: rec["in_model_swa_attention"][k] for k in (
+                    "shape", "kv_heads", "max_abs_err", "ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")},
+                    launches_per_prefill=rec["launches"]["prefill"][kname])
+                for arch, rec in dense["runs"].items()}
         if "reference_shape" in t:
             ref = t["reference_shape"]
             kernels[-1]["reference_shape"] = {

@@ -1,8 +1,10 @@
 """Registry of the architectures the port runs, as ``repro.configs`` names
 them.
 
-``get_config("mamba2-370m")`` (or ``"zamba2-7b"``) returns the published
-config and ``get_reduced`` its smoke-test variant. The reference's other
+``get_config("smollm-135m")`` returns the published config and
+``get_reduced`` its smoke-test variant, for the ``dense`` family
+(smollm-135m, olmo-1b, minicpm-2b, granite-3-8b), the ``ssm`` family
+(mamba2-370m) and the ``hybrid`` family (zamba2-7b). The reference's other
 arch ids are known but not ported yet: asking for one raises
 ``NotImplementedError`` naming it; an id the reference does not know raises
 ``KeyError``.
@@ -15,14 +17,17 @@ from typing import List
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "smollm-135m": "repro_torch.configs.smollm_135m",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
 }
 
 # the reference's other arch ids (repro/configs/__init__.py), not ported
-_UNPORTED = ("llama4-maverick-400b-a17b", "smollm-135m", "olmo-1b",
-             "internvl2-1b", "minicpm-2b", "mixtral-8x22b", "hubert-xlarge",
-             "granite-3-8b")
+_UNPORTED = ("llama4-maverick-400b-a17b", "internvl2-1b", "mixtral-8x22b",
+             "hubert-xlarge")
 
 ARCH_IDS: List[str] = list(_MODULES)
 

@@ -124,20 +124,25 @@ def ssd_intra_chunk(cum, b, c, xdt):
     return fn(cum, b, c, xdt)
 
 
+def swa_layout(q, k, v):
+    """(B, T, H, D) q and (B, S, Hkv, D) k, v as the attention kernel takes
+    them: each kv head repeated over its H / Hkv query heads (GQA), then
+    (B H, T, D) / (B H, S, D) contiguous copies."""
+    h = q.shape[2]
+    if k.shape[2] != h:
+        k = torch.repeat_interleave(k, h // k.shape[2], dim=2)
+        v = torch.repeat_interleave(v, h // v.shape[2], dim=2)
+    return [x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3])
+            .contiguous() for x in (q, k, v)]
+
+
 def swa_attention(q, k, v, *, window=None, causal: bool = True):
     """Sliding-window attention in the (B, T, H, D) / (B, S, Hkv, D)
     layout: GQA repeats each kv head over its H / Hkv query heads, as the
     reference's ``repro.kernels.ops.swa_attention`` does; (B, T, H, D)
     out."""
     b, t, h, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    if hkv != h:
-        k = torch.repeat_interleave(k, h // hkv, dim=2)
-        v = torch.repeat_interleave(v, h // hkv, dim=2)
-    qf = q.transpose(1, 2).reshape(b * h, t, d).contiguous()
-    kf = k.transpose(1, 2).reshape(b * h, s, d).contiguous()
-    vf = v.transpose(1, 2).reshape(b * h, s, d).contiguous()
     fn = (_swa.swa_attention_cuda if _route(q.device, "swa_attention")
           else _swa.swa_attention_plain)
-    out = fn(qf, kf, vf, window=window, causal=causal)
+    out = fn(*swa_layout(q, k, v), window=window, causal=causal)
     return out.reshape(b, h, t, d).transpose(1, 2)

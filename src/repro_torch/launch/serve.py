@@ -1,12 +1,16 @@
 """Serving CLI: batched greedy decoding on the port, after an optional
 prefill of a random prompt.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch smollm-135m] \\
         [--batch 4] [--steps 16] [--cache 128] [--demo] \\
         [--prompt-len T] [--device cuda|cpu]
 
-``--arch`` is ``mamba2-370m`` or ``zamba2-7b``; ``--cache`` sizes
-zamba2's KV rings (at most its 4,096-token window).
+``--arch`` defaults to ``smollm-135m``, as the reference's CLI does; the
+port runs the dense family (``smollm-135m``, ``olmo-1b``, ``minicpm-2b``,
+``granite-3-8b``), ``mamba2-370m`` and ``zamba2-7b``. ``--cache`` sizes
+the KV rings: a dense arch's ring keeps the last ``--cache`` tokens (a
+longer prompt and decode wrap it, as in the reference); zamba2's is at
+most its 4,096-token window.
 
 The port's counterpart of ``repro.launch.serve`` / ``examples/
 serve_decode.py``, with their flags (``--demo`` runs the reduced config).
@@ -75,7 +79,7 @@ def generate(model, prompt, steps: int, cache: int):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-370m")
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--cache", type=int, default=128)

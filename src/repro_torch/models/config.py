@@ -2,6 +2,7 @@
 ``repro.models.config`` (the port imports nothing of the reference).
 
 Families: dense | moe | ssm | hybrid | vlm | audio. The port runs the
+``dense`` family (smollm-135m, olmo-1b, minicpm-2b, granite-3-8b), the
 ``ssm`` family (mamba2-370m) and the ``hybrid`` family (zamba2-7b) so
 far; the other families' fields stay so that ``reduced()`` and the field
 names match the reference's. The

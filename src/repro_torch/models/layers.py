@@ -1,4 +1,4 @@
-"""The layers of the SSM and hybrid language models, torch form:
+"""The layers of the dense, SSM and hybrid language models, torch form:
 initializers, dense layers, RMSNorm (and OLMo's non-parametric LayerNorm),
 RoPE, attention for prefill and for decode over a KV ring (f32 or int8
 with per-(token, head) scales), the SwiGLU MLP, the token embedding and
@@ -216,10 +216,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _quantize_kv(x):
-    """x: (B, 1, Hkv, D) -> (int8 payload, f16 per-(token, head) scale)."""
+def quantize_kv(x):
+    """x: (..., Hkv, D) -> (int8 payload, f16 per-(token, head) scale
+    (..., Hkv)): the payload is rounded with the f32 scale, which is then
+    stored in f16, as in the reference (decode and the prefill hand-off)."""
     x32 = x.float()
-    scale = torch.clamp_min(x32.abs().amax(-1) / 127.0, 1e-8)   # (B,1,Hkv)
+    scale = torch.clamp_min(x32.abs().amax(-1) / 127.0, 1e-8)
     q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale.to(torch.float16)
 
@@ -262,7 +264,7 @@ def apply_attention_decode(params, x, cache, index: int, cfg: ModelConfig):
 
     slot = index % s_c                      # ring-buffer write position
     if cfg.kv_quant:
-        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
         for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
                           ("v_scale", vs)):
             cache[name][:, slot] = val[:, 0]

@@ -1,23 +1,29 @@
-"""Model assembly, torch form: the ``ssm`` family (mamba2-370m) and the
-``hybrid`` family (zamba2-7b: the Mamba2 trunk plus one shared attention +
-SwiGLU block applied before every ``shared_attn_period``-th layer).
+"""Model assembly, torch form: the ``dense`` family (smollm-135m, olmo-1b,
+minicpm-2b, granite-3-8b: L attention + SwiGLU blocks), the ``ssm`` family
+(mamba2-370m) and the ``hybrid`` family (zamba2-7b: the Mamba2 trunk plus
+one shared attention + SwiGLU block applied before every
+``shared_attn_period``-th layer).
 
-Port of the recurrent branch of ``repro.models.transformer``. The
-reference stacks its layers along a leading L axis and scans them; the
-port keeps one ``nn.Module`` per block in a ``ModuleList`` and loops, and
-holds the shared block once. Caches and decode states keep the
-reference's stacked layout and names: ``{"ssm": (L, B, H, P, N) f32,
-"conv": (L, B, K-1, C)}``, and for the hybrid family ``shared_kv``, the
-shared block's K/V of shape (n_slots, B, T, Hkv, D) after a prefill and
-its rings (n_slots, B, S_c, Hkv, D) in a decode state. Where the
+Port of ``repro.models.transformer``. The reference stacks its layers
+along a leading L axis and scans them; the port keeps one ``nn.Module`` per
+block in a ``ModuleList`` and loops, and holds the shared block once (an
+``AttentionBlock``, the dense family's block with one set of weights).
+Caches and decode states keep the reference's stacked layout and names:
+for the dense family ``{"k", "v"}``, each layer's post-RoPE K/V of shape
+(L, B, T, Hkv, D) after a prefill, and rings (L, B, S_c, Hkv, D) in a
+decode state (int8 with ``k_scale`` / ``v_scale`` (L, B, S_c, Hkv) f16
+under ``kv_quant``); for the recurrent families ``{"ssm": (L, B, H, P, N)
+f32, "conv": (L, B, K-1, C)}`` and, for the hybrid family, ``shared_kv``,
+the shared block's K/V of shape (n_slots, B, T, Hkv, D) after a prefill
+and its rings (n_slots, B, S_c, Hkv, D) in a decode state. Where the
 reference makes a dummy K/V for every layer without the shared block and
 selects the slots afterwards, the port writes only the slots.
 
-The other families (dense, moe, vlm, audio), the hybrid + ``kv_quant``
-prefill hand-off and ``loss_fn`` are not ported and raise
-``NotImplementedError`` naming themselves. Params hold no gradient: the
-port serves, it does not train yet. Decode writes the new K/V into the
-rings in place, under ``torch.inference_mode()``.
+The other families (moe, vlm, audio), the hybrid + ``kv_quant`` prefill
+hand-off and ``loss_fn`` are not ported and raise ``NotImplementedError``
+naming themselves. Params hold no gradient: the port serves, it does not
+train yet. Decode writes the new K/V into the rings in place, under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ def _pnest(tree: Optional[dict]):
     return nn.ModuleDict({k: _pnest(v) for k, v in tree.items()})
 
 
-PORTED_FAMILIES = ("ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -86,10 +92,11 @@ class MambaBlock(nn.Module):
         return x + cfg.residual_scale * out, new_state
 
 
-class SharedAttentionBlock(nn.Module):
-    """Zamba2's one shared block, reused at every slot: RMSNorm, attention,
-    residual, RMSNorm, SwiGLU MLP, residual (the reference's
-    ``_forward_recurrent`` / ``_decode_recurrent`` shared branch)."""
+class AttentionBlock(nn.Module):
+    """Norm, attention, residual, norm, SwiGLU MLP, residual, each residual
+    scaled by ``residual_scale`` (``apply_block_full`` / ``_decode`` of the
+    reference): a dense layer, and zamba2's one shared block, reused at
+    every slot. OLMo's norms have no params (``ln1`` / ``ln2`` None)."""
 
     def __init__(self, params: dict):
         super().__init__()
@@ -109,16 +116,17 @@ class SharedAttentionBlock(nn.Module):
         return self._mlp(x + cfg.residual_scale * a_out, cfg), kv
 
     def decode(self, x, cache, index: int, cfg: ModelConfig):
-        """One token; writes its K/V into the slot's ring ``cache``."""
+        """One token; writes its K/V into the ring ``cache``."""
         z = L.apply_norm(self.ln1, x, cfg)
         a_out, _ = L.apply_attention_decode(self.attn, z, cache, index, cfg)
         return self._mlp(x + cfg.residual_scale * a_out, cfg)
 
 
 class LanguageModel(nn.Module):
-    """Token embedding, L Mamba2 blocks (with the hybrid family's shared
-    attention block before every ``shared_attn_period``-th one), final norm
-    and the unembedding, built from params in the reference's structure:
+    """Token embedding, L blocks (dense: ``AttentionBlock``; ssm and
+    hybrid: ``MambaBlock``, with the hybrid family's shared attention block
+    before every ``shared_attn_period``-th one), final norm and the
+    unembedding, built from params in the reference's structure:
     ``{"embedding": {...}, "layers": [block, ...], "shared_attn": {...}
     (hybrid), "final_norm": ...}``."""
 
@@ -127,9 +135,13 @@ class LanguageModel(nn.Module):
         _check_family(cfg)
         self.cfg = cfg
         self.embedding = _pdict(params["embedding"])
-        self.layers = nn.ModuleList(MambaBlock(b["mamba"], b["norm"])
-                                    for b in params["layers"])
-        self.shared_attn = (SharedAttentionBlock(params["shared_attn"])
+        if cfg.family == "dense":
+            self.layers = nn.ModuleList(AttentionBlock(b)
+                                        for b in params["layers"])
+        else:
+            self.layers = nn.ModuleList(MambaBlock(b["mamba"], b["norm"])
+                                        for b in params["layers"])
+        self.shared_attn = (AttentionBlock(params["shared_attn"])
                             if cfg.family == "hybrid" else None)
         self.final_norm = _pdict(params["final_norm"])
 
@@ -145,18 +157,44 @@ class LanguageModel(nn.Module):
                 return_hidden: bool = False):
         """Full-sequence forward over (B, T) tokens at positions arange(T).
         Returns (logits (B, T, V) f32 | hidden (B, T, d), aux 0.0, caches |
-        None), caches being ``{"ssm_states": {"ssm", "conv"}}`` stacked
+        None). The caches are written layer by layer into preallocated
+        stacks: for the dense family ``{"k", "v"}`` (L, B, T, Hkv, D); for
+        the recurrent families ``{"ssm_states": {"ssm", "conv"}}`` stacked
         over layers and, for the hybrid family, ``{"shared_kv": {"k",
-        "v"}}`` (n_slots, B, T, Hkv, D), written slot by slot."""
+        "v"}}`` (n_slots, B, T, Hkv, D)."""
         cfg = self.cfg
         x = L.embed_tokens(self.embedding, tokens, cfg)
+        if cfg.family == "dense":
+            x, caches = self._forward_dense(x, return_cache)
+        else:
+            x, caches = self._forward_recurrent(x, return_cache)
+        x = L.apply_norm(self.final_norm, x, cfg)
+        aux = torch.zeros((), device=x.device)
+        if return_hidden:
+            return x, aux, caches
+        return L.unembed(self.embedding, x, cfg), aux, caches
+
+    def _kv_stack(self, x, n: int):
+        b, t = x.shape[:2]
+        shape = (n, b, t, self.cfg.num_kv_heads, self.cfg.head_dim)
+        return {"k": x.new_empty(shape), "v": x.new_empty(shape)}
+
+    def _forward_dense(self, x, return_cache: bool):
+        kv = self._kv_stack(x, len(self.layers)) if return_cache else None
+        for i, block in enumerate(self.layers):
+            x, (k, v) = block(x, self.cfg)
+            if kv is not None:
+                kv["k"][i] = k
+                kv["v"][i] = v
+            del k, v
+        return x, kv
+
+    def _forward_recurrent(self, x, return_cache: bool):
+        cfg = self.cfg
         ssm, conv = [], []
         shared_kv = None
         if return_cache and self.shared_attn is not None:
-            b, t = tokens.shape
-            shape = (n_shared_slots(cfg), b, t, cfg.num_kv_heads,
-                     cfg.head_dim)
-            shared_kv = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
+            shared_kv = self._kv_stack(x, n_shared_slots(cfg))
         for i, block in enumerate(self.layers):
             if self._shared_at(i):
                 x, (k, v) = self.shared_attn(x, cfg)
@@ -169,17 +207,13 @@ class LanguageModel(nn.Module):
             if return_cache:
                 ssm.append(state["ssm"])
                 conv.append(state["conv"])
-        x = L.apply_norm(self.final_norm, x, cfg)
         caches = None
         if return_cache:
             caches = {"ssm_states": {"ssm": torch.stack(ssm),
                                      "conv": torch.stack(conv)}}
             if shared_kv is not None:
                 caches["shared_kv"] = shared_kv
-        aux = torch.zeros((), device=x.device)
-        if return_hidden:
-            return x, aux, caches
-        return L.unembed(self.embedding, x, cfg), aux, caches
+        return x, caches
 
     def init_decode_state(self, batch: int, seq_len: int):
         return init_decode_state(self.cfg, batch, seq_len, self.device)
@@ -191,30 +225,40 @@ class LanguageModel(nn.Module):
 
     def decode_step(self, tokens, state, index: int):
         """One-token decode. tokens: (B, 1) int; index: a host int, the
-        tokens so far (the shared block's ring position; unused by the SSM
-        family). Returns (logits (B, 1, V) f32, new state); the hybrid
-        family's ``shared_kv`` rings are the state's own, updated in
-        place."""
+        tokens so far (the rings' position; unused by the SSM family).
+        Returns (logits (B, 1, V) f32, new state); the KV rings (the dense
+        family's, the hybrid family's ``shared_kv``) are the state's own,
+        updated in place."""
         cfg = self.cfg
         with torch.inference_mode():
             x = L.embed_tokens(self.embedding, tokens, cfg)
-            ssm, conv = [], []
-            for i, block in enumerate(self.layers):
-                if self._shared_at(i):
-                    slot = i // cfg.shared_attn_period
-                    x = self.shared_attn.decode(
-                        x, {name: ring[slot] for name, ring
-                            in state["shared_kv"].items()}, index, cfg)
-                x, st = block.decode(x, {"ssm": state["ssm"][i],
-                                         "conv": state["conv"][i]}, cfg)
-                ssm.append(st["ssm"])
-                conv.append(st["conv"])
+            if cfg.family == "dense":
+                for i, block in enumerate(self.layers):
+                    x = block.decode(x, {name: ring[i] for name, ring
+                                         in state.items()}, index, cfg)
+                new = state
+            else:
+                x, new = self._decode_recurrent(x, state, index)
             x = L.apply_norm(self.final_norm, x, cfg)
-            logits = L.unembed(self.embedding, x, cfg)
-            new = {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
-            if "shared_kv" in state:
-                new["shared_kv"] = state["shared_kv"]
-            return logits, new
+            return L.unembed(self.embedding, x, cfg), new
+
+    def _decode_recurrent(self, x, state, index: int):
+        cfg = self.cfg
+        ssm, conv = [], []
+        for i, block in enumerate(self.layers):
+            if self._shared_at(i):
+                slot = i // cfg.shared_attn_period
+                x = self.shared_attn.decode(
+                    x, {name: ring[slot] for name, ring
+                        in state["shared_kv"].items()}, index, cfg)
+            x, st = block.decode(x, {"ssm": state["ssm"][i],
+                                     "conv": state["conv"][i]}, cfg)
+            ssm.append(st["ssm"])
+            conv.append(st["conv"])
+        new = {"ssm": torch.stack(ssm), "conv": torch.stack(conv)}
+        if "shared_kv" in state:
+            new["shared_kv"] = state["shared_kv"]
+        return x, new
 
 
 # ---------------------------------------------------------------------------
@@ -228,19 +272,26 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> LanguageModel:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     dtype = L.torch_dtype(cfg.param_dtype)
-    params = {"embedding": L.init_embedding(gen, cfg, dtype),
-              "layers": [{"mamba": SSM.init_mamba2(gen, cfg, dtype),
-                          "norm": L.maybe_init_norm(cfg.d_model, cfg, dtype,
-                                                    dev)}
-                         for _ in range(cfg.num_layers)]}
+
+    def attention_block():
+        return {"attn": L.init_attention(gen, cfg, dtype),
+                "ln1": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev),
+                "ln2": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev),
+                "mlp": L.init_mlp(gen, cfg, dtype)}
+
+    params = {"embedding": L.init_embedding(gen, cfg, dtype)}
+    if cfg.family == "dense":
+        params["layers"] = [attention_block()
+                            for _ in range(cfg.num_layers)]
+    else:
+        params["layers"] = [
+            {"mamba": SSM.init_mamba2(gen, cfg, dtype),
+             "norm": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev)}
+            for _ in range(cfg.num_layers)]
     if cfg.family == "hybrid":
         # Zamba2 [arXiv:2411.15242]: ONE shared attention + MLP block
         # reused every `shared_attn_period` layers
-        params["shared_attn"] = {
-            "attn": L.init_attention(gen, cfg, dtype),
-            "mlp": L.init_mlp(gen, cfg, dtype),
-            "ln1": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev),
-            "ln2": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev)}
+        params["shared_attn"] = attention_block()
     params["final_norm"] = L.maybe_init_norm(cfg.d_model, cfg, dtype, dev)
     return LanguageModel(cfg, params)
 
@@ -257,24 +308,21 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
                     device=None) -> LanguageModel:
     """The reference's params pytree (``init_model``'s, layer leaves
     stacked (L, ...)), carried across as numpy arrays, as a module on
-    ``device`` with the same values bit for bit (the hybrid family's
-    ``shared_attn`` too)."""
+    ``device`` with the same values bit for bit: any layer tree, None
+    leaves (OLMo's norms) kept, the untied unembedding and the hybrid
+    family's ``shared_attn`` too."""
     dev = resolve_device(device)
 
-    def conv(tree):
+    def conv(tree, layer=None):
         if tree is None:
             return None
-        return {k: (conv(v) if isinstance(v, dict) else _tensor(v, dev))
+        return {k: (conv(v, layer) if v is None or isinstance(v, dict)
+                    else _tensor(v if layer is None else v[layer], dev))
                 for k, v in tree.items()}
 
-    stacked = np_params["layers"]
-    layers = [{"mamba": {k: _tensor(v[i], dev)
-                         for k, v in stacked["mamba"].items()},
-               "norm": (None if stacked.get("norm") is None else
-                        {k: _tensor(v[i], dev)
-                         for k, v in stacked["norm"].items()})}
-              for i in range(cfg.num_layers)]
-    params = {"embedding": conv(np_params["embedding"]), "layers": layers,
+    params = {"embedding": conv(np_params["embedding"]),
+              "layers": [conv(np_params["layers"], i)
+                         for i in range(cfg.num_layers)],
               "final_norm": conv(np_params["final_norm"])}
     if "shared_attn" in np_params:
         params["shared_attn"] = conv(np_params["shared_attn"])
@@ -301,28 +349,32 @@ def forward(model: LanguageModel, batch: dict, return_cache: bool = False,
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None):
-    """Zero SSM states stacked over layers and, for the hybrid family, the
-    shared block's zero KV rings stacked over its slots, each of
-    ``min(seq_len, window)`` slots (int8 with f16 scales under
-    ``kv_quant``)."""
+    """Zero decode state: for the dense family each layer's KV ring
+    stacked over layers; for the recurrent families the SSM states stacked
+    over layers and, for the hybrid family, the shared block's rings
+    stacked over its slots. A ring has ``min(seq_len, window)`` slots
+    (int8 with f16 scales under ``kv_quant``)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    dtype = L.torch_dtype(cfg.param_dtype)
-    one = SSM.init_ssm_state(cfg, batch, dtype, dev)
+    if cfg.family == "dense":
+        return _rings(cfg, cfg.num_layers, batch, seq_len, dev)
+    one = SSM.init_ssm_state(cfg, batch, L.torch_dtype(cfg.param_dtype),
+                             dev)
     state = {name: t.expand((cfg.num_layers,) + t.shape).clone()
              for name, t in one.items()}
     if cfg.family == "hybrid":
-        state["shared_kv"] = _shared_rings(cfg, batch, seq_len, dev)
+        state["shared_kv"] = _rings(cfg, n_shared_slots(cfg), batch,
+                                    seq_len, dev)
     return state
 
 
-def _shared_rings(cfg: ModelConfig, batch: int, seq_len: int, device):
-    """``init_kv_cache``'s buffers stacked over the shared slots, zero
-    (its shapes read off the meta device, which allocates nothing)."""
+def _rings(cfg: ModelConfig, n: int, batch: int, seq_len: int, device):
+    """``init_kv_cache``'s buffers stacked n times, zero (its shapes read
+    off the meta device, which allocates nothing)."""
     one = L.init_kv_cache(cfg, batch, seq_len,
                           L.torch_dtype(cfg.param_dtype), "meta")
-    return {name: torch.zeros((n_shared_slots(cfg),) + arr.shape,
-                              dtype=arr.dtype, device=device)
+    return {name: torch.zeros((n,) + arr.shape, dtype=arr.dtype,
+                              device=device)
             for name, arr in one.items()}
 
 
@@ -344,9 +396,12 @@ def _fill_ring(ring, got, prefill_len: int):
 
 def cache_from_prefill(caches, cfg: ModelConfig, batch: int, seq_len: int,
                        prefill_len: int):
-    """``forward(return_cache=True)``'s caches as a decode state: the SSM
-    states pass through, and the hybrid family's shared K/V fill its rings
-    (the serving path's prefill -> decode hand-off)."""
+    """``forward(return_cache=True)``'s caches as a decode state (the
+    serving path's prefill -> decode hand-off): the K/V (dense: every
+    layer's; hybrid: the shared slots') fill their rings, and the SSM
+    states pass through. Under ``kv_quant`` (dense) the K/V are quantized
+    per (token, head) as the reference's ``fill_kv_quant`` does: int8
+    payload with the f32 scale, the scale stored in f16."""
     _check_family(cfg)
     if cfg.family == "hybrid" and cfg.kv_quant:
         raise NotImplementedError(
@@ -354,12 +409,25 @@ def cache_from_prefill(caches, cfg: ModelConfig, batch: int, seq_len: int,
             f"({cfg.name}) is not ported: the reference casts the prefill "
             f"K/V straight to int8 and leaves k_scale / v_scale out, so "
             f"its next decode_step fails")
+    if cfg.family == "dense":
+        with torch.inference_mode():
+            rings = _rings(cfg, cfg.num_layers, batch, seq_len,
+                           caches["k"].device)
+            for name in ("k", "v"):
+                if cfg.kv_quant:
+                    payload, scale = L.quantize_kv(caches[name])
+                    _fill_ring(rings[name], payload, prefill_len)
+                    _fill_ring(rings[f"{name}_scale"], scale, prefill_len)
+                else:
+                    _fill_ring(rings[name], caches[name], prefill_len)
+        return rings
     st = caches["ssm_states"]
     new = {"ssm": st["ssm"].float(),
            "conv": st["conv"].to(L.torch_dtype(cfg.param_dtype))}
     if cfg.family == "hybrid":
         with torch.inference_mode():
-            rings = _shared_rings(cfg, batch, seq_len, st["ssm"].device)
+            rings = _rings(cfg, n_shared_slots(cfg), batch, seq_len,
+                           st["ssm"].device)
             if "shared_kv" in caches:
                 for name in ("k", "v"):
                     _fill_ring(rings[name], caches["shared_kv"][name],

@@ -530,6 +530,33 @@ def test_swa_attention_gqa_route(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=3e-5, atol=3e-5)
 
 
+@pytest.mark.parametrize("t,d,h,hkv", [(300, 64, 9, 3), (2112, 64, 9, 3),
+                                       (2112, 128, 32, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_attention_full_causal_band_gqa(cuda, t, d, h, hkv, dtype):
+    """The dense family's attention: no window, the whole causal triangle,
+    through ops.swa_attention with GQA groups of 3 (smollm's 9 heads over
+    3, D = 64) and 4 (granite's 32 over 8, D = 128), T = 300 (three query
+    tiles, the last ragged) and 2,112: one launch, against the twin on the
+    same repeated inputs, and bit-equal on a rerun."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    gen = torch.Generator(device=cuda).manual_seed(t + d + h)
+    q = torch.randn((2, t, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, t, hkv, d), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    before = sw.launches
+    got = ops.swa_attention(q, k, v, window=None)
+    torch.cuda.synchronize()
+    assert sw.launches == before + 1
+    want = sw.swa_attention_plain(*ops.swa_layout(q, k, v))
+    want = want.reshape(2, h, t, d).transpose(1, 2)
+    tol = (dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16
+           else dict(rtol=3e-5, atol=3e-5))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, ops.swa_attention(q, k, v, window=None))
+
+
 def test_mamba2_prefill_runs_the_ssd_kernel_per_layer(cuda):
     """The reduced mamba2 on the card: the prefill step launches the ssd
     kernel once per layer, decode never, and prefill -> decode continues
@@ -631,6 +658,49 @@ def test_zamba2_serve_generates_on_card(cuda):
         full, _, _ = forward(card, {"tokens": torch.cat([prompt, out[:, :3]],
                                                         1)})
     torch.testing.assert_close(out, full[:, 99:].argmax(-1).to(out.dtype))
+
+
+@pytest.mark.parametrize("t_pre", [11, 300])
+def test_dense_reduced_on_card_matches_cpu_route(cuda, t_pre):
+    """Reduced granite-3-8b (untied unembedding, logit scale 1/16, a GQA
+    group of 4) on the card (the attention kernel) against the same model
+    on the CPU (the twin) at the reference's LM tolerance: the prefill
+    step's logits, the forward's logits and per-layer caches (T = 300
+    spans three query tiles), the hand-off and 5 teacher-forced decode
+    steps. A prefill launches swa_attention once per layer; decode never."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import decode_step, forward, init_model
+    tol = dict(rtol=1e-4, atol=1e-5)
+    cfg = get_reduced("granite-3-8b")
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = init_model(cfg, seed=0, device="cpu").to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(t_pre).integers(
+        0, cfg.vocab_size, (2, t_pre + 5)).astype(np.int32))
+    got, want = {}, {}
+    for name, model, dev in (("card", card, cuda), ("cpu", cpu, "cpu")):
+        out = got if name == "card" else want
+        tk = toks.to(dev)
+        sw.launches = 0
+        out["prefill"], _ = prefill(model, {"tokens": tk[:, :t_pre]})
+        with torch.inference_mode():
+            logits, _, caches = forward(model, {"tokens": tk[:, :t_pre]},
+                                        return_cache=True)
+        if name == "card":
+            assert sw.launches == 2 * cfg.num_layers
+        out["logits"] = logits
+        out.update({f"kv_{k}": v for k, v in caches.items()})
+        state = model.cache_from_prefill(caches, 2, 320, t_pre)
+        for i in range(5):
+            lg, state = decode_step(model, tk[:, t_pre + i:t_pre + i + 1],
+                                    state, t_pre + i)
+            out[f"decode_{i}"] = lg
+        out.update({f"ring_{k}": v for k, v in state.items()})
+        if name == "card":
+            assert sw.launches == 2 * cfg.num_layers
+    for key, w in want.items():
+        torch.testing.assert_close(got[key].cpu(), w, **tol, msg=key)
 
 
 def _grouped_case(dev, bz, nc, q, h, g, n, p, dtype, seed, offset=None):

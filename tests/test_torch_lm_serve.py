@@ -214,13 +214,13 @@ def test_serve_cli_generates_the_prompt_continuation():
 
 
 def test_unported_archs_families_and_losses_raise_by_name(monkeypatch):
-    with pytest.raises(NotImplementedError, match="smollm-135m"):
-        get_config("smollm-135m")
+    with pytest.raises(NotImplementedError, match="internvl2-1b"):
+        get_config("internvl2-1b")
     with pytest.raises(NotImplementedError, match="mixtral-8x22b"):
         get_reduced("mixtral_8x22b")
     with pytest.raises(KeyError, match="no-such-arch"):
         get_config("no-such-arch")
-    for family in ("dense", "moe", "vlm", "audio"):
+    for family in ("moe", "vlm", "audio"):
         cfg = dataclasses.replace(get_reduced("mamba2-370m"), family=family,
                                   num_experts=4 * (family == "moe"))
         with pytest.raises(NotImplementedError, match=family):
