@@ -53,7 +53,17 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   greedy decode steps, continuity, the kernel against its twin on the
   first layer's inputs on every (batch x head) row, stage times;
   granite-3-8b once more on int8 KV rings; then the serve CLI's default
-  run (smollm-135m, a 512-token prompt).
+  run (smollm-135m, a 512-token prompt);
+- mixtral-8x22b at its published width, its depth cut to 4 of 56 layers
+  (10.4 B params, f32, random weights from seed 0; ``moe_serve``): a
+  warm-up, batch 2 through the prefill step on an 8,192-token prompt past
+  the 4,096-token window (every layer's attention on the attention kernel,
+  48 query heads over 8; the experts at the published capacity factor
+  1.25), 32 greedy decode steps over the wrapped 4,096-slot ring,
+  continuity after a 4,160-token prefill at the dropless capacity, the
+  int8 KV rerun, the kernel against its twin on the first layer's inputs,
+  stage times and bounds. Before each serving phase ``free_held`` collects
+  what earlier phases left unreachable on the card.
 
 - the paper's harness (``repro_torch.bench``) at the reference's paper
   scale (``REPRO_BENCH_FULL=1``: K = 100, 120 rounds, 50 synchronous
@@ -1314,6 +1324,36 @@ def swa_path(path_case):
     return rec
 
 
+def free_held(tag: str) -> dict:
+    """Before a phase that needs the card's memory: collect unreachable
+    objects (a reference cycle keeps its device tensors until the cyclic
+    collector runs) and hand the allocator's cached blocks back; log the
+    bytes live before and after and, where over 1 GiB stays live, the
+    largest CUDA tensors still reachable."""
+    import gc
+    import warnings
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    rec = {"phase": "free_held", "before_phase": tag,
+           "live_mb_before": before / 2**20, "live_mb_after": after / 2**20}
+    if after > 2**30:
+        with warnings.catch_warnings():
+            # isinstance on some deprecated torch objects warns
+            warnings.simplefilter("ignore", FutureWarning)
+            held = sorted(((o.untyped_storage().nbytes(), list(o.shape),
+                            str(o.dtype).split(".")[-1])
+                           for o in gc.get_objects()
+                           if isinstance(o, torch.Tensor) and o.is_cuda),
+                          reverse=True)
+        rec["largest_live_tensors"] = [
+            {"mb": n / 2**20, "shape": s, "dtype": d} for n, s, d in held[:12]]
+    log(rec)
+    return rec
+
+
 def _prefill_decode(model, prompt, steps, cache):
     """The serving path as the CLI drives it (steps.prefill, the hand-off,
     steps.serve), timed, with the ssd counts of the prefill and of the
@@ -1424,7 +1464,7 @@ def lm_serve(dev):
     from repro_torch.configs import get_config
     from repro_torch.models import init_model, param_count
     cfg = get_config("mamba2-370m")
-    torch.cuda.synchronize()
+    free_held("lm_serve")
     mem_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1574,7 +1614,7 @@ def hybrid_stage_times(model, dev, ring):
         return {
             "prefill_layer": time_ms(lambda: layer(u, cfg), flush, 3),
             "prefill_shared": time_ms(lambda: shared(u, cfg), flush, 3),
-            "prefill_shared_mlp": time_ms(lambda: shared._mlp(u, cfg),
+            "prefill_shared_mlp": time_ms(lambda: shared._ffn(u, cfg),
                                           flush, 3),
             "decode_layer": time_ms(lambda: layer.decode(u1, one, cfg),
                                     flush, 3),
@@ -1584,17 +1624,104 @@ def hybrid_stage_times(model, dev, ring):
                 model.embedding, u1, cfg), flush, 3)}
 
 
-def hybrid_kernel_checks(dev, ssd_call, swa_call, bw, flops, tf32):
-    """Each kernel against its twin on the inputs the model handed it in
-    the continuity prefill, at 3e-5: ssd_chunk on the first layer's grouped
-    inputs (the twin on all of them), swa_attention on the first shared
-    slot's q, k, v in HY_CHECK_ROWS of its (batch x head) rows; then both
-    kernels timed there, beside the twin and (attention) SDPA."""
+def _f64_attention(q, k, v, window):
+    """The band's softmax attention in f64, one (T, D) row at a time."""
+    from repro_torch.kernels import swa_attention as sw
+    t, d = q.shape[1], q.shape[2]
+    mask = sw.band_mask(t, t, window, True, q.device)
+    out = []
+    for qr, kr, vr in zip(q, k, v):
+        lg = (qr.double() @ kr.double().t()) / d ** 0.5
+        lg.masked_fill_(~mask, float("-inf"))
+        out.append(torch.softmax(lg, -1) @ vr.double())
+        del lg
+    return torch.stack(out)
+
+
+def swa_in_model_check(dev, call, window, bw, tf32, check_rows=None):
+    """swa_attention on the q, k, v a model handed ops.swa_attention (a
+    ``_FirstCall``'s (args, kwargs, output); raises unless it was called
+    causal with ``window``): the kernel's output there against the twin at
+    3e-5 and a rerun bit for bit, on every (batch x head) row or, where the
+    twin's (rows, T, T) logits would not fit beside the model, on
+    ``check_rows`` rows spread evenly; both against the band's softmax in
+    f64 on the checked rows; then the kernel on every row, the twin on the
+    checked rows and SDPA on every row timed (the efficient backend forced;
+    ``is_causal`` with no window, the band's mask with one, on the repeated
+    K/V). Bound: the band's pairs at 4 D operations in three TF32 passes,
+    or the bytes."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels import swa_attention as sw
+    (q4, k4, v4), kw, got = call
+    if kw.get("window") != window or not kw.get("causal", True):
+        raise AssertionError(f"attention called with {kw}, expected "
+                             f"window={window}, causal")
+    b, t, h, d = q4.shape
+    flush = l2_flush(dev)
+    with torch.inference_mode():
+        flat = ops.swa_layout(q4, k4, v4)
+        gotf = got.transpose(1, 2).reshape(b * h, t, d)
+        if check_rows is None:
+            rows, sub, held = "all", flat, gotf
+        else:
+            idx = torch.arange(0, b * h, b * h // check_rows, device=dev)
+            rows, sub = idx.tolist(), [x[idx].contiguous() for x in flat]
+            held = gotf[idx]
+        want = sw.swa_attention_plain(*sub, window=window)
+        err = float((held - want).abs().max())
+        close = bool(torch.allclose(held, want, rtol=3e-5, atol=3e-5))
+        exact = _f64_attention(*sub, window)
+        f64_err = {"kernel": float((held.double() - exact).abs().max()),
+                   "twin": float((want.double() - exact).abs().max()),
+                   "max_abs_out": float(exact.abs().max())}
+        del want, exact
+        rerun = bool(torch.equal(sw.swa_attention_cuda(*sub, window=window),
+                                 held))
+        del held
+        pairs, nops, nbytes = swa_work(b * h, t, d, window, 4, dev)
+        qs, ks, vs = (x.view(b, h, t, d) for x in flat)
+        mask = (None if window is None
+                else sw.band_mask(t, t, window, True, dev))
+
+        def library():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, is_causal=mask is None)
+
+        lib_err = float((library().reshape(b * h, t, d) - gotf).abs().max())
+        plain_ms = time_ms(lambda: sw.swa_attention_plain(*sub,
+                                                          window=window),
+                           flush, 10)
+        return {
+            "shape": [b * h, t, d], "kv_heads": k4.shape[2],
+            "window": window, "checked_rows": rows, "max_abs_err": err,
+            "within_3e-5": close, "rerun_bit_equal": rerun,
+            "max_abs_err_vs_f64": f64_err,
+            "ms": time_ms(lambda: sw.swa_attention_cuda(*flat,
+                                                        window=window),
+                          flush),
+            "plain_ms": plain_ms if check_rows is None else None,
+            "plain_ms_checked_rows": plain_ms,
+            "library_ms": time_ms(library, flush, 10),
+            "library": "F.scaled_dot_product_attention on (B, H, T, D), the "
+                       "K/V repeated, " + ("is_causal" if mask is None
+                                           else "attn_mask=band")
+                       + ", EFFICIENT_ATTENTION",
+            "library_max_abs_diff_vs_kernel": lib_err,
+            "pairs_counted": pairs, "flops_counted": nops,
+            "bytes_counted": nbytes, **_bound(nbytes, 3 * nops, bw, tf32)}
+
+
+def hybrid_kernel_checks(dev, ssd_call, swa_call, window, bw, flops, tf32):
+    """Each kernel against its twin on the inputs the model handed it in
+    the continuity prefill, at 3e-5: ssd_chunk on the first layer's grouped
+    inputs (the twin on all of them), swa_attention on the first shared
+    slot's q, k, v in HY_CHECK_ROWS of its (batch x head) rows
+    (``swa_in_model_check``); then both kernels timed there, beside the
+    twin and (attention) SDPA."""
+    from repro_torch.kernels import ssd_chunk as sc
     flush = l2_flush(dev)
     out = {}
     with torch.inference_mode():
@@ -1620,45 +1747,8 @@ def hybrid_kernel_checks(dev, ssd_call, swa_call, bw, flops, tf32):
                          tf32)}
         del args, got, cum, b, c, xdt
 
-        (q4, k4, v4), kw, got = swa_call
-        window = kw["window"]
-        bsz, t, hh, d = q4.shape
-        qf, kf, vf = ops.swa_layout(q4, k4, v4)
-        gotf = got.transpose(1, 2).reshape(bsz * hh, t, d)
-        rows = torch.arange(0, bsz * hh, bsz * hh // HY_CHECK_ROWS,
-                            device=dev)
-        sub = [x[rows].contiguous() for x in (qf, kf, vf)]
-        want = sw.swa_attention_plain(*sub, window=window)
-        err = float((gotf[rows] - want).abs().max())
-        close = bool(torch.allclose(gotf[rows], want, rtol=3e-5, atol=3e-5))
-        rerun = bool(torch.equal(sw.swa_attention_cuda(*sub, window=window),
-                                 gotf[rows]))
-        del want, got, gotf
-        mask = sw.band_mask(t, t, window, True, dev)
-        pairs, nops, nbytes = swa_work(bsz * hh, t, d, window, 4, dev)
-        qs, ks, vs = (x.view(bsz, hh, t, d) for x in (qf, kf, vf))
-
-        def library():
-            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                return F.scaled_dot_product_attention(qs, ks, vs,
-                                                      attn_mask=mask)
-
-        out["swa_attention"] = {
-            "shape": [bsz * hh, t, d], "window": window,
-            "checked_rows": rows.tolist(), "max_abs_err": err,
-            "within_3e-5": close, "rerun_on_checked_rows_bit_equal": rerun,
-            "ms": time_ms(lambda: sw.swa_attention_cuda(
-                qf, kf, vf, window=window), flush),
-            "plain_ms_checked_rows": time_ms(lambda: sw.swa_attention_plain(
-                *sub, window=window), flush, 10),
-            "plain_ms": None,
-            "plain_ms_note": "the twin's (rows, T, T) logits take 17 GB at "
-                             "all 64 rows; timed on the checked rows only",
-            "library_ms": time_ms(library, flush, 10),
-            "library": "F.scaled_dot_product_attention(q, k, v, "
-                       "attn_mask=band) on (B, H, T, D), EFFICIENT_ATTENTION",
-            "flops_counted": nops, "bytes_counted": nbytes,
-            **_bound(nbytes, 3 * nops, bw, tf32)}
+    out["swa_attention"] = swa_in_model_check(
+        dev, swa_call, window, bw, tf32, check_rows=HY_CHECK_ROWS)
     return out
 
 
@@ -1680,8 +1770,7 @@ def hybrid_serve(dev, bw, flops, tf32):
     cfg = get_config("zamba2-7b")
     cache = HY_PROMPT + HY_STEPS
     ring = min(cache, cfg.sliding_window)
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
+    free_held("hybrid_serve")
     mem_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1714,8 +1803,8 @@ def hybrid_serve(dev, bw, flops, tf32):
         mock.patch.object(ops, "ssd_intra_chunk_grouped", ssd_cap),
         mock.patch.object(ops, "swa_attention", swa_cap)))
     peak = torch.cuda.max_memory_allocated()
-    in_model = hybrid_kernel_checks(dev, ssd_cap.call, swa_cap.call, bw,
-                                    flops, tf32)
+    in_model = hybrid_kernel_checks(dev, ssd_cap.call, swa_cap.call,
+                                    cfg.sliding_window, bw, flops, tf32)
     del ssd_cap, swa_cap
     stages = hybrid_stage_times(model, dev, ring)
     bounds = hybrid_bounds(cfg, HY_BATCH, HY_PROMPT, ring, bw, flops, tf32)
@@ -1734,6 +1823,8 @@ def hybrid_serve(dev, bw, flops, tf32):
             "within_3e-5"],
         "swa_attention_in_model_within_3e-5": in_model["swa_attention"][
             "within_3e-5"],
+        "swa_attention_in_model_rerun_bit_equal": in_model["swa_attention"][
+            "rerun_bit_equal"],
         "finite_logits": all(bool(torch.isfinite(r["logits"]).all())
                              for r in (warm, first, run)),
         "tokens_in_vocab": bool(((run["tokens"] >= 0)
@@ -1867,64 +1958,13 @@ def dense_stage_times(model, dev, b, t):
                 lambda: sw.swa_attention_cuda(*flat), flush, 3),
             "prefill_out_proj": time_ms(
                 lambda: L.apply_dense(attn["wo"], o), flush, 3),
-            "prefill_mlp": time_ms(lambda: block._mlp(x, cfg), flush, 3),
+            "prefill_mlp": time_ms(lambda: block._ffn(x, cfg), flush, 3),
             "prefill_layer": time_ms(lambda: block(x, cfg), flush, 3),
             "decode_layer": time_ms(lambda: block.decode(x1, ring, t - 1,
                                                          cfg), flush, 3),
             "decode_unembed": time_ms(lambda: L.unembed(
                 model.embedding, x1, cfg), flush, 3)}
     return out
-
-
-def dense_kernel_check(dev, call, bw, tf32):
-    """swa_attention on the first layer's q, k, v as the model handed them
-    to ops.swa_attention (window None, causal): the kernel's output there
-    against the twin on every (batch x head) row at 3e-5 and a rerun bit
-    for bit; then the kernel, the twin and SDPA timed on those inputs (SDPA
-    on the repeated K/V, the efficient backend forced, is_causal). Bound:
-    the causal triangle's pairs (swa_work) at 4 D operations in three TF32
-    passes, or the bytes."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import swa_attention as sw
-    (q4, k4, v4), kw, got = call
-    if kw.get("window") is not None or not kw.get("causal", True):
-        raise AssertionError(f"dense attention called with {kw}")
-    b, t, h, d = q4.shape
-    flush = l2_flush(dev)
-    with torch.inference_mode():
-        flat = ops.swa_layout(q4, k4, v4)
-        gotf = got.transpose(1, 2).reshape(b * h, t, d)
-        want = sw.swa_attention_plain(*flat)
-        err = float((gotf - want).abs().max())
-        close = bool(torch.allclose(gotf, want, rtol=3e-5, atol=3e-5))
-        del want
-        rerun = bool(torch.equal(sw.swa_attention_cuda(*flat), gotf))
-        pairs, nops, nbytes = swa_work(b * h, t, d, None, 4, dev)
-        qs, ks, vs = (x.view(b, h, t, d) for x in flat)
-
-        def library():
-            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                return F.scaled_dot_product_attention(qs, ks, vs,
-                                                      is_causal=True)
-
-        lib_err = float((library().reshape(b * h, t, d) - gotf).abs()
-                        .max())
-        return {
-            "shape": [b * h, t, d], "kv_heads": k4.shape[2],
-            "window": None, "max_abs_err": err, "within_3e-5": close,
-            "rerun_bit_equal": rerun, "checked_rows": "all",
-            "ms": time_ms(lambda: sw.swa_attention_cuda(*flat), flush),
-            "plain_ms": time_ms(lambda: sw.swa_attention_plain(*flat),
-                                flush, 10),
-            "library_ms": time_ms(library, flush, 10),
-            "library": "F.scaled_dot_product_attention(q, k, v, "
-                       "is_causal=True) on (B, H, T, D), the K/V repeated, "
-                       "EFFICIENT_ATTENTION",
-            "library_max_abs_diff_vs_kernel": lib_err,
-            "pairs_counted": pairs, "flops_counted": nops,
-            "bytes_counted": nbytes, **_bound(nbytes, 3 * nops, bw, tf32)}
 
 
 def kv_quant_run(model, prompt, steps):
@@ -1967,6 +2007,10 @@ def kv_quant_run(model, prompt, steps):
     sure = (top2[..., 0] - top2[..., 1]) > QUANT_MARGIN
     agree = f.argmax(-1) == q.argmax(-1)
     return {"decode_steps": steps, "rings": runs["int8"]["rings"],
+            "agree_by_step_row": agree.t().tolist(),
+            "top2_gap_by_step_row": (top2[..., 0] - top2[..., 1]).t()
+            .tolist(),
+            "max_diff_by_step_row": (q - f).abs().amax(-1).t().tolist(),
             "prefill_counts": runs["int8"]["prefill_counts"],
             "decode_counts": runs["int8"]["decode_counts"],
             "finite_logits": bool(torch.isfinite(q).all()),
@@ -1993,8 +2037,7 @@ def dense_run(dev, arch, b, t, bw, flops, tf32):
     from repro_torch.models import init_model, param_count
     cfg = get_config(arch)
     cache = t + DENSE_STEPS
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
+    free_held(f"dense_serve {arch}")
     mem_at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2018,7 +2061,7 @@ def dense_run(dev, arch, b, t, bw, flops, tf32):
     quant = (kv_quant_run(model, run_prompt, QUANT_STEPS)
              if arch == QUANT_ARCH else None)
     peak = torch.cuda.max_memory_allocated()
-    in_model = dense_kernel_check(dev, swa_cap.call, bw, tf32)
+    in_model = swa_in_model_check(dev, swa_cap.call, None, bw, tf32)
     del swa_cap
     stages = dense_stage_times(model, dev, b, t)
     bounds = dense_bounds(cfg, b, t, DENSE_STEPS, bw, flops, tf32)
@@ -2129,6 +2172,375 @@ def dense_serve(dev, bw, flops, tf32):
     runs = {arch: dense_run(dev, arch, b, t, bw, flops, tf32)
             for arch, b, t in DENSE_RUNS}
     return {"runs": runs, "cli": serve_cli_run()}
+
+
+# ---------------------------------------------------------------------------
+# phase 15d: the moe family's serving
+# ---------------------------------------------------------------------------
+
+# mixtral-8x22b at its published width, its 56 layers cut to MOE_LAYERS (4
+# layers are 41.7 GB f32): batch, prompt (past the 4,096-token window, so
+# the band cuts and the ring wraps), decode steps, warm-up prompt; the
+# continuity prefill (B = 1, past the window, at the dropless capacity
+# E / k); the rows of the in-model kernel held against its twin (the
+# twin's logits for all 96 rows would take 25.8 GB)
+MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 4
+MOE_BATCH, MOE_PROMPT, MOE_STEPS, MOE_WARM = 2, 8192, 32, 256
+MOE_CONT_PRE, MOE_CHECK_ROWS = 4160, 8
+# the kv_quant rerun's argmax margin, a share of the f32 run's largest
+# |logit|: the reference allows int8 decode logits to move 2% of it
+# (tests/test_serving.py test_int8_kv_cache_decode_accuracy), so two of
+# them can swap an argmax only where their gap is under 4%. QUANT_MARGIN's
+# absolute 1e-2 was set at granite's logit scale (its logits scaled by
+# 1/16); mixtral's are unscaled, and the int8 rings move them by far more
+# than 1e-2 (the record's max_diff_where_routing_matched)
+MOE_QUANT_MARGIN_REL = 0.04
+
+
+class _RouteLog:
+    """Wraps ``moe.route``: per call, the kept (token, expert) pairs, the
+    chosen pairs and the experts that got a kept token, and the keep mask
+    itself (host reads: in an untimed run only)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.keeps = fn, [], []
+
+    def __call__(self, params, xg, cfg, cap):
+        out = self.fn(params, xg, cfg, cap)
+        keep, pos = out[1], out[2]
+        self.calls.append((int(keep.sum()), int((pos >= 0).sum()),
+                           int(keep.flatten(0, 1).any(0).sum())))
+        self.keeps.append(keep.cpu())
+        return out
+
+
+def routing_matched(keeps, layers, steps, batch):
+    """The kv_quant rerun's routing, f32 run against int8 run, from a
+    ``_RouteLog`` over both (each: a prefill of ``layers`` calls, then
+    ``steps`` decode steps of ``layers`` calls on one group of ``batch``
+    tokens): (matched (steps, batch) bool, True where the row's keep mask
+    was the same in every layer at that step; the (step, layer, row) where
+    it was not)."""
+    per_run = layers * (1 + steps)
+    runs = [keeps[i * per_run + layers:(i + 1) * per_run] for i in (0, 1)]
+    matched = torch.ones((steps, batch), dtype=torch.bool)
+    flips = []
+    for s in range(steps):
+        for layer in range(layers):
+            a, b = (r[s * layers + layer][0] for r in runs)
+            for row in range(batch):
+                if not torch.equal(a[row], b[row]):
+                    matched[s, row] = False
+                    flips.append([s, layer, row])
+    return matched, flips
+
+
+def _band_pairs(t: int, window) -> int:
+    """(query, key) pairs of one causal T = S row inside the window."""
+    if window is None or t <= window:
+        return t * (t + 1) // 2
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def moe_bounds(cfg, b, t, steps, kept_pairs, decode_experts, bw, flops,
+               tf32):
+    """The least time of an MoE model's serving, from shapes and this run's
+    routing. Prefill: the routed expert work (each token's k experts, three
+    d x ff products), the attention projections and the router as f32
+    products at the CUDA-core rate (the port's are plain f32 cuBLAS), the
+    band's pairs at 4 D operations in three TF32 passes (the kernel's), the
+    last position's unembedding. Beside it: the same with the kept pairs
+    only (the run's drops, ``kept_pairs`` over all layers); and the extra
+    work of the reference's one-hot route, the E x G x C slots beyond the
+    routed rows (the port pays those too) and its dispatch and combine
+    einsums (the port's index copies do not). A decode step: the bytes it
+    must read at the HBM rate, every non-expert weight once (the
+    embedding's gather aside), the experts its tokens were routed to
+    (``decode_experts``, the mean count of distinct experts a layer), the
+    unembedding and the K/V of the attended positions; and the read of all
+    experts, which a route that runs every expert pays."""
+    from repro_torch.models import moe as MOE
+    d, hd, v, ff = cfg.d_model, cfg.head_dim, cfg.vocab_size, cfg.d_ff
+    h, hkv, n = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+    e, k = cfg.num_experts, cfg.experts_per_token
+    tok = b * t
+    g = min(cfg.moe_group_size, tok)
+    ng = -(-tok // g)
+    cap = MOE._group_capacity(g, cfg)
+    attn_mm = d * hd * (h + 2 * hkv) + h * hd * d
+    expert_mm = 3 * d * ff
+    routed = 2 * tok * k * expert_mm
+    proj = 2 * tok * (attn_mm + d * e)
+    attn_flops = 4 * hd * h * b * _band_pairs(t, cfg.sliding_window)
+    slot_rows = e * ng * cap
+    slot_extra = 2 * (slot_rows - tok * k) * expert_mm
+    onehot = 2 * 2 * ng * g * e * cap * d
+    ms = {"prefill_routed_experts": n * routed / flops * 1e3,
+          "prefill_projections_router": n * proj / flops * 1e3,
+          "prefill_attention": 3 * n * attn_flops / tf32 * 1e3,
+          "prefill_unembed_last": 2 * b * d * v / flops * 1e3}
+    ms["prefill"] = sum(ms.values())
+    ms["prefill_kept_only"] = ms["prefill"] + (
+        2 * kept_pairs * expert_mm - n * routed) / flops * 1e3
+    ms["onehot_slots_extra"] = n * slot_extra / flops * 1e3
+    ms["onehot_dispatch_combine"] = n * onehot / flops * 1e3
+    window = cfg.sliding_window or t + steps
+    attended = min(window, t + (steps + 1) / 2)
+    common = n * (attn_mm + 2 * d + d * e) + d * v + d
+    kv = 2 * n * b * attended * hkv * hd
+    ms.update(decode_weights=4 * common / bw * 1e3,
+              decode_routed_experts=4 * n * decode_experts * expert_mm
+              / bw * 1e3,
+              decode_kv=4 * kv / bw * 1e3)
+    ms["decode_step"] = (ms["decode_weights"] + ms["decode_routed_experts"]
+                         + ms["decode_kv"])
+    ms["decode_step_all_experts"] = ms["decode_step"] + 4 * n * (
+        e - decode_experts) * expert_mm / bw * 1e3
+    ms.update(prefill_routed_flops_per_layer=routed,
+              prefill_projection_router_flops_per_layer=proj,
+              prefill_attention_flops_per_layer=attn_flops,
+              group=g, groups=ng, capacity=cap, slot_rows=slot_rows,
+              routed_rows=tok * k,
+              onehot_slot_extra_flops_per_layer=slot_extra,
+              onehot_dispatch_combine_flops_per_layer=onehot,
+              decode_experts_per_layer=decode_experts,
+              decode_bytes_per_step=4 * (common + n * decode_experts
+                                         * expert_mm + kv),
+              decode_bytes_per_step_all_experts=4 * (common + n * e
+                                                     * expert_mm + kv))
+    return ms
+
+
+def moe_stage_times(model, dev, b, t, ring):
+    """ms of one MoE layer's stages at the run's shapes (CUDA events, L2
+    flushed, the median of 3 calls after 5): prefill over b x t tokens, the
+    Q, K, V projections, RoPE on q and k, the GQA repeat with the (B H, T,
+    D) copies ops.swa_attention makes, the swa_attention kernel (window
+    4,096), the output projection, the router with top-k and the dispatch
+    copies, the experts' products, the combine, the MoE half (norm, MoE,
+    residual), the whole layer; decode, one layer over a full ring, its MoE
+    half and the unembedding of one token a row."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    cfg = model.cfg
+    block = model.layers[0]
+    attn, moe = block.attn, block.moe
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    flush = l2_flush(dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    out = {}
+    with torch.inference_mode():
+        x, o = randn(b, t, cfg.d_model), randn(b, t, h * hd)
+        out["prefill_qkv_proj"] = time_ms(lambda: [
+            L.apply_dense(attn[w], x) for w in ("wq", "wk", "wv")], flush, 3)
+        out["prefill_out_proj"] = time_ms(
+            lambda: L.apply_dense(attn["wo"], o), flush, 3)
+        del o
+        q, k, v = randn(b, t, h, hd), randn(b, t, hkv, hd), randn(b, t, hkv,
+                                                                 hd)
+        pos = torch.arange(t, device=dev)
+        out["prefill_rope"] = time_ms(lambda: (
+            L.rope_rotate(q, pos, cfg.rope_theta),
+            L.rope_rotate(k, pos, cfg.rope_theta)), flush, 3)
+        out["prefill_gqa_repeat_layout"] = time_ms(
+            lambda: ops.swa_layout(q, k, v), flush, 3)
+        flat = ops.swa_layout(q, k, v)
+        out["prefill_swa_attention"] = time_ms(
+            lambda: sw.swa_attention_cuda(*flat, window=cfg.sliding_window),
+            flush, 3)
+        del q, k, v, flat
+        out["prefill_router_dispatch"] = time_ms(
+            lambda: MOE.dispatch(moe, x, cfg), flush, 3)
+        exp_in, rows, w, _ = MOE.dispatch(moe, x, cfg)
+        out["prefill_experts"] = time_ms(
+            lambda: MOE.expert_ffn(moe, exp_in), flush, 3)
+        exp_out = MOE.expert_ffn(moe, exp_in)
+        del exp_in
+        out["prefill_combine"] = time_ms(
+            lambda: MOE.combine(exp_out, rows, w), flush, 3)
+        del exp_out, rows, w
+        out["prefill_moe"] = time_ms(lambda: block._ffn(x, cfg), flush, 3)
+        out["prefill_layer"] = time_ms(lambda: block(x, cfg), flush, 3)
+        x1 = x[:, :1].contiguous()
+        del x
+        cache = {name: (randn(*r.shape) if r.is_floating_point() else r)
+                 for name, r in L.init_kv_cache(cfg, b, ring, torch.float32,
+                                                dev).items()}
+        out["decode_layer"] = time_ms(
+            lambda: block.decode(x1, cache, t, cfg), flush, 3)
+        out["decode_moe"] = time_ms(lambda: block._ffn(x1, cfg), flush, 3)
+        out["decode_unembed"] = time_ms(
+            lambda: L.unembed(model.embedding, x1, cfg), flush, 3)
+    return out
+
+
+def moe_serve(dev, bw, flops, tf32):
+    """mixtral-8x22b at its published width (d_model 6144, 48 query heads
+    over 8 kv heads, D = 128, W = 4096, 8 experts top-2 of d_ff 16384,
+    capacity factor 1.25, vocab 32,768, untied), its depth cut to
+    MOE_LAYERS, f32, random init from seed 0: a 256-token warm-up, then
+    batch 2 through the prefill step on an 8,192-token prompt twice (the
+    first call builds the band plan at the new T and keeps the first
+    layer's attention inputs and every layer's routing; the second is the
+    timed run) with 32 greedy decode steps after it over the 4,096-slot
+    ring; continuity of 5 teacher-forced steps after a B = 1 prefill of
+    4,160 tokens (past the window: the ring wraps) against the 4,165-token
+    forward, at the dropless capacity E / k = 4; the kv_quant rerun; the
+    kernel against its twin on the model's own inputs; bounds and stage
+    times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model, param_count
+    from repro_torch.models import moe as MOE
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    b, t = MOE_BATCH, MOE_PROMPT
+    cache = t + MOE_STEPS
+    ring = min(cache, cfg.sliding_window)
+    free_held("moe_serve")
+    mem_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_mb = (torch.cuda.memory_allocated() - mem_at_start) / 2**20
+    gen = torch.Generator(device=dev).manual_seed(2027)
+
+    def prompt(bb, n):
+        return torch.randint(0, cfg.vocab_size, (bb, n), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    warm = _prefill_decode(model, prompt(b, MOE_WARM), 2, cache)
+    swa_cap = _FirstCall(ops.swa_attention)
+    routes = _RouteLog(MOE.route)
+    with mock.patch.object(ops, "swa_attention", swa_cap), \
+            mock.patch.object(MOE, "route", routes):
+        first = _prefill_decode(model, prompt(b, t), 2, cache)
+    peak_first = torch.cuda.max_memory_allocated()
+    in_model = swa_in_model_check(dev, swa_cap.call, cfg.sliding_window,
+                                  bw, tf32, check_rows=MOE_CHECK_ROWS)
+    del swa_cap
+    torch.cuda.reset_peak_memory_stats()
+    run_prompt = prompt(b, t)
+    run = _prefill_decode(model, run_prompt, MOE_STEPS, cache)
+
+    dropless = copy.copy(model)
+    dropless.cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    cont = continuity(dropless, prompt(1, MOE_CONT_PRE + CONT_STEPS),
+                      MOE_CONT_PRE, MOE_CONT_PRE + CONT_STEPS)
+    del dropless
+    quant_routes = _RouteLog(MOE.route)
+    with mock.patch.object(MOE, "route", quant_routes):
+        quant = kv_quant_run(model, run_prompt, QUANT_STEPS)
+    # a (token, expert) choice that the int8 rings' rounding flips changes
+    # that token's FFN outright: the runs are then different computations,
+    # so argmax agreement is held where every layer routed the row alike
+    matched, flips = routing_matched(quant_routes.keeps, cfg.num_layers,
+                                     QUANT_STEPS, b)
+    del quant_routes
+    agree = torch.tensor(quant["agree_by_step_row"])
+    margin = MOE_QUANT_MARGIN_REL * quant["max_abs_f32_logit"]
+    held = (torch.tensor(quant["top2_gap_by_step_row"]) > margin) & matched
+    diff = torch.tensor(quant["max_diff_by_step_row"])
+    quant.update(routing_flips=flips,
+                 positions_routing_matched=int(matched.sum()),
+                 margin_rel=MOE_QUANT_MARGIN_REL, margin_abs=margin,
+                 positions_checked=int(held.sum()),
+                 max_diff_where_routing_matched=float(diff[matched].max()),
+                 argmax_agree_where_routing_matched=bool(agree[held].all()))
+    peak = max(peak_first, torch.cuda.max_memory_allocated())
+    stages = moe_stage_times(model, dev, b, t, ring)
+
+    pre_routes = routes.calls[:cfg.num_layers]
+    dec_routes = routes.calls[cfg.num_layers:]
+    kept = sum(c[0] for c in pre_routes)
+    chosen = sum(c[1] for c in pre_routes)
+    dec_experts = sum(c[2] for c in dec_routes) / len(dec_routes)
+    bounds = moe_bounds(cfg, b, t, MOE_STEPS, kept, dec_experts, bw, flops,
+                        tf32)
+
+    zero = {k: 0 for k in run["prefill_counts"]}
+    per_prefill = dict(zero, swa_attention=cfg.num_layers)
+    prefills = [warm["prefill_counts"], first["prefill_counts"],
+                run["prefill_counts"], cont["prefill_counts"],
+                quant["prefill_counts"]]
+    decodes = [warm["decode_counts"], first["decode_counts"],
+               run["decode_counts"], quant["decode_counts"]]
+    checks = {
+        "swa_per_layer_per_prefill": all(c == per_prefill for c in prefills),
+        "no_kernel_in_decode": all(c == zero for c in decodes),
+        "continuity_3e-3": cont["within_3e-3"],
+        "swa_attention_in_model_within_3e-5": in_model["within_3e-5"],
+        "swa_attention_in_model_rerun_bit_equal": in_model[
+            "rerun_bit_equal"],
+        "finite_logits": all(bool(torch.isfinite(r["logits"]).all())
+                             for r in (warm, first, run)),
+        "tokens_in_vocab": bool(((run["tokens"] >= 0)
+                                 & (run["tokens"] < cfg.vocab_size)).all()),
+        "routing_logged_per_layer": len(pre_routes) == cfg.num_layers
+        and len(dec_routes) == 2 * cfg.num_layers,
+        "kv_quant_int8_rings": quant["rings"] == {
+            "k": "int8", "v": "int8", "k_scale": "float16",
+            "v_scale": "float16"},
+        "kv_quant_finite_logits": quant["finite_logits"],
+        "kv_quant_argmax_agrees_past_margin_where_routing_matched": quant[
+            "argmax_agree_where_routing_matched"]
+        and quant["positions_checked"] > 0,
+    }
+    tokens = b * t
+    rec = {"phase": "moe_serve", "arch": cfg.name, "dtype": cfg.param_dtype,
+           "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.head_dim, "window": cfg.sliding_window,
+           "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+           "d_ff": cfg.d_ff, "capacity_factor": cfg.capacity_factor,
+           "vocab": cfg.vocab_size, "params": param_count(model),
+           "init_s": init_s, "weights_mb": weights_mb, "batch": b,
+           "prompt_len": t, "decode_steps": MOE_STEPS, "ring_slots": ring,
+           "warmup_prompt_len": MOE_WARM,
+           "warmup_prefill_ms": warm["prefill_ms"],
+           "prefill_ms_first_call_at_t": first["prefill_ms"],
+           "prefill_ms": run["prefill_ms"],
+           "prefill_tok_per_s": tokens * 1e3 / run["prefill_ms"],
+           "first_decode_ms": run["first_decode_ms"],
+           "decode_ms_per_step": run["decode_ms_per_step"],
+           "decode_tok_per_s": b * 1e3 / run["decode_ms_per_step"],
+           "prefill_routing": {"kept_pairs": kept, "chosen_pairs": chosen,
+                               "dropped_share": 1 - kept / chosen,
+                               "per_layer": pre_routes},
+           "decode_routing_first_steps": dec_routes,
+           "bound_ms": bounds,
+           "prefill_share_of_bound": bounds["prefill"] / run["prefill_ms"],
+           "decode_share_of_bound": bounds["decode_step"]
+           / run["decode_ms_per_step"],
+           "stage_ms": stages,
+           "continuity_capacity_factor": cfg.num_experts
+           / cfg.experts_per_token,
+           **{k: v for k, v in cont.items() if k.startswith("continuity")},
+           "in_model_swa_attention": in_model,
+           "kv_quant": quant,
+           "mem_at_start_mb": mem_at_start / 2**20,
+           "peak_mem_mb": peak / 2**20,
+           "peak_mem_above_start_mb": (peak - mem_at_start) / 2**20,
+           "sampled_ids": run["tokens"][:, :10].tolist(),
+           "launches": {"prefill": run["prefill_counts"],
+                        "decode": run["decode_counts"]},
+           "checks": checks}
+    log(rec)
+    del model
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"moe_serve: failed {failed}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2930,6 +3342,13 @@ def main() -> int:
     by_path["dense_serve cli"] = dense["cli"]["launches"]
     torch.cuda.empty_cache()
 
+    # 15d. the moe family's serving: mixtral-8x22b at full width, 4 layers
+    moe = moe_serve(dev, bw, flops, tf32)
+    by_path["moe_serve prefill"] = moe["launches"]["prefill"]
+    by_path["moe_serve decode"] = moe["launches"]["decode"]
+    launches["swa_attention"] += moe["launches"]["prefill"]["swa_attention"]
+    torch.cuda.empty_cache()
+
     # 16-17. the paper's harness at paper scale, the bench suite
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
         for path, counts in paper_harness(dev, tmpdir).items():
@@ -3026,7 +3445,12 @@ def main() -> int:
                     "shape", "kv_heads", "max_abs_err", "ms", "plain_ms",
                     "library_ms", "bound_ms", "bound_by")},
                     launches_per_prefill=rec["launches"]["prefill"][kname])
-                for arch, rec in dense["runs"].items()}
+                for arch, rec in dict(dense["runs"], **{
+                    MOE_ARCH: moe}).items()}
+            kernels[-1]["in_model_by_arch"][MOE_ARCH].update(
+                {k: moe["in_model_swa_attention"][k] for k in (
+                    "window", "checked_rows", "plain_ms_checked_rows")},
+                layers=moe["layers"])
         if "reference_shape" in t:
             ref = t["reference_shape"]
             kernels[-1]["reference_shape"] = {

@@ -16,9 +16,16 @@
 // Design: FlashAttention-2 with mma.sync.
 // - Precision. f32: both products in 3xTF32 (tensor_core.cuh): about
 //   2^-22 per product, where one TF32 pass (2^-11) would miss the twin's
-//   3e-5. bf16: Q K^T is one bf16 m16n8k16 mma (products of bf16 values
-//   are exact in f32); P V splits P into bf16 hi + lo, two mmas, V being
-//   exact. Softmax, sums and accumulators are f32.
+//   3e-5. The mma's f32 accumulate truncates, so an O accumulator that
+//   ran over the whole band (W = 4096: 1,536 mmas into each element) would
+//   drift toward zero by up to ~1e-4 of |O|, past the twin's 3e-5 where
+//   the softmax is peaked and |O| near 1 (mixtral's layer-0 inputs, q, k,
+//   v of std 1.57; chip_smoke.py moe_serve holds both against f64 there).
+//   So each key tile's P V starts from a zeroed accumulator and is added
+//   into O on the CUDA cores, rounded as f32 adds. bf16: Q K^T is one
+//   bf16 m16n8k16 mma (products of bf16 values are exact in f32); P V
+//   splits P into bf16 hi + lo, two mmas, V being exact. Softmax, sums and
+//   accumulators are f32.
 // - A block owns one (bh, query tile); each warp owns 16 query rows: 8
 //   warps and 128 rows at D <= 128, 4 warps and 64 rows above. The S tile
 //   and the O accumulator live in mma fragments. The Q tile is staged once
@@ -328,15 +335,23 @@ swa_attention_kernel(Args a, int q_tiles) {
 
     // O += P V
     if constexpr (kF32) {
+      // this tile's P V from a zeroed accumulator, kGroup n tiles at a
+      // time, then added into O on the CUDA cores (see Precision)
 #pragma unroll
-      for (int k8 = 0; k8 < C::kSt; ++k8) {   // keys 8 k8 + {2 tq, 2 tq + 1}
-        const float pa[4] = {sc[k8][0], sc[k8][2], sc[k8][1], sc[k8][3]};
-        uint32_t ah[4], al[4];
+      for (int n0 = 0; n0 < C::kOt; n0 += C::kGroup) {
+        float acc[C::kGroup][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) tc::split(pa[e], ah[e], al[e]);
-        const unsigned char* vp = vs + (8 * k8 + 2 * tq) * C::kLdV + 4 * g;
+        for (int i = 0; i < C::kGroup; ++i)
 #pragma unroll
-        for (int n0 = 0; n0 < C::kOt; n0 += C::kGroup) {
+          for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+        // keys 8 k8 + {2 tq, 2 tq + 1}
+#pragma unroll
+        for (int k8 = 0; k8 < C::kSt; ++k8) {
+          const float pa[4] = {sc[k8][0], sc[k8][2], sc[k8][1], sc[k8][3]};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tc::split(pa[e], ah[e], al[e]);
+          const unsigned char* vp = vs + (8 * k8 + 2 * tq) * C::kLdV + 4 * g;
           uint32_t bh[C::kGroup][2], bl[C::kGroup][2];
 #pragma unroll
           for (int i = 0; i < C::kGroup; ++i) {
@@ -346,12 +361,16 @@ swa_attention_kernel(Args a, int q_tiles) {
                       bl[i][1]);
           }
 #pragma unroll
-          for (int i = 0; i < C::kGroup; ++i) tc::mma(o[n0 + i], al, bh[i]);
+          for (int i = 0; i < C::kGroup; ++i) tc::mma(acc[i], al, bh[i]);
 #pragma unroll
-          for (int i = 0; i < C::kGroup; ++i) tc::mma(o[n0 + i], ah, bl[i]);
+          for (int i = 0; i < C::kGroup; ++i) tc::mma(acc[i], ah, bl[i]);
 #pragma unroll
-          for (int i = 0; i < C::kGroup; ++i) tc::mma(o[n0 + i], ah, bh[i]);
+          for (int i = 0; i < C::kGroup; ++i) tc::mma(acc[i], ah, bh[i]);
         }
+#pragma unroll
+        for (int i = 0; i < C::kGroup; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n0 + i][e] += acc[i][e];
       }
     } else {
       // ldmatrix rows: key 16 k16 + 8 (mat % 2) + lane % 8, columns from

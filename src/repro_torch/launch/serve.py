@@ -7,10 +7,12 @@ prefill of a random prompt.
 
 ``--arch`` defaults to ``smollm-135m``, as the reference's CLI does; the
 port runs the dense family (``smollm-135m``, ``olmo-1b``, ``minicpm-2b``,
-``granite-3-8b``), ``mamba2-370m`` and ``zamba2-7b``. ``--cache`` sizes
-the KV rings: a dense arch's ring keeps the last ``--cache`` tokens (a
-longer prompt and decode wrap it, as in the reference); zamba2's is at
-most its 4,096-token window.
+``granite-3-8b``), the moe family (``mixtral-8x22b``,
+``llama4-maverick-400b-a17b``), ``mamba2-370m`` and ``zamba2-7b``.
+``--cache`` sizes the KV rings: a full-attention arch's ring keeps the
+last ``--cache`` tokens (a longer prompt and decode wrap it, as in the
+reference); a windowed arch's (zamba2-7b, mixtral-8x22b) is at most its
+4,096-token window.
 
 The port's counterpart of ``repro.launch.serve`` / ``examples/
 serve_decode.py``, with their flags (``--demo`` runs the reduced config).

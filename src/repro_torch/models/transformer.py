@@ -1,7 +1,8 @@
 """Model assembly, torch form: the ``dense`` family (smollm-135m, olmo-1b,
-minicpm-2b, granite-3-8b: L attention + SwiGLU blocks), the ``ssm`` family
-(mamba2-370m) and the ``hybrid`` family (zamba2-7b: the Mamba2 trunk plus
-one shared attention + SwiGLU block applied before every
+minicpm-2b, granite-3-8b: L attention + SwiGLU blocks), the ``moe`` family
+(mixtral-8x22b, llama4-maverick-400b-a17b: L attention + MoE blocks), the
+``ssm`` family (mamba2-370m) and the ``hybrid`` family (zamba2-7b: the
+Mamba2 trunk plus one shared attention + SwiGLU block applied before every
 ``shared_attn_period``-th layer).
 
 Port of ``repro.models.transformer``. The reference stacks its layers
@@ -9,21 +10,25 @@ along a leading L axis and scans them; the port keeps one ``nn.Module`` per
 block in a ``ModuleList`` and loops, and holds the shared block once (an
 ``AttentionBlock``, the dense family's block with one set of weights).
 Caches and decode states keep the reference's stacked layout and names:
-for the dense family ``{"k", "v"}``, each layer's post-RoPE K/V of shape
-(L, B, T, Hkv, D) after a prefill, and rings (L, B, S_c, Hkv, D) in a
-decode state (int8 with ``k_scale`` / ``v_scale`` (L, B, S_c, Hkv) f16
-under ``kv_quant``); for the recurrent families ``{"ssm": (L, B, H, P, N)
-f32, "conv": (L, B, K-1, C)}`` and, for the hybrid family, ``shared_kv``,
+for the dense and moe families ``{"k", "v"}``, each layer's post-RoPE K/V
+of shape (L, B, T, Hkv, D) after a prefill, and rings (L, B, S_c, Hkv, D)
+in a decode state (int8 with ``k_scale`` / ``v_scale`` (L, B, S_c, Hkv)
+f16 under ``kv_quant``); for the recurrent families ``{"ssm": (L, B, H, P,
+N) f32, "conv": (L, B, K-1, C)}`` and, for the hybrid family, ``shared_kv``,
 the shared block's K/V of shape (n_slots, B, T, Hkv, D) after a prefill
 and its rings (n_slots, B, S_c, Hkv, D) in a decode state. Where the
 reference makes a dummy K/V for every layer without the shared block and
 selects the slots afterwards, the port writes only the slots.
 
-The other families (moe, vlm, audio), the hybrid + ``kv_quant`` prefill
-hand-off and ``loss_fn`` are not ported and raise ``NotImplementedError``
-naming themselves. Params hold no gradient: the port serves, it does not
-train yet. Decode writes the new K/V into the rings in place, under
-``torch.inference_mode()``.
+As in the reference, every layer of a config with ``num_experts > 0`` is
+an MoE layer: ``init_block`` reads neither ``moe_layer_period`` nor
+``is_moe_layer`` (both zoo configs have period 1). The forward returns
+the layers' mean load-balance loss (``aux / num_layers``); decode drops
+it. The other families (vlm, audio), the hybrid + ``kv_quant`` prefill
+hand-off and ``loss_fn`` are not ported and raise
+``NotImplementedError`` naming themselves. Params hold no gradient: the
+port serves, it does not train yet. Decode writes the new K/V into the
+rings in place, under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
@@ -46,17 +52,41 @@ def _pdict(params: Optional[dict]) -> Optional[nn.ParameterDict]:
                              for k, v in params.items()})
 
 
+class _Params(nn.Module):
+    """A params dict of tensors and sub-dicts side by side (the MoE
+    layer's router beside its stacked experts): ``m["gate"]`` reads a
+    tensor and ``m["router"]["w"]`` a sub-dict's, as the reference's
+    ``params[...]``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, _pnest(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
 def _pnest(tree: Optional[dict]):
     """A nested params dict as modules: a dict of tensors becomes an
-    ``nn.ParameterDict``, a dict of dicts an ``nn.ModuleDict`` of them, so
-    ``m["wq"]["w"]`` reads as the reference's ``params["wq"]["w"]``."""
+    ``nn.ParameterDict``, a dict of dicts an ``nn.ModuleDict`` of them and
+    a mixed dict a ``_Params``, so ``m["wq"]["w"]`` reads as the
+    reference's ``params["wq"]["w"]``."""
     if tree is None or all(isinstance(v, torch.Tensor)
                            for v in tree.values()):
         return _pdict(tree)
+    if any(isinstance(v, torch.Tensor) for v in tree.values()):
+        return _Params(tree)
     return nn.ModuleDict({k: _pnest(v) for k, v in tree.items()})
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families whose trunk is L attention blocks
+ATTENTION_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -93,39 +123,48 @@ class MambaBlock(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Norm, attention, residual, norm, SwiGLU MLP, residual, each residual
-    scaled by ``residual_scale`` (``apply_block_full`` / ``_decode`` of the
-    reference): a dense layer, and zamba2's one shared block, reused at
-    every slot. OLMo's norms have no params (``ln1`` / ``ln2`` None)."""
+    """Norm, attention, residual, norm, FFN, residual, each residual scaled
+    by ``residual_scale`` (``apply_block_full`` / ``_decode`` of the
+    reference). The FFN is the SwiGLU MLP (``mlp``: a dense layer, and
+    zamba2's one shared block, reused at every slot) or the MoE layer
+    (``moe``: an moe-family layer). OLMo's norms have no params (``ln1`` /
+    ``ln2`` None)."""
 
     def __init__(self, params: dict):
         super().__init__()
         self.attn = _pnest(params["attn"])
-        self.mlp = _pnest(params["mlp"])
+        self.mlp = _pnest(params.get("mlp"))
+        self.moe = _pnest(params.get("moe"))
         self.ln1 = _pdict(params["ln1"])
         self.ln2 = _pdict(params["ln2"])
 
-    def _mlp(self, h, cfg: ModelConfig):
+    def _ffn(self, h, cfg: ModelConfig):
+        """(h + scale * FFN(norm(h)), the MoE aux loss or None)."""
         z = L.apply_norm(self.ln2, h, cfg)
-        return h + cfg.residual_scale * L.apply_mlp(self.mlp, z)
+        if self.moe is None:
+            return h + cfg.residual_scale * L.apply_mlp(self.mlp, z), None
+        out, aux = MOE.apply_moe(self.moe, z, cfg)
+        return h + cfg.residual_scale * out, aux
 
     def forward(self, x, cfg: ModelConfig):
-        """Prefill over positions arange(T): (x, (k, v) (B, T, Hkv, D))."""
+        """Prefill over positions arange(T): (x, (k, v) (B, T, Hkv, D), the
+        MoE aux loss or None)."""
         z = L.apply_norm(self.ln1, x, cfg)
         a_out, kv = L.apply_attention(self.attn, z, cfg)
-        return self._mlp(x + cfg.residual_scale * a_out, cfg), kv
+        x, aux = self._ffn(x + cfg.residual_scale * a_out, cfg)
+        return x, kv, aux
 
     def decode(self, x, cache, index: int, cfg: ModelConfig):
         """One token; writes its K/V into the ring ``cache``."""
         z = L.apply_norm(self.ln1, x, cfg)
         a_out, _ = L.apply_attention_decode(self.attn, z, cache, index, cfg)
-        return self._mlp(x + cfg.residual_scale * a_out, cfg)
+        return self._ffn(x + cfg.residual_scale * a_out, cfg)[0]
 
 
 class LanguageModel(nn.Module):
-    """Token embedding, L blocks (dense: ``AttentionBlock``; ssm and
-    hybrid: ``MambaBlock``, with the hybrid family's shared attention block
-    before every ``shared_attn_period``-th one), final norm and the
+    """Token embedding, L blocks (dense and moe: ``AttentionBlock``; ssm
+    and hybrid: ``MambaBlock``, with the hybrid family's shared attention
+    block before every ``shared_attn_period``-th one), final norm and the
     unembedding, built from params in the reference's structure:
     ``{"embedding": {...}, "layers": [block, ...], "shared_attn": {...}
     (hybrid), "final_norm": ...}``."""
@@ -135,7 +174,7 @@ class LanguageModel(nn.Module):
         _check_family(cfg)
         self.cfg = cfg
         self.embedding = _pdict(params["embedding"])
-        if cfg.family == "dense":
+        if cfg.family in ATTENTION_FAMILIES:
             self.layers = nn.ModuleList(AttentionBlock(b)
                                         for b in params["layers"])
         else:
@@ -156,20 +195,21 @@ class LanguageModel(nn.Module):
     def forward(self, tokens, return_cache: bool = False,
                 return_hidden: bool = False):
         """Full-sequence forward over (B, T) tokens at positions arange(T).
-        Returns (logits (B, T, V) f32 | hidden (B, T, d), aux 0.0, caches |
-        None). The caches are written layer by layer into preallocated
-        stacks: for the dense family ``{"k", "v"}`` (L, B, T, Hkv, D); for
-        the recurrent families ``{"ssm_states": {"ssm", "conv"}}`` stacked
-        over layers and, for the hybrid family, ``{"shared_kv": {"k",
-        "v"}}`` (n_slots, B, T, Hkv, D)."""
+        Returns (logits (B, T, V) f32 | hidden (B, T, d), aux, caches |
+        None); aux is the layers' mean MoE load-balance loss, 0.0 outside
+        the moe family. The caches are written layer by layer into
+        preallocated stacks: for the dense and moe families ``{"k", "v"}``
+        (L, B, T, Hkv, D); for the recurrent families ``{"ssm_states":
+        {"ssm", "conv"}}`` stacked over layers and, for the hybrid family,
+        ``{"shared_kv": {"k", "v"}}`` (n_slots, B, T, Hkv, D)."""
         cfg = self.cfg
         x = L.embed_tokens(self.embedding, tokens, cfg)
-        if cfg.family == "dense":
-            x, caches = self._forward_dense(x, return_cache)
+        aux = torch.zeros((), device=x.device)
+        if cfg.family in ATTENTION_FAMILIES:
+            x, caches, aux = self._forward_attention(x, aux, return_cache)
         else:
             x, caches = self._forward_recurrent(x, return_cache)
         x = L.apply_norm(self.final_norm, x, cfg)
-        aux = torch.zeros((), device=x.device)
         if return_hidden:
             return x, aux, caches
         return L.unembed(self.embedding, x, cfg), aux, caches
@@ -179,15 +219,19 @@ class LanguageModel(nn.Module):
         shape = (n, b, t, self.cfg.num_kv_heads, self.cfg.head_dim)
         return {"k": x.new_empty(shape), "v": x.new_empty(shape)}
 
-    def _forward_dense(self, x, return_cache: bool):
+    def _forward_attention(self, x, aux, return_cache: bool):
         kv = self._kv_stack(x, len(self.layers)) if return_cache else None
         for i, block in enumerate(self.layers):
-            x, (k, v) = block(x, self.cfg)
+            x, (k, v), aux_l = block(x, self.cfg)
             if kv is not None:
                 kv["k"][i] = k
                 kv["v"][i] = v
             del k, v
-        return x, kv
+            if aux_l is not None:
+                aux = aux + aux_l
+        if self.cfg.family == "moe":
+            aux = aux / self.cfg.num_layers
+        return x, kv, aux
 
     def _forward_recurrent(self, x, return_cache: bool):
         cfg = self.cfg
@@ -197,7 +241,7 @@ class LanguageModel(nn.Module):
             shared_kv = self._kv_stack(x, n_shared_slots(cfg))
         for i, block in enumerate(self.layers):
             if self._shared_at(i):
-                x, (k, v) = self.shared_attn(x, cfg)
+                x, (k, v), _ = self.shared_attn(x, cfg)
                 if shared_kv is not None:
                     slot = i // cfg.shared_attn_period
                     shared_kv["k"][slot] = k
@@ -227,12 +271,12 @@ class LanguageModel(nn.Module):
         """One-token decode. tokens: (B, 1) int; index: a host int, the
         tokens so far (the rings' position; unused by the SSM family).
         Returns (logits (B, 1, V) f32, new state); the KV rings (the dense
-        family's, the hybrid family's ``shared_kv``) are the state's own,
-        updated in place."""
+        and moe families', the hybrid family's ``shared_kv``) are the
+        state's own, updated in place."""
         cfg = self.cfg
         with torch.inference_mode():
             x = L.embed_tokens(self.embedding, tokens, cfg)
-            if cfg.family == "dense":
+            if cfg.family in ATTENTION_FAMILIES:
                 for i, block in enumerate(self.layers):
                     x = block.decode(x, {name: ring[i] for name, ring
                                          in state.items()}, index, cfg)
@@ -273,15 +317,21 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> LanguageModel:
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     dtype = L.torch_dtype(cfg.param_dtype)
 
-    def attention_block():
-        return {"attn": L.init_attention(gen, cfg, dtype),
-                "ln1": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev),
-                "ln2": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev),
-                "mlp": L.init_mlp(gen, cfg, dtype)}
+    def attention_block(moe: bool = False):
+        block = {"attn": L.init_attention(gen, cfg, dtype),
+                 "ln1": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev),
+                 "ln2": L.maybe_init_norm(cfg.d_model, cfg, dtype, dev)}
+        if moe:
+            block["moe"] = MOE.init_moe(gen, cfg, dtype)
+        else:
+            block["mlp"] = L.init_mlp(gen, cfg, dtype)
+        return block
 
     params = {"embedding": L.init_embedding(gen, cfg, dtype)}
-    if cfg.family == "dense":
-        params["layers"] = [attention_block()
+    if cfg.family in ATTENTION_FAMILIES:
+        # as the reference's init_block: every layer is MoE when
+        # num_experts > 0 (moe_layer_period is not read)
+        params["layers"] = [attention_block(cfg.num_experts > 0)
                             for _ in range(cfg.num_layers)]
     else:
         params["layers"] = [
@@ -308,9 +358,10 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
                     device=None) -> LanguageModel:
     """The reference's params pytree (``init_model``'s, layer leaves
     stacked (L, ...)), carried across as numpy arrays, as a module on
-    ``device`` with the same values bit for bit: any layer tree, None
-    leaves (OLMo's norms) kept, the untied unembedding and the hybrid
-    family's ``shared_attn`` too."""
+    ``device`` with the same values bit for bit: any layer tree (the MoE
+    layers' router and (E, d, ff) experts too), None leaves (OLMo's norms)
+    kept, the untied unembedding and the hybrid family's ``shared_attn``
+    too."""
     dev = resolve_device(device)
 
     def conv(tree, layer=None):
@@ -333,12 +384,19 @@ def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def active_param_count(model: LanguageModel, cfg: ModelConfig) -> int:
-    """All params are active outside MoE (not ported)."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError("active_param_count for MoE is not "
-                                  "ported yet")
-    return param_count(model)
+def active_param_count(model: nn.Module, cfg: ModelConfig) -> int:
+    """MoE-aware, as the reference's: each expert tensor (``gate``, ``up``,
+    ``down`` under ``moe``) counts at k / E of its size; every other param
+    in full."""
+    total = 0
+    for name, p in model.named_parameters():
+        keys = name.split(".")
+        size = p.numel()
+        if (cfg.num_experts > 0 and "moe" in keys
+                and any(k in ("gate", "up", "down") for k in keys)):
+            size = size * max(cfg.experts_per_token, 1) // cfg.num_experts
+        total += size
+    return total
 
 
 def forward(model: LanguageModel, batch: dict, return_cache: bool = False,
@@ -349,14 +407,14 @@ def forward(model: LanguageModel, batch: dict, return_cache: bool = False,
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None):
-    """Zero decode state: for the dense family each layer's KV ring
-    stacked over layers; for the recurrent families the SSM states stacked
+    """Zero decode state: for the dense and moe families each layer's KV
+    ring stacked over layers; for the recurrent families the SSM states stacked
     over layers and, for the hybrid family, the shared block's rings
     stacked over its slots. A ring has ``min(seq_len, window)`` slots
     (int8 with f16 scales under ``kv_quant``)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         return _rings(cfg, cfg.num_layers, batch, seq_len, dev)
     one = SSM.init_ssm_state(cfg, batch, L.torch_dtype(cfg.param_dtype),
                              dev)
@@ -397,11 +455,11 @@ def _fill_ring(ring, got, prefill_len: int):
 def cache_from_prefill(caches, cfg: ModelConfig, batch: int, seq_len: int,
                        prefill_len: int):
     """``forward(return_cache=True)``'s caches as a decode state (the
-    serving path's prefill -> decode hand-off): the K/V (dense: every
-    layer's; hybrid: the shared slots') fill their rings, and the SSM
-    states pass through. Under ``kv_quant`` (dense) the K/V are quantized
-    per (token, head) as the reference's ``fill_kv_quant`` does: int8
-    payload with the f32 scale, the scale stored in f16."""
+    serving path's prefill -> decode hand-off): the K/V (dense and moe:
+    every layer's; hybrid: the shared slots') fill their rings, and the SSM
+    states pass through. Under ``kv_quant`` (dense, moe) the K/V are
+    quantized per (token, head) as the reference's ``fill_kv_quant`` does:
+    int8 payload with the f32 scale, the scale stored in f16."""
     _check_family(cfg)
     if cfg.family == "hybrid" and cfg.kv_quant:
         raise NotImplementedError(
@@ -409,7 +467,7 @@ def cache_from_prefill(caches, cfg: ModelConfig, batch: int, seq_len: int,
             f"({cfg.name}) is not ported: the reference casts the prefill "
             f"K/V straight to int8 and leaves k_scale / v_scale out, so "
             f"its next decode_step fails")
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         with torch.inference_mode():
             rings = _rings(cfg, cfg.num_layers, batch, seq_len,
                            caches["k"].device)

@@ -703,6 +703,80 @@ def test_dense_reduced_on_card_matches_cpu_route(cuda, t_pre):
         torch.testing.assert_close(got[key].cpu(), w, **tol, msg=key)
 
 
+@pytest.mark.parametrize("t_pre", [11, 150])
+def test_moe_reduced_on_card_matches_cpu_route(cuda, t_pre):
+    """Reduced mixtral-8x22b (4 experts top-2 at the published capacity
+    1.25, a 64-token window, 6 query heads over 1 kv head: a GQA group of
+    6, as the full model's 48 over 8) on the card against the same model
+    on the CPU at the reference's LM tolerance: the prefill step's logits,
+    the forward's logits, aux and per-layer caches (T = 150 is past the
+    window), the hand-off into a wrapping 64-slot ring and 5 teacher-
+    forced decode steps (two tokens a step: one slot per expert). A
+    prefill launches swa_attention once per layer; decode never."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import decode_step, forward, init_model
+    tol = dict(rtol=1e-4, atol=1e-5)
+    cfg = dataclasses.replace(get_reduced("mixtral-8x22b"), num_heads=6,
+                              num_kv_heads=1)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = init_model(cfg, seed=0, device="cpu").to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(t_pre).integers(
+        0, cfg.vocab_size, (2, t_pre + 5)).astype(np.int32))
+    got, want = {}, {}
+    for name, model, dev in (("card", card, cuda), ("cpu", cpu, "cpu")):
+        out = got if name == "card" else want
+        tk = toks.to(dev)
+        sw.launches = 0
+        out["prefill"], _ = prefill(model, {"tokens": tk[:, :t_pre]})
+        with torch.inference_mode():
+            logits, aux, caches = forward(model, {"tokens": tk[:, :t_pre]},
+                                          return_cache=True)
+        if name == "card":
+            assert sw.launches == 2 * cfg.num_layers
+        out["logits"], out["aux"] = logits, aux
+        out.update({f"kv_{k}": v for k, v in caches.items()})
+        state = model.cache_from_prefill(caches, 2, 160, t_pre)
+        for i in range(5):
+            lg, state = decode_step(model, tk[:, t_pre + i:t_pre + i + 1],
+                                    state, t_pre + i)
+            out[f"decode_{i}"] = lg
+        out.update({f"ring_{k}": v for k, v in state.items()})
+        if name == "card":
+            assert sw.launches == 2 * cfg.num_layers
+    assert got["ring_k"].shape[2] == 64
+    for key, w in want.items():
+        torch.testing.assert_close(got[key].cpu(), w, **tol, msg=key)
+
+
+@pytest.mark.parametrize("t", [300, 4160])
+@pytest.mark.parametrize("scale", [1.0, 1.5684])
+def test_swa_attention_window_gqa6(cuda, t, scale):
+    """mixtral-8x22b's attention layout through ops.swa_attention: 48 query
+    heads over 8 kv heads (a GQA group of 6), D = 128, a 4,096-token
+    window, T = 300 (inside the window) and 4,160 (past it), inputs of std
+    1 and 1.5684 (0.02 sqrt(6144): q, k, v of mixtral's first layer, whose
+    softmax is peaked; an O accumulated in the mma over the whole band
+    drifted 1e-4 there): one launch, against the twin on the same repeated
+    inputs, bit-equal on a rerun."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    q = scale * torch.randn((1, t, 48, 128), generator=gen, device=cuda)
+    k, v = (scale * torch.randn((1, t, 8, 128), generator=gen, device=cuda)
+            for _ in range(2))
+    before = sw.launches
+    got = ops.swa_attention(q, k, v, window=4096)
+    torch.cuda.synchronize()
+    assert sw.launches == before + 1
+    want = sw.swa_attention_plain(*ops.swa_layout(q, k, v), window=4096)
+    want = want.reshape(1, 48, t, 128).transpose(1, 2)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+    assert torch.equal(got, ops.swa_attention(q, k, v, window=4096))
+
+
 def _grouped_case(dev, bz, nc, q, h, g, n, p, dtype, seed, offset=None):
     """Grouped SSD inputs: cum (Bz, NC, Q, H), xdt (Bz, NC, Q, H, P), and B,
     C (Bz, NC, Q, G, N), either contiguous or, with ``offset``, strided

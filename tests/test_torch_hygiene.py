@@ -72,7 +72,9 @@ def test_importing_the_port_loads_no_jax():
                 "bench.timing", "bench.bound", "bench.fig3", "bench.fig4",
                 "bench.table1", "bench.ablation", "bench.kernels_bench",
                 "bench.fl_engine_bench", "bench.fused_round_bench",
-                "bench.round_perf_bench", "bench.diff", "bench.run"):
+                "bench.round_perf_bench", "bench.diff", "bench.run",
+                "models.moe", "configs.mixtral_8x22b",
+                "configs.llama4_maverick_400b_a17b"):
         assert f"repro_torch.{mod}" in names
 
 

@@ -216,17 +216,23 @@ def test_serve_cli_generates_the_prompt_continuation():
 def test_unported_archs_families_and_losses_raise_by_name(monkeypatch):
     with pytest.raises(NotImplementedError, match="internvl2-1b"):
         get_config("internvl2-1b")
-    with pytest.raises(NotImplementedError, match="mixtral-8x22b"):
-        get_reduced("mixtral_8x22b")
+    with pytest.raises(NotImplementedError, match="hubert-xlarge"):
+        get_reduced("hubert_xlarge")
     with pytest.raises(KeyError, match="no-such-arch"):
         get_config("no-such-arch")
-    for family in ("moe", "vlm", "audio"):
-        cfg = dataclasses.replace(get_reduced("mamba2-370m"), family=family,
-                                  num_experts=4 * (family == "moe"))
+    for family in ("vlm", "audio"):
+        cfg = dataclasses.replace(get_reduced("mamba2-370m"), family=family)
         with pytest.raises(NotImplementedError, match=family):
             init_model(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match=family):
             init_decode_state(cfg, B, 64, device="cpu")
+    # the MoE layer's expert-parallel dispatch over several devices (the
+    # multi-GPU slice) on a reduced mixtral
+    ep = dataclasses.replace(get_reduced("mixtral-8x22b"), act_ep="ep",
+                             act_ep_size=2)
+    model = init_model(ep, device="cpu")
+    with pytest.raises(NotImplementedError, match="act_ep"):
+        forward(model, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
     # the hybrid + kv_quant prefill hand-off (the reference drops the
     # int8 rings' scales there)
     quant = dataclasses.replace(get_reduced("zamba2-7b"), kv_quant=True)
