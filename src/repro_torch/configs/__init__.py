@@ -1,13 +1,12 @@
 """Registry of the architectures the port runs, as ``repro.configs`` names
-them.
+them: every arch id of the reference.
 
 ``get_config("smollm-135m")`` returns the published config and
 ``get_reduced`` its smoke-test variant, for the ``dense`` family
 (smollm-135m, olmo-1b, minicpm-2b, granite-3-8b), the ``moe`` family
 (mixtral-8x22b, llama4-maverick-400b-a17b), the ``ssm`` family
-(mamba2-370m) and the ``hybrid`` family (zamba2-7b). The reference's other
-arch ids (internvl2-1b, hubert-xlarge) are known but not ported yet:
-asking for one raises ``NotImplementedError`` naming it; an id the
+(mamba2-370m), the ``hybrid`` family (zamba2-7b), the ``vlm`` family
+(internvl2-1b) and the ``audio`` family (hubert-xlarge). An id the
 reference does not know raises ``KeyError``.
 """
 from __future__ import annotations
@@ -27,19 +26,15 @@ _MODULES = {
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "llama4-maverick-400b-a17b":
         "repro_torch.configs.llama4_maverick_400b_a17b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
-
-# the reference's other arch ids (repro/configs/__init__.py), not ported
-_UNPORTED = ("internvl2-1b", "hubert-xlarge")
 
 ARCH_IDS: List[str] = list(_MODULES)
 
 
 def _module(name: str):
     key = name.replace("_", "-")
-    if key in _UNPORTED:
-        raise NotImplementedError(
-            f"arch {key!r} is not ported yet; the port runs {ARCH_IDS}")
     if key not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
     return importlib.import_module(_MODULES[key])

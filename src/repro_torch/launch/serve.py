@@ -8,7 +8,9 @@ prefill of a random prompt.
 ``--arch`` defaults to ``smollm-135m``, as the reference's CLI does; the
 port runs the dense family (``smollm-135m``, ``olmo-1b``, ``minicpm-2b``,
 ``granite-3-8b``), the moe family (``mixtral-8x22b``,
-``llama4-maverick-400b-a17b``), ``mamba2-370m`` and ``zamba2-7b``.
+``llama4-maverick-400b-a17b``), ``mamba2-370m``, ``zamba2-7b`` and the
+vlm ``internvl2-1b``; the encoder-only ``hubert-xlarge`` has no decode
+path and exits naming it, as the reference's does.
 ``--cache`` sizes the KV rings: a full-attention arch's ring keeps the
 last ``--cache`` tokens (a longer prompt and decode wrap it, as in the
 reference); a windowed arch's (zamba2-7b, mixtral-8x22b) is at most its
@@ -19,7 +21,9 @@ serve_decode.py``, with their flags (``--demo`` runs the reduced config).
 ``--prompt-len 0`` (the default) decodes from one random token, as the
 reference does. ``--prompt-len T`` first runs the prefill step on T random
 tokens, hands its caches to decode with ``cache_from_prefill`` and decodes
-greedily from the prefill's own next token. Weights are random, from
+greedily from the prefill's own next token; for ``internvl2-1b`` the
+prompt is [``num_patches`` random patch embeddings; T tokens] and decode
+starts at index ``num_patches`` + T. Weights are random, from
 seed 0 as in the reference. It prints the reference's lines (arch, params, ms/step, tok/s,
 sampled ids) and, with a prompt, the prefill's ms. The default device is
 cuda; without a GPU it raises rather than fall back to the CPU.
@@ -43,20 +47,25 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def generate(model, prompt, steps: int, cache: int):
-    """Prefill ``prompt`` (B, T) when T > 1, else start from its one token;
+def generate(model, prompt, steps: int, cache: int, patches=None):
+    """Prefill ``prompt`` (B, T) when T > 1 (after ``patches`` (B, P, F),
+    the vlm family's patch embeddings), else start from its one token;
     then ``steps`` greedy decode steps. Returns (tokens (B, 1 + steps),
     prefill seconds or None, seconds of the first step, seconds per step
     after it)."""
     dev = model.device
     b, t = prompt.shape
     t_pre = None
-    start = t if t > 1 else 0          # the index of the first decoded token
+    batch = {"tokens": prompt}
+    if patches is not None:
+        batch["patch_embeds"] = patches
+    n_pre = t + (0 if patches is None else patches.shape[1])
+    start = n_pre if t > 1 else 0      # the index of the first decoded token
     if t > 1:
         _sync(dev)
         t0 = time.perf_counter()
-        logits, caches = prefill(model, {"tokens": prompt})
-        state = model.cache_from_prefill(caches, b, cache, t)
+        logits, caches = prefill(model, batch)
+        state = model.cache_from_prefill(caches, b, cache, n_pre)
         tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
         _sync(dev)
         t_pre = time.perf_counter() - t0
@@ -113,10 +122,18 @@ def main(argv=None):
         rng.integers(0, cfg.vocab_size,
                      (args.batch, max(args.prompt_len, 1))),
         dtype=torch.int32, device=dev)
+    patches = None
+    if cfg.modality == "vision_text" and args.prompt_len > 1:
+        patches = torch.as_tensor(
+            rng.standard_normal((args.batch, cfg.num_patches,
+                                 cfg.frontend_dim)), dtype=torch.float32,
+            device=dev)
     out, t_pre, t_first, per_step = generate(model, prompt, args.steps,
-                                             args.cache)
+                                             args.cache, patches)
     if t_pre is not None:
-        print(f"prefill: {args.prompt_len} tokens x batch {args.batch} in "
+        what = (f"{args.prompt_len} tokens" if patches is None else
+                f"{cfg.num_patches} patches + {args.prompt_len} tokens")
+        print(f"prefill: {what} x batch {args.batch} in "
               f"{t_pre * 1e3:.1f} ms")
     print(f"first step: {t_first:.1f}s")
     print(f"steady-state: {per_step * 1e3:.0f} ms/step, batch {args.batch} "

@@ -13,13 +13,14 @@ from repro_torch.models import layers as L
 
 
 def prefill(model, batch):
-    """Forward over the prompt: ``(logits (B, 1, V) of the last position,
-    caches)``. Only the last position is unembedded; the logits are the
-    reference's ``logits[:, -1:, :]``."""
+    """Forward over the prompt batch (``tokens``; vlm: ``patch_embeds``
+    too; audio: ``frame_feats`` and an optional ``mask_indicator``):
+    ``(logits (B, 1, V) of the last position, caches)``, the caches None
+    for an encoder-only config. Only the last position is unembedded; the
+    logits are the reference's ``logits[:, -1:, :]``."""
     cfg = model.cfg
     with torch.inference_mode():
-        hidden, _, caches = model(batch["tokens"],
-                                  return_cache=cfg.supports_decode,
+        hidden, _, caches = model(batch, return_cache=cfg.supports_decode,
                                   return_hidden=True)
         return L.unembed(model.embedding, hidden[:, -1:], cfg), caches
 

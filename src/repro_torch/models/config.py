@@ -1,14 +1,11 @@
 """Model configuration schema, the port's own copy of
 ``repro.models.config`` (the port imports nothing of the reference).
 
-Families: dense | moe | ssm | hybrid | vlm | audio. The port runs the
-``dense`` family (smollm-135m, olmo-1b, minicpm-2b, granite-3-8b), the
-``moe`` family (mixtral-8x22b, llama4-maverick-400b-a17b), the ``ssm``
-family (mamba2-370m) and the ``hybrid`` family (zamba2-7b) so far; the
-other families' fields stay so that ``reduced()`` and the field names
-match the reference's. The distribution hints (``act_dp``, ``act_tp``,
-...) are inert here: the single-device port reads none of them, and the
-MoE layer refuses ``act_ep`` over more than one device by name.
+Families: dense | moe | ssm | hybrid | vlm | audio, all of which the port
+runs; the fields and ``reduced()`` match the reference's. The
+distribution hints (``act_dp``, ``act_tp``, ...) are inert here: the
+single-device port reads none of them, and the MoE layer refuses
+``act_ep`` over more than one device by name.
 """
 from __future__ import annotations
 

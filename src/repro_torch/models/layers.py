@@ -19,6 +19,7 @@ helpers are plain torch, as the reference's are plain jnp.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -88,15 +89,28 @@ def maybe_init_norm(d: int, cfg: ModelConfig, dtype, device):
 # RoPE
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _rope_freq(half: int, theta: float, device: torch.device):
+    """The f32 frequencies ``exp(-log(theta) i / half)``, i < half, as the
+    reference writes them, computed once on the CPU and kept on
+    ``device``: the card's ``expf`` rounds some of them a last bit apart
+    from the CPU's (at half = 40, hubert-xlarge's D = 80), and at position
+    p that bit turns the angle by p times its size. So every device
+    rotates by the same angles."""
+    with torch.inference_mode(False):
+        log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+        freq = torch.exp(-log_theta * (torch.arange(
+            half, dtype=torch.float32) / half))
+        return freq.to(device)
+
+
 def rope_rotate(x, positions, theta: float):
     """Rotary embedding. x: (..., T, H, D); positions: (..., T) integers.
-    The frequencies and angles are f32, as the reference's; an odd head
-    dim's last channel passes through."""
+    The frequencies (``_rope_freq``) and angles are f32, as the
+    reference's; an odd head dim's last channel passes through."""
     d = x.shape[-1]
     half = d // 2
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
-    freq = torch.exp(-log_theta * (torch.arange(
-        half, dtype=torch.float32, device=x.device) / half))
+    freq = _rope_freq(half, float(theta), x.device)
     ang = positions[..., :, None].float() * freq          # (..., T, half)
     cos = torch.cos(ang)[..., :, None, :]                 # (..., T, 1, half)
     sin = torch.sin(ang)[..., :, None, :]

@@ -1,9 +1,12 @@
 """Model assembly, torch form: the ``dense`` family (smollm-135m, olmo-1b,
 minicpm-2b, granite-3-8b: L attention + SwiGLU blocks), the ``moe`` family
 (mixtral-8x22b, llama4-maverick-400b-a17b: L attention + MoE blocks), the
-``ssm`` family (mamba2-370m) and the ``hybrid`` family (zamba2-7b: the
+``ssm`` family (mamba2-370m), the ``hybrid`` family (zamba2-7b: the
 Mamba2 trunk plus one shared attention + SwiGLU block applied before every
-``shared_attn_period``-th layer).
+``shared_attn_period``-th layer), the ``vlm`` family (internvl2-1b: a
+dense decoder over [projected patch embeddings; text tokens]) and the
+``audio`` family (hubert-xlarge: a bidirectional encoder over projected
+frame features, ``mask_emb`` in place of the masked frames).
 
 Port of ``repro.models.transformer``. The reference stacks its layers
 along a leading L axis and scans them; the port keeps one ``nn.Module`` per
@@ -24,11 +27,16 @@ As in the reference, every layer of a config with ``num_experts > 0`` is
 an MoE layer: ``init_block`` reads neither ``moe_layer_period`` nor
 ``is_moe_layer`` (both zoo configs have period 1). The forward returns
 the layers' mean load-balance loss (``aux / num_layers``); decode drops
-it. The other families (vlm, audio), the hybrid + ``kv_quant`` prefill
-hand-off and ``loss_fn`` are not ported and raise
-``NotImplementedError`` naming themselves. Params hold no gradient: the
-port serves, it does not train yet. Decode writes the new K/V into the
-rings in place, under ``torch.inference_mode()``.
+it. The forward takes the reference's batch dict (``embed_inputs``):
+``tokens``, and for the vlm family ``patch_embeds`` (B, P, F), for the
+audio family ``frame_feats`` (B, T, F) and an optional
+``mask_indicator`` (B, T). vlm decode is the dense family's: the rings
+hold the P + T prefill positions and decode takes tokens only. The
+encoder-only audio family has no decode state and no decode step; asking
+for one, the hybrid + ``kv_quant`` prefill hand-off and ``loss_fn`` are
+not ported and raise ``NotImplementedError`` naming themselves. Params
+hold no gradient: the port serves, it does not train yet. Decode writes
+the new K/V into the rings in place, under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -84,9 +92,9 @@ def _pnest(tree: Optional[dict]):
     return nn.ModuleDict({k: _pnest(v) for k, v in tree.items()})
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 # the families whose trunk is L attention blocks
-ATTENTION_FAMILIES = ("dense", "moe")
+ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -94,6 +102,15 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
             f"port runs the families {PORTED_FAMILIES}")
+
+
+def _check_decode(cfg: ModelConfig) -> None:
+    """The reference has no decode path for an encoder-only config (its
+    shapes skip the decode cells; its serve example exits)."""
+    if cfg.encoder_only:
+        raise NotImplementedError(
+            f"{cfg.name} is encoder_only: it has no decode state or decode "
+            f"step")
 
 
 def n_shared_slots(cfg: ModelConfig) -> int:
@@ -162,12 +179,13 @@ class AttentionBlock(nn.Module):
 
 
 class LanguageModel(nn.Module):
-    """Token embedding, L blocks (dense and moe: ``AttentionBlock``; ssm
-    and hybrid: ``MambaBlock``, with the hybrid family's shared attention
-    block before every ``shared_attn_period``-th one), final norm and the
-    unembedding, built from params in the reference's structure:
-    ``{"embedding": {...}, "layers": [block, ...], "shared_attn": {...}
-    (hybrid), "final_norm": ...}``."""
+    """Input embedding, L blocks (dense, moe, vlm and audio:
+    ``AttentionBlock``; ssm and hybrid: ``MambaBlock``, with the hybrid
+    family's shared attention block before every ``shared_attn_period``-th
+    one), final norm and the unembedding, built from params in the
+    reference's structure: ``{"embedding": {...}, "layers": [block, ...],
+    "shared_attn": {...} (hybrid), "final_norm": ..., "projector": {"w"}
+    (vlm), "frontend_proj": {"w"}, "mask_emb" (audio)}``."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -183,6 +201,10 @@ class LanguageModel(nn.Module):
         self.shared_attn = (AttentionBlock(params["shared_attn"])
                             if cfg.family == "hybrid" else None)
         self.final_norm = _pdict(params["final_norm"])
+        self.projector = _pdict(params.get("projector"))
+        self.frontend_proj = _pdict(params.get("frontend_proj"))
+        self.mask_emb = (nn.Parameter(params["mask_emb"], requires_grad=False)
+                         if "mask_emb" in params else None)
 
     def _shared_at(self, i: int) -> bool:
         return (self.shared_attn is not None
@@ -192,18 +214,42 @@ class LanguageModel(nn.Module):
     def device(self) -> torch.device:
         return self.embedding["embed"].device
 
-    def forward(self, tokens, return_cache: bool = False,
-                return_hidden: bool = False):
-        """Full-sequence forward over (B, T) tokens at positions arange(T).
-        Returns (logits (B, T, V) f32 | hidden (B, T, d), aux, caches |
-        None); aux is the layers' mean MoE load-balance loss, 0.0 outside
-        the moe family. The caches are written layer by layer into
-        preallocated stacks: for the dense and moe families ``{"k", "v"}``
-        (L, B, T, Hkv, D); for the recurrent families ``{"ssm_states":
-        {"ssm", "conv"}}`` stacked over layers and, for the hybrid family,
-        ``{"shared_kv": {"k", "v"}}`` (n_slots, B, T, Hkv, D)."""
+    def embed_inputs(self, batch: dict):
+        """The reference's ``embed_inputs``: (B, T, d) in the param dtype
+        at positions arange(T). vlm: the projected ``patch_embeds`` (B, P,
+        F) before the text tokens' embeddings (T = P + T_text); audio: the
+        projected ``frame_feats`` (B, T, F), and where ``mask_indicator``
+        is given, ``x * (1 - m) + mask_emb * m`` (the reference's formula,
+        so the values are bit-equal); else the tokens' embeddings."""
         cfg = self.cfg
-        x = L.embed_tokens(self.embedding, tokens, cfg)
+        dtype = L.torch_dtype(cfg.param_dtype)
+        if cfg.modality == "vision_text":
+            proj = L.apply_dense(self.projector,
+                                 batch["patch_embeds"].to(dtype))
+            tok = L.embed_tokens(self.embedding, batch["tokens"], cfg)
+            return torch.cat([proj, tok], dim=1)
+        if cfg.modality == "audio":
+            x = L.apply_dense(self.frontend_proj,
+                              batch["frame_feats"].to(dtype))
+            if "mask_indicator" in batch:
+                m = batch["mask_indicator"][..., None].to(dtype)
+                x = x * (1 - m) + self.mask_emb[None, None, :] * m
+            return x
+        return L.embed_tokens(self.embedding, batch["tokens"], cfg)
+
+    def forward(self, batch: dict, return_cache: bool = False,
+                return_hidden: bool = False):
+        """Full-sequence forward over the batch (``embed_inputs``) at
+        positions arange(T). Returns (logits (B, T, V) f32 | hidden (B, T,
+        d), aux, caches | None); aux is the layers' mean MoE load-balance
+        loss, 0.0 outside the moe family. The caches are written layer by
+        layer into preallocated stacks: for the attention families ``{"k",
+        "v"}`` (L, B, T, Hkv, D) (vlm: T = P + T_text); for the recurrent
+        families ``{"ssm_states": {"ssm", "conv"}}`` stacked over layers
+        and, for the hybrid family, ``{"shared_kv": {"k", "v"}}`` (n_slots,
+        B, T, Hkv, D)."""
+        cfg = self.cfg
+        x = self.embed_inputs(batch)
         aux = torch.zeros((), device=x.device)
         if cfg.family in ATTENTION_FAMILIES:
             x, caches, aux = self._forward_attention(x, aux, return_cache)
@@ -270,10 +316,13 @@ class LanguageModel(nn.Module):
     def decode_step(self, tokens, state, index: int):
         """One-token decode. tokens: (B, 1) int; index: a host int, the
         tokens so far (the rings' position; unused by the SSM family).
-        Returns (logits (B, 1, V) f32, new state); the KV rings (the dense
-        and moe families', the hybrid family's ``shared_kv``) are the
-        state's own, updated in place."""
+        Returns (logits (B, 1, V) f32, new state); the KV rings (the
+        attention families', the hybrid family's ``shared_kv``) are the
+        state's own, updated in place. vlm: tokens only, at index P +
+        T_text and on (the reference's ``decode_step`` ignores
+        ``patch_embeds``)."""
         cfg = self.cfg
+        _check_decode(cfg)
         with torch.inference_mode():
             x = L.embed_tokens(self.embedding, tokens, cfg)
             if cfg.family in ATTENTION_FAMILIES:
@@ -343,6 +392,15 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> LanguageModel:
         # reused every `shared_attn_period` layers
         params["shared_attn"] = attention_block()
     params["final_norm"] = L.maybe_init_norm(cfg.d_model, cfg, dtype, dev)
+    # the frontends' projections last, so that a seed gives the other
+    # families the same weights as before
+    if cfg.modality == "vision_text":
+        params["projector"] = L.init_dense(gen, cfg.frontend_dim,
+                                           cfg.d_model, dtype)
+    if cfg.modality == "audio":
+        params["frontend_proj"] = L.init_dense(gen, cfg.frontend_dim,
+                                               cfg.d_model, dtype)
+        params["mask_emb"] = L._normal(gen, (cfg.d_model,), dtype)
     return LanguageModel(cfg, params)
 
 
@@ -360,7 +418,8 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
     stacked (L, ...)), carried across as numpy arrays, as a module on
     ``device`` with the same values bit for bit: any layer tree (the MoE
     layers' router and (E, d, ff) experts too), None leaves (OLMo's norms)
-    kept, the untied unembedding and the hybrid family's ``shared_attn``
+    kept, the untied unembedding, the hybrid family's ``shared_attn``, the
+    vlm ``projector`` and the audio ``frontend_proj`` and ``mask_emb``
     too."""
     dev = resolve_device(device)
 
@@ -375,8 +434,11 @@ def params_from_jax(np_params: dict, cfg: ModelConfig,
               "layers": [conv(np_params["layers"], i)
                          for i in range(cfg.num_layers)],
               "final_norm": conv(np_params["final_norm"])}
-    if "shared_attn" in np_params:
-        params["shared_attn"] = conv(np_params["shared_attn"])
+    for name in ("shared_attn", "projector", "frontend_proj"):
+        if name in np_params:
+            params[name] = conv(np_params[name])
+    if "mask_emb" in np_params:
+        params["mask_emb"] = _tensor(np_params["mask_emb"], dev)
     return LanguageModel(cfg, params)
 
 
@@ -401,18 +463,20 @@ def active_param_count(model: nn.Module, cfg: ModelConfig) -> int:
 
 def forward(model: LanguageModel, batch: dict, return_cache: bool = False,
             return_hidden: bool = False):
-    return model(batch["tokens"], return_cache=return_cache,
+    return model(batch, return_cache=return_cache,
                  return_hidden=return_hidden)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                       device=None):
-    """Zero decode state: for the dense and moe families each layer's KV
-    ring stacked over layers; for the recurrent families the SSM states stacked
+    """Zero decode state: for the attention families each layer's KV ring
+    stacked over layers; for the recurrent families the SSM states stacked
     over layers and, for the hybrid family, the shared block's rings
     stacked over its slots. A ring has ``min(seq_len, window)`` slots
-    (int8 with f16 scales under ``kv_quant``)."""
+    (int8 with f16 scales under ``kv_quant``). An encoder-only config
+    raises."""
     _check_family(cfg)
+    _check_decode(cfg)
     dev = resolve_device(device)
     if cfg.family in ATTENTION_FAMILIES:
         return _rings(cfg, cfg.num_layers, batch, seq_len, dev)
@@ -455,12 +519,15 @@ def _fill_ring(ring, got, prefill_len: int):
 def cache_from_prefill(caches, cfg: ModelConfig, batch: int, seq_len: int,
                        prefill_len: int):
     """``forward(return_cache=True)``'s caches as a decode state (the
-    serving path's prefill -> decode hand-off): the K/V (dense and moe:
-    every layer's; hybrid: the shared slots') fill their rings, and the SSM
-    states pass through. Under ``kv_quant`` (dense, moe) the K/V are
-    quantized per (token, head) as the reference's ``fill_kv_quant`` does:
-    int8 payload with the f32 scale, the scale stored in f16."""
+    serving path's prefill -> decode hand-off): the K/V (the attention
+    families: every layer's, for vlm over the P + T_text positions, so
+    ``prefill_len`` counts the patches; hybrid: the shared slots') fill
+    their rings, and the SSM states pass through. Under ``kv_quant``
+    (dense, moe, vlm) the K/V are quantized per (token, head) as the
+    reference's ``fill_kv_quant`` does: int8 payload with the f32 scale,
+    the scale stored in f16. An encoder-only config raises."""
     _check_family(cfg)
+    _check_decode(cfg)
     if cfg.family == "hybrid" and cfg.kv_quant:
         raise NotImplementedError(
             f"cache_from_prefill for the hybrid family with kv_quant "

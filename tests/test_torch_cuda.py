@@ -450,14 +450,16 @@ def _swa_case(dev, bh, t, s, d, dtype, seed):
 # multiple in one or both dtypes and take plain loads), ragged T and S both
 # ways, windows around the 64-key tile and beyond T, a query tile of edge
 # tiles only (T = 64, no window), rows with no key (W = 0; T > S with a
-# window), causal off with a window. chip_smoke.py holds the same list:
-# change both.
+# window), causal off with a window, hubert-xlarge's encoder row (D = 80
+# padded to 96, causal off, no window, a ragged T = 1,500).
+# chip_smoke.py holds the same list: change both.
 SWA_BRANCHES = ((64, 64, 16, 1, True), (129, 200, 33, 63, True),
                 (200, 129, 40, 64, True), (257, 257, 64, 65, True),
                 (300, 280, 112, 1000, True), (190, 300, 128, 64, False),
                 (64, 64, 128, None, True), (170, 100, 64, 20, True),
                 (65, 70, 32, 0, True), (200, 180, 256, 63, True),
-                (130, 130, 200, 65, False), (100, 100, 96, None, False))
+                (130, 130, 200, 65, False), (100, 100, 96, None, False),
+                (1500, 1500, 80, None, False))
 
 
 @pytest.mark.parametrize("t,s,d,window,causal", [
@@ -747,6 +749,97 @@ def test_moe_reduced_on_card_matches_cpu_route(cuda, t_pre):
         if name == "card":
             assert sw.launches == 2 * cfg.num_layers
     assert got["ring_k"].shape[2] == 64
+    for key, w in want.items():
+        torch.testing.assert_close(got[key].cpu(), w, **tol, msg=key)
+
+
+@pytest.mark.parametrize("t_text", [3, 292])
+def test_vlm_reduced_on_card_matches_cpu_route(cuda, t_text):
+    """Reduced internvl2-1b with 14 query heads over 2 (the full model's
+    GQA group of 7) on the card (the attention kernel) against the same
+    model on the CPU (the twin) at the reference's LM tolerance, over
+    [8 patches; T tokens] (P + T = 11, and 300: three query tiles, the
+    last ragged): the prefill step's logits, the forward's logits and
+    per-layer caches, the hand-off and 5 teacher-forced decode steps from
+    index P + T. A prefill launches swa_attention once per layer; decode
+    never."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import decode_step, forward, init_model
+    tol = dict(rtol=1e-4, atol=1e-5)
+    cfg = dataclasses.replace(get_reduced("internvl2-1b"), num_heads=14,
+                              num_kv_heads=2)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = init_model(cfg, seed=0, device="cpu").to(cuda)
+    rng = np.random.default_rng(t_text)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, t_text + 5)).astype(np.int32))
+    patches = torch.from_numpy(rng.normal(size=(
+        2, cfg.num_patches, cfg.frontend_dim)).astype(np.float32))
+    n = cfg.num_patches + t_text
+    got, want = {}, {}
+    for name, model, dev in (("card", card, cuda), ("cpu", cpu, "cpu")):
+        out = got if name == "card" else want
+        tk = toks.to(dev)
+        batch = {"tokens": tk[:, :t_text], "patch_embeds": patches.to(dev)}
+        sw.launches = 0
+        out["prefill"], _ = prefill(model, batch)
+        with torch.inference_mode():
+            logits, _, caches = forward(model, batch, return_cache=True)
+        if name == "card":
+            assert sw.launches == 2 * cfg.num_layers
+        out["logits"] = logits
+        out.update({f"kv_{k}": v for k, v in caches.items()})
+        state = model.cache_from_prefill(caches, 2, 320, n)
+        for i in range(5):
+            lg, state = decode_step(model, tk[:, t_text + i:t_text + i + 1],
+                                    state, n + i)
+            out[f"decode_{i}"] = lg
+        out.update({f"ring_{k}": v for k, v in state.items()})
+        if name == "card":
+            assert sw.launches == 2 * cfg.num_layers
+    assert got["kv_k"].shape[2] == n
+    for key, w in want.items():
+        torch.testing.assert_close(got[key].cpu(), w, **tol, msg=key)
+
+
+@pytest.mark.parametrize("t", [40, 1500])
+def test_audio_reduced_on_card_matches_cpu_route(cuda, t):
+    """Reduced hubert-xlarge with the full model's head dim of 80 (the
+    kernel's D = 96 instance) on the card against the same model on the
+    CPU at the reference's LM tolerance, frames masked at the published
+    0.08: the forward's logits and caches and the prefill step's last
+    logits (no caches) at T = 40 and 1,500. Each pass launches the
+    bidirectional swa_attention once per layer."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch.steps import prefill
+    from repro_torch.models import forward, init_model
+    tol = dict(rtol=1e-4, atol=1e-5)
+    cfg = dataclasses.replace(get_reduced("hubert-xlarge"), head_dim=80)
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = init_model(cfg, seed=0, device="cpu").to(cuda)
+    rng = np.random.default_rng(t)
+    batch = {"frame_feats": torch.from_numpy(rng.normal(
+                 size=(2, t, cfg.frontend_dim)).astype(np.float32)),
+             "mask_indicator": torch.from_numpy(
+                 (rng.random((2, t)) < cfg.mask_prob).astype(np.int32))}
+    got, want = {}, {}
+    for name, model, dev in (("card", card, cuda), ("cpu", cpu, "cpu")):
+        out = got if name == "card" else want
+        b = {k: v.to(dev) for k, v in batch.items()}
+        sw.launches = 0
+        with torch.inference_mode():
+            logits, _, caches = forward(model, b, return_cache=True)
+        out["logits"] = logits
+        out.update({f"kv_{k}": v for k, v in caches.items()})
+        out["prefill"], none = prefill(model, b)
+        assert none is None
+        if name == "card":
+            assert sw.launches == 2 * cfg.num_layers
     for key, w in want.items():
         torch.testing.assert_close(got[key].cpu(), w, **tol, msg=key)
 

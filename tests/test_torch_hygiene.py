@@ -74,7 +74,8 @@ def test_importing_the_port_loads_no_jax():
                 "bench.fl_engine_bench", "bench.fused_round_bench",
                 "bench.round_perf_bench", "bench.diff", "bench.run",
                 "models.moe", "configs.mixtral_8x22b",
-                "configs.llama4_maverick_400b_a17b"):
+                "configs.llama4_maverick_400b_a17b", "configs.internvl2_1b",
+                "configs.hubert_xlarge"):
         assert f"repro_torch.{mod}" in names
 
 
