@@ -80,6 +80,19 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   layer's inputs and on one 8,192-frame clip beside SDPA. Before each
   serving phase ``free_held`` collects what earlier phases left
   unreachable on the card.
+- the attention backward (``swa_attention_bwd``) against its twin at
+  each attention family's in-model shapes (smollm-135m's train step,
+  internvl2-1b's GQA 7, hubert-xlarge's D = 80 encoder, mixtral-shaped
+  windowed rows) in f32 and bf16, timed beside SDPA's backward
+  (``swa_bwd``); then smollm-135m's PAOTA training at full width through
+  ``launch.steps.make_paota_train_step`` (``lm_train``: f32, K = 4
+  clients, 2 x 4,096 tokens a client, M = 2, 3 rounds with stragglers,
+  every layer's attention forward and backward on the two kernels, one
+  sweep 2 per params leaf a round, the loss finite and falling, a
+  straggler's loss dropping on its own microbatches, the gradients at
+  full width against the same step with the attention twin; one bf16
+  round under ``runtime_config``; the ssm family refused on the card; the
+  train CLI's demo).
 
 - the paper's harness (``repro_torch.bench``) at the reference's paper
   scale (``REPRO_BENCH_FULL=1``: K = 100, 120 rounds, 50 synchronous
@@ -92,8 +105,9 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   ``REPRO_BENCH_OUT``, each artifact naming the card and its power limit,
   and the differ over them (``bench_suite``).
 
-It times the seven kernels (the two sweeps also in bf16 and as the
-pytree carry's six per-leaf launches) with ``repro_torch.bench.timing``,
+It times the seven kernels (the two sweeps also in bf16, as the pytree
+carry's six per-leaf launches and at the train store's leaves) and the
+attention backward with ``repro_torch.bench.timing``,
 the benches' own method, and prints one JSON record per phase. Its last
 three lines are the ``kernels`` record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -140,10 +154,15 @@ CARDS = (("H200", 4.8e12, 67e12, 495e12),
 # the round-perf bench's hidden-64 MLP at its K = 16 and 1000: the raveled
 # plane (D = 55,050) and its pytree carry's leaf widths
 ROUND_PERF_WIDTHS = (55050, 50176, 4096, 640, 64, 10)
+# the LM train step's store at K = 4 (lm_train): smollm-135m's leaf widths
+# (the tied embedding, the MLP, wq / wo, wk / wv, a norm's layers, the
+# final norm)
+TRAIN_LEAF_WIDTHS = (28311552, 26542080, 9953280, 3317760, 17280, 576)
 PARITY_SHAPES = ((1, 1), (3, 511), (64, 8191), (100, 8070), (100, 8192),
                  (1000, 8070), (1, 20000), (1000, 511), (100, 10),
                  (100, 100), (100, 7840)) + tuple(
-    (k, d) for k in (16, 1000) for d in ROUND_PERF_WIDTHS)
+    (k, d) for k in (16, 1000) for d in ROUND_PERF_WIDTHS) + tuple(
+    (4, d) for d in TRAIN_LEAF_WIDTHS)
 MAIN_ROUNDS = 100
 SCALE_ROUNDS = 20
 HOST_ROUNDS = 30
@@ -207,8 +226,13 @@ HY_BATCH, HY_PROMPT, HY_STEPS, HY_WARM, HY_CONT_PRE, HY_CHECK_ROWS = (
     2, 8192, 32, 512, 8187, 8)
 
 
+T0 = time.perf_counter()
+
+
 def log(record: dict) -> None:
-    print(json.dumps(record), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps(dict(record, t_s=time.perf_counter() - T0)),
+          flush=True)
 
 
 def card_rates(name: str):
@@ -239,11 +263,13 @@ def parity(dev):
     cases = 0
     for k, d in PARITY_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(k * 8191 + d)
+        # the train step's leaves take sweep 2 only (no sweep 1 on its path)
+        sweep1 = d not in TRAIN_LEAF_WIDTHS
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((k, d), generator=gen, device=dev).to(dtype)
             pay = torch.randn((k, d), generator=gen, device=dev).to(dtype)
             g = torch.randn((d,), generator=gen, device=dev)
-            for payload in (None, pay):
+            for payload in (None, pay) if sweep1 else ():
                 got, got_g = rs.round_stats_cuda(x, g, payload)
                 want, want_g = rs.round_stats_plain(x, g, payload)
                 torch.cuda.synchronize()
@@ -298,6 +324,8 @@ def parity(dev):
                                            "partial"):
                     main_err["aircomp_sum"] = err
                 cases += 1
+            if not sweep1:
+                continue
             got = cs.cosine_partials_cuda(x, g)
             want = cs.cosine_partials_plain(x, g)
             torch.cuda.synchronize()
@@ -969,7 +997,8 @@ def _counters() -> dict:
             "cosine_partials": (cs, "launches"),
             "gather_superpose": (gs, "launches"),
             "ssd_chunk": (sc, "launches"),
-            "swa_attention": (sw, "launches")}
+            "swa_attention": (sw, "launches"),
+            "swa_attention_bwd": (sw, "bwd_launches")}
 
 
 COHORT_KERNELS = ("round_stats", "superpose_normalize", "gather_superpose")
@@ -3164,6 +3193,557 @@ def audio_encode(dev, bw, flops, tf32):
 # phases 16-17: the paper's harness and the bench suite
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# LM training: the attention backward, the train step at full width
+# ---------------------------------------------------------------------------
+
+# the attention backward at the attention families' in-model shapes (name,
+# B, T, H, Hkv, D, window, causal): smollm-135m's train step (a client's
+# microbatch of 2 x 4,096 tokens, 9 heads over 3), internvl2-1b (2 x
+# [256 patches; 3,840 tokens], 14 heads over 2, GQA 7), hubert-xlarge's
+# encoder (2 x 1,500 frames, 16 heads, D = 80, bidirectional), and
+# mixtral-shaped windowed rows (12 query heads over 2, T = 8,192, W =
+# 4,096)
+SWA_BWD_SHAPES = (("smollm-135m", 2, 4096, 9, 3, 64, None, True),
+                  ("internvl2-1b", 2, 4096, 14, 2, 64, None, True),
+                  ("hubert-xlarge", 2, 1500, 16, 16, 80, None, False),
+                  ("mixtral-8x22b", 1, 8192, 12, 2, 128, 4096, True))
+SWA_BWD_TIMING_RUNS = 20
+
+
+def swa_bwd_work(rows, t, d, window, causal, itemsize, dev):
+    """The backward's work over ``rows`` rows of a T = S band: (pairs
+    inside the band, operations at 10 D a pair (the five products), at 14
+    D (as run: the dQ pass recomputes S and dP), bytes: q, k, v, out, dout
+    and the f32 log-sum-exp read once, dq, dk, dv written once)."""
+    from repro_torch.kernels import swa_attention as sw
+    pairs = rows * int(sw.band_mask(t, t, window, causal, dev).sum())
+    nbytes = itemsize * 8 * rows * t * d + 4 * rows * t
+    return pairs, 10 * d * pairs, 14 * d * pairs, nbytes
+
+
+def swa_bwd_parity(dev, bw, flops, tf32):
+    """The attention backward against its twin at each SWA_BWD_SHAPES
+    entry, f32 (rtol = atol = 3e-5) and bf16 (rtol 1e-2, atol 1e-3: the
+    outputs are rounded to bf16 from f32 sums, at most one bf16 step,
+    2^-7 of the value, apart), the inputs as the model hands them (the GQA
+    repeat through ops.swa_layout; out and the log-sum-exp from the forward
+    kernel; dout from a seed), two calls bit-identical; the forward's
+    log-sum-exp against the twin's, and its output bit-equal to the serving
+    call's. Then, f32, the kernel, the twin and SDPA's backward (the
+    efficient backend forced, through autograd, on the same repeated rows;
+    is_causal, the band's mask, or none) timed against the bound: the
+    larger of the bytes and 10 D operations a pair in f32-accurate 3xTF32
+    (495 / 3 TFLOP/s on an H100), as the forward's bound is. Beside it the
+    same operations on the CUDA cores, and 14 D there as the kernel runs
+    them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    flush = l2_flush(dev)
+    out_recs = []
+    for name, b, t, h, hkv, d, window, causal in SWA_BWD_SHAPES:
+        rec = {"model": name, "shape": [b * h, t, d], "kv_heads": hkv,
+               "window": window, "causal": causal}
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[-1]
+            q, k, v = ops.swa_layout(*swa_inputs(dev, b, t, h, hkv, d,
+                                                 dtype, t + h + d))
+            out, lse = sw.swa_attention_cuda(q, k, v, window=window,
+                                             causal=causal, return_lse=True)
+            if not torch.equal(out, sw.swa_attention_cuda(
+                    q, k, v, window=window, causal=causal)):
+                raise AssertionError(f"swa_attention {name} {key}: the "
+                                     f"output with the log-sum-exp differs")
+            _, want_lse = sw.swa_attention_plain(q, k, v, window=window,
+                                                 causal=causal,
+                                                 return_lse=True)
+            lse_err = float((lse - want_lse).abs().max())
+            torch.testing.assert_close(lse, want_lse, rtol=3e-5, atol=3e-5)
+            gen = torch.Generator(device=dev).manual_seed(t + d)
+            dout = torch.randn(out.shape, generator=gen,
+                               device=dev).to(dtype)
+            args = (q, k, v, out, dout, lse)
+            kw = dict(window=window, causal=causal)
+            got = sw.swa_attention_bwd_cuda(*args, **kw)
+            again = sw.swa_attention_bwd_cuda(*args, **kw)
+            want = sw.swa_attention_bwd_plain(*args, **kw)
+            torch.cuda.synchronize()
+            rtol, atol = ((3e-5, 3e-5) if dtype == torch.float32
+                          else (1e-2, 1e-3))
+            errs, share = {}, {}
+            for gname, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+                torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                           atol=atol, msg=f"{name} {gname}")
+                if not torch.equal(g, a):
+                    raise AssertionError(f"swa_attention_bwd {name} {key}: "
+                                         f"two calls differ in {gname}")
+                off = (g.float() - w.float()).abs()
+                errs[gname] = float(off.max())
+                # the largest error as a share of its element's limit
+                share[gname] = float((off / (atol + rtol * w.float().abs()))
+                                     .max())
+                del off
+            rec[key] = {"max_abs_err": max(errs.values()), "by_output": errs,
+                        "max_abs_want": {n: float(w.float().abs().max())
+                                         for n, w in zip(("dq", "dk", "dv"),
+                                                         want)},
+                        "share_of_limit": share, "rtol": rtol, "atol": atol,
+                        "lse_max_abs_err": lse_err,
+                        "bit_identical_on_repeat": True}
+            if dtype == torch.float32:
+                pairs, ops10, ops14, nbytes = swa_bwd_work(
+                    b * h, t, d, window, causal, 4, dev)
+                mask = (None if window is None and not causal
+                        else sw.band_mask(t, t, window, causal, dev))
+                leaves = [x.view(1, b * h, t, d).detach().requires_grad_()
+                          for x in (q, k, v)]
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    lib_out = F.scaled_dot_product_attention(
+                        *leaves, attn_mask=None if window is None else mask,
+                        is_causal=causal and window is None)
+                d4 = dout.view(1, b * h, t, d)
+
+                def library():
+                    return torch.autograd.grad(lib_out, leaves, d4,
+                                               retain_graph=True)
+
+                lib_err = max(float((x.view(b * h, t, d) - g).abs().max())
+                              for x, g in zip(library(), got))
+                runs = SWA_BWD_TIMING_RUNS
+                rec.update(
+                    ms=time_ms(lambda: sw.swa_attention_bwd_cuda(*args, **kw),
+                               flush, runs),
+                    plain_ms=time_ms(lambda: sw.swa_attention_bwd_plain(
+                        *args, **kw), flush, runs),
+                    library_ms=time_ms(library, flush, runs),
+                    library="autograd of F.scaled_dot_product_attention("
+                            "q, k, v, is_causal | attn_mask=band) on (1, "
+                            "rows, T, D)",
+                    library_backend="EFFICIENT_ATTENTION",
+                    library_max_abs_diff_vs_kernel=lib_err,
+                    forward_ms=time_ms(lambda: sw.swa_attention_cuda(
+                        q, k, v, window=window, causal=causal,
+                        return_lse=True), flush, runs),
+                    pairs=pairs, flops_counted=ops10, bytes_counted=nbytes,
+                    bound_cuda_cores_ms=max(nbytes / bw, ops10 / flops) * 1e3,
+                    bound_as_run_ms=max(nbytes / bw, ops14 / flops) * 1e3,
+                    **_bound(nbytes, 3 * ops10, bw, tf32))
+                del leaves, lib_out
+            del q, k, v, out, lse, dout, got, again, want
+        log({"phase": "swa_bwd", **rec})
+        out_recs.append(rec)
+    return out_recs
+
+
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "smollm-135m", 4096, 8
+# lr 0.1: at random init the loss (about ln V + 0.11, the logits' spread)
+# moves by ~1e-3 a round; at 0.5 it rose (PERF.md §6)
+TRAIN_K, TRAIN_M, TRAIN_ROUNDS, TRAIN_LR, TRAIN_SIGMA = 4, 2, 3, 0.1, 1e-4
+# each round's participants: client 3 straggles in round 0, client 1 in
+# round 1, none in round 2
+TRAIN_MASKS = ((1, 1, 1, 0), (1, 0, 1, 1), (1, 1, 1, 1))
+TRAIN_STRAGGLER = 3
+# the kernels' gradients against the twin's, per leaf (2-norm): far above
+# f32 sums taken in another order, far below a kernel output off by a
+# tile or a factor
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_POWER = 15.0
+# the demo CLI: rounds, local steps, clients
+TRAIN_CLI = (3, 2, 2)
+
+
+def train_bounds(n_params, tokens, attn_pairs, d_head, layers, flops, tf32):
+    """A client step's least time in f32: 6 N operations a token (the
+    products' forward and backward) on the CUDA cores, as the f32 run
+    (TF32 off) does them, and the attention's band beside them (4 D a pair
+    forward, 10 D backward, per layer) in 3xTF32, as the attention kernels'
+    own bounds count it (and on the CUDA cores beside it)."""
+    dense = 6 * n_params * tokens
+    attn = layers * attn_pairs * 14 * d_head
+    return {"client_step_bound_ms": dense / flops * 1e3,
+            "client_step_bound_with_attention_ms": (
+                dense / flops + 3 * attn / tf32) * 1e3,
+            "client_step_bound_with_attention_cuda_cores_ms": (
+                dense + attn) / flops * 1e3,
+            "flops_6n_tokens": dense, "flops_attention": attn}
+
+
+def train_profile(dev):
+    """One smollm-135m client step (lm_train's: f32, a microbatch of 2 x
+    4,096 tokens, K = 1, M = 1) under torch.profiler, after a warm-up:
+    device time by kernel (``profile_client_step``) beside the step's
+    host-clock time. Run last in the script (see ``lm_train``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import init_model
+    free_held("train_profile")
+    cfg = get_config(TRAIN_ARCH)
+    mb = TRAIN_BATCH // TRAIN_K
+    model = init_model(cfg, seed=0, device=dev)
+    client = steps.make_paota_train_step(
+        model, InputShape("train_4k_b8", TRAIN_SEQ, mb, "train"), 1,
+        lr=TRAIN_LR, local_steps=1, sigma_over_varsigma=TRAIN_SIGMA,
+        noise=steps.KeyedNormal(0))
+    store = steps.stack_params(model, 1)
+    batch = {"tokens": torch.from_numpy(next(token_stream(
+        cfg.vocab_size, mb, TRAIN_SEQ, 1, seed=0))["tokens"]).to(dev)
+        .view(1, 1, mb, TRAIN_SEQ)}
+    ones = torch.ones((1,), device=dev)
+    client(store, batch, ones, ones, 0)             # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    client(store, batch, ones, ones, 1)
+    torch.cuda.synchronize()
+    rec = {"phase": "train_profile", "arch": TRAIN_ARCH,
+           "client_step_ms": (time.perf_counter() - t0) * 1e3,
+           **(profile_client_step(lambda: client(store, batch, ones, ones,
+                                                  2)) or {"device_ms": None})}
+    log(rec)
+    return rec
+
+
+def profile_client_step(fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler):
+    the total and the shares of the attention kernels, the GEMMs and the
+    rest; None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        # the kernels' own events (an operator's row repeats its kernels')
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        self_us = getattr(evt, "self_device_time_total",
+                          getattr(evt, "self_cuda_time_total", 0.0))
+        if self_us > 0:
+            rows.append((evt.key, self_us, evt.count))
+    if not rows:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+
+    def share(*keys):
+        return sum(r[1] for r in rows
+                   if any(k in r[0].lower() for k in keys)) / 1e3
+
+    return {"device_ms": total / 1e3,
+            "swa_bwd_ms": share("swa_bwd"),
+            "swa_fwd_ms": share("swa_attention_kernel"),
+            "gemm_ms": share("gemm", "sm90", "cutlass", "xmma", "sgemm"),
+            "top": [{"kernel": k[:120], "ms": us / 1e3, "count": n}
+                    for k, us, n in rows[:12]]}
+
+
+class _ModelLoss(torch.nn.Module):
+    """``loss_fn``'s cross-entropy of a wrapped model, for
+    ``torch.func.functional_call`` with one client's params."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch):
+        from repro_torch.models.transformer import loss_fn
+        return loss_fn(self.model, batch)[1]["loss"]
+
+
+def loss_at(model, leaves, batch):
+    """``loss_fn``'s cross-entropy on ``batch`` at one client's params
+    (``leaves``, a row of the train store in its leaf order), no
+    gradient."""
+    from repro_torch.launch import steps
+    mapping = steps.client_params(steps.param_layout(model), leaves, "model.")
+    with torch.no_grad():
+        return float(torch.func.functional_call(_ModelLoss(model), mapping,
+                                                (batch,)))
+
+
+def row(store, client):
+    """``client``'s row of the train store, in its leaf order."""
+    from repro_torch.tree import tree_leaves
+    return [x[client] for x in tree_leaves(store)]
+
+
+def twin_attention(q, k, v, *, window=None, causal=True):
+    """``ops.swa_attention`` with the twin in place of the kernels, under
+    torch's own autograd (the layout as ``ops.swa_attention``'s)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    b, t, h, d = q.shape
+    out = sw.swa_attention_plain(*ops.swa_layout(q, k, v), window=window,
+                                 causal=causal)
+    return out.reshape(b, h, t, d).transpose(1, 2)
+
+
+def grads_vs_twin(model, leaves, batch):
+    """One client's loss gradients at full width through the attention
+    kernels (forward with the log-sum-exp, backward kernel) and through
+    the twin under torch's autograd, on the same params and batch, both
+    with block remat (so that the twin's (rows, T, T) matrices live one
+    layer at a time): per leaf |g - g_twin| / |g_twin| (2-norms) and the
+    losses."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, remat="block")
+    layout = steps.param_layout(model)
+
+    def run():
+        own = [x.detach().clone().requires_grad_() for x in leaves]
+        return torch.func.functional_call(
+            steps._ClientLoss(model), steps.client_params(layout, own,
+                                                          "model."),
+            (batch, own))
+    try:
+        loss, got = run()
+        with mock.patch.object(ops, "swa_attention", twin_attention):
+            want_loss, want = run()
+    finally:
+        model.cfg = cfg
+    rel = [float((g - w).norm() / w.norm().clamp_min(1e-30))
+           for g, w in zip(got, want)]
+    return {"rel_l2_by_leaf": rel, "max_rel_l2": max(rel),
+            "loss": float(loss), "loss_twin": float(want_loss),
+            "grad_norm": float(torch.stack([g.norm() for g in got]).norm())}
+
+
+def lm_train(dev, bw, flops, tf32):
+    """smollm-135m's PAOTA training at full width on the card
+    (``launch.steps.make_paota_train_step``): f32, TF32 off, random weights
+    from seed 0, K = 4 clients, the reference's train_4k length (4,096)
+    with the global batch cut from 256 to 8 (mb = 2 a client), M = 2 local
+    SGD steps, 3 rounds, sigma_over_varsigma 1e-4 (so sweep 2 runs), a
+    straggler in rounds 0 and 1. Counters set to 0 before each round and
+    read after: per client step one forward and one backward attention
+    launch a layer, one sweep 2 per reference leaf a round. Checks: the
+    loss finite, the last round's below the first's; the participants'
+    rows equal and a straggler's its own; round 0's straggler (client
+    TRAIN_STRAGGLER, which keeps its local params) has a lower loss on
+    each of its own two microbatches after its local steps than before;
+    the gradients of client 0's first microbatch at the initial params,
+    per leaf within TRAIN_GRAD_RTOL (2-norm) of the same gradients with
+    the attention twin (``grads_vs_twin``). A held-out batch's loss is
+    logged before and after each round. Then one round in bf16 under
+    ``runtime_config`` (block remat) on round 0's batch, its loss within
+    2e-2 of the f32 round's; the ssm family refused on the card; the
+    train CLI's demo. Times: rounds (per client step against 6 N tokens
+    at the f32 rate), the aggregation, sweep 2 at the store's leaf widths.
+    The timed and profiled single client step is ``train_profile``, which
+    main runs last, so that the profiler cannot slow the phases after
+    it."""
+    import io
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.core.aggregation import paota_aggregate_stacked
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import init_model, param_count
+    from repro_torch.tree import tree_leaves
+    free_held("lm_train")
+    cfg = get_config(TRAIN_ARCH)
+    shape = InputShape("train_4k_b8", TRAIN_SEQ, TRAIN_BATCH, "train")
+    k, m = TRAIN_K, TRAIN_M
+    mb = TRAIN_BATCH // k
+    layers = cfg.num_layers
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=dev)
+    store = steps.stack_params(model, k)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    n_leaves = len(tree_leaves(store))
+    store_mb = sum(x.numel() * x.element_size()
+                   for x in tree_leaves(store)) / 2**20
+    stream = token_stream(cfg.vocab_size, k * m * mb, TRAIN_SEQ,
+                          TRAIN_ROUNDS, seed=0)
+    batches = [torch.from_numpy(b["tokens"].reshape(k, m, mb, TRAIN_SEQ))
+               .to(dev) for b in stream]
+    powers = torch.full((k,), TRAIN_POWER, device=dev)
+    masks = [torch.tensor(x, dtype=torch.float32, device=dev)
+             for x in TRAIN_MASKS]
+    step = steps.make_paota_train_step(
+        model, shape, k, lr=TRAIN_LR, local_steps=m,
+        sigma_over_varsigma=TRAIN_SIGMA, noise=steps.KeyedNormal(0))
+    held = {"tokens": torch.from_numpy(next(token_stream(
+        cfg.vocab_size, mb, TRAIN_SEQ, 1, seed=1))["tokens"]).to(dev)}
+    held_losses = [loss_at(model, row(store, 0), held)]
+    theta0 = [x.clone() for x in row(store, TRAIN_STRAGGLER)]
+    per_step = k * m * layers
+    want = {"swa_attention": per_step, "swa_attention_bwd": per_step,
+            "superpose_normalize": n_leaves}
+    rounds, checks = [], {}
+    for r in range(TRAIN_ROUNDS):
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        store, met = step(store, {"tokens": batches[r]}, powers, masks[r], r)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counters()
+        held_losses.append(loss_at(model, row(store, 0), held))
+        if r == 0:
+            theta1 = [x.clone() for x in row(store, TRAIN_STRAGGLER)]
+        emb = store["embedding"]["embed"]
+        rows = [i for i, on in enumerate(TRAIN_MASKS[r]) if on]
+        strag = [i for i, on in enumerate(TRAIN_MASKS[r]) if not on]
+        rounds.append({"round": r, "ms": ms, "loss": float(met["loss"]),
+                       "varsigma": float(met["varsigma"]),
+                       "participants": float(met["participants"]),
+                       "launches": counts})
+        checks[f"round {r}: launches"] = counts == dict(
+            {n: 0 for n in counts}, **want)
+        checks[f"round {r}: participants share the aggregate"] = all(
+            bool(torch.equal(emb[i], emb[rows[0]])) for i in rows)
+        checks[f"round {r}: a straggler keeps its own"] = all(
+            not bool(torch.equal(emb[i], emb[rows[0]])) for i in strag)
+    losses = [x["loss"] for x in rounds]
+    checks["loss finite"] = all(np.isfinite(losses))
+    checks["loss falling: last round below the first"] = (
+        losses[-1] < losses[0])
+    checks["store finite"] = all(bool(torch.isfinite(x).all())
+                                 for x in tree_leaves(store))
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    # round 0's straggler kept its local params: its loss on each of its
+    # own microbatches, before and after its M SGD steps
+    own = [{"tokens": batches[0][TRAIN_STRAGGLER, j]} for j in range(m)]
+    straggler = {"client": TRAIN_STRAGGLER,
+                 "before": [loss_at(model, theta0, b) for b in own],
+                 "after": [loss_at(model, theta1, b) for b in own]}
+    checks["straggler: loss drops on each own microbatch"] = all(
+        a < b for a, b in zip(straggler["after"], straggler["before"]))
+    del theta0, theta1, own
+    # client 0's first step's gradients against the twin's
+    grads = grads_vs_twin(model, row(steps.stack_params(model, 1), 0),
+                          {"tokens": batches[0][0, 0]})
+    checks[f"gradients within {TRAIN_GRAD_RTOL} of the twin's"] = (
+        grads["max_rel_l2"] <= TRAIN_GRAD_RTOL)
+    tokens = mb * TRAIN_SEQ
+    agg_ms = time_ms(lambda: paota_aggregate_stacked(
+        store, powers, masks[0], torch.zeros(
+            sum(x[0].numel() for x in tree_leaves(store)), device=dev)),
+        l2_flush(dev), 5)
+    sweep2 = []
+    flush = l2_flush(dev)
+    for leaf in tree_leaves(store):
+        x = leaf.reshape(k, -1)
+        nz = torch.zeros(x.shape[1], device=dev)
+        nbytes = 4 * (x.numel() + 2 * x.shape[1])
+        got, _ = ac.superpose_normalize_cuda(x, powers, masks[0], nz)
+        want2, _ = ac.superpose_normalize_plain(x, powers, masks[0], nz)
+        torch.testing.assert_close(got, want2, rtol=3e-5, atol=3e-5)
+        sweep2.append({"shape": list(x.shape),
+                       "max_abs_err": float((got - want2).abs().max()),
+                       "ms": time_ms(lambda: ac.superpose_normalize_cuda(
+                           x, powers, masks[0], nz), flush, 20),
+                       "plain_ms": time_ms(
+                           lambda: ac.superpose_normalize_plain(
+                               x, powers, masks[0], nz), flush, 20),
+                       "yardstick_ms": time_ms(lambda: torch.mv(
+                           x.t(), powers * masks[0]), flush, 20),
+                       "bound_ms": nbytes / bw * 1e3})
+    del store, model, step, batches, x, nz, got, want2, flush
+    free_held("lm_train bf16")
+
+    # one bf16 round under runtime_config (bf16, block remat)
+    cfg16 = steps.runtime_config(cfg)
+    model16 = init_model(cfg16, seed=0, device=dev)
+    store16 = steps.stack_params(model16, k)
+    stream = token_stream(cfg.vocab_size, k * m * mb, TRAIN_SEQ, 1, seed=0)
+    batch0 = torch.from_numpy(next(stream)["tokens"].reshape(
+        k, m, mb, TRAIN_SEQ)).to(dev)
+    step16 = steps.make_paota_train_step(
+        model16, shape, k, lr=TRAIN_LR, local_steps=m,
+        sigma_over_varsigma=TRAIN_SIGMA, noise=steps.KeyedNormal(0))
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    store16, met16 = step16(store16, {"tokens": batch0}, powers, masks[0], 0)
+    torch.cuda.synchronize()
+    bf16 = {"ms": (time.perf_counter() - t0) * 1e3,
+            "loss": float(met16["loss"]), "launches": read_counters(),
+            "dtype": str(tree_leaves(store16)[0].dtype).split(".")[-1]}
+    bf16["rel_diff_vs_f32_round0"] = abs(bf16["loss"] - losses[0]) / abs(
+        losses[0])
+    checks["bf16 round: loss within 2e-2 of f32"] = (
+        np.isfinite(bf16["loss"]) and bf16["rel_diff_vs_f32_round0"] <= 2e-2)
+    checks["bf16 round: launches (remat: forward twice)"] = (
+        bf16["launches"] == dict({n: 0 for n in bf16["launches"]},
+                                 swa_attention=2 * per_step,
+                                 swa_attention_bwd=per_step,
+                                 superpose_normalize=n_leaves))
+    checks["bf16 round: store stays bf16"] = bf16["dtype"] == "bfloat16"
+    del store16, model16, step16
+
+    # the ssm family is refused on the card, naming the missing backward
+    ssm = init_model(get_reduced("mamba2-370m"), seed=0, device=dev)
+    try:
+        steps.make_paota_train_step(ssm, InputShape("t", 32, 2, "train"), 1)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    checks["ssm training refused naming ssd_chunk"] = "ssd_chunk" in refused
+    del ssm
+
+    # the train CLI's demo (reduced smollm, block remat)
+    rounds_cli, m_cli, k_cli = TRAIN_CLI
+    buf = io.StringIO()
+    zero_counters()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(["--demo", "--rounds", str(rounds_cli),
+                        "--local-steps", str(m_cli), "--clients",
+                        str(k_cli)])
+    cli_counts = read_counters()
+    lines = buf.getvalue().splitlines()
+    cli_losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines
+                  if ln.startswith("round ")]
+    checks["cli: a finite loss a round"] = (
+        len(cli_losses) == rounds_cli and all(np.isfinite(cli_losses)))
+    checks["cli: loss falling"] = cli_losses[-1] < cli_losses[0]
+    red = get_reduced(TRAIN_ARCH)
+    checks["cli: kernels launched"] = (
+        cli_counts["swa_attention_bwd"] == rounds_cli * k_cli * m_cli
+        * red.num_layers and cli_counts["superpose_normalize"] > 0)
+
+    pairs = mb * cfg.num_heads * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    rec = {"phase": "lm_train", "arch": TRAIN_ARCH, "params": n_params,
+           "dtype": "float32", "clients": k, "local_steps": m,
+           "microbatch": mb, "seq_len": TRAIN_SEQ, "lr": TRAIN_LR,
+           "sigma_over_varsigma": TRAIN_SIGMA, "masks": TRAIN_MASKS,
+           "leaves": n_leaves, "store_mb": store_mb, "init_s": init_s,
+           "peak_mb_above_start": peak_mb, "rounds": rounds,
+           "losses": losses, "held_out_losses": held_losses,
+           "straggler_own_losses": straggler, "grads_vs_twin": grads,
+           "round_ms_per_client_step": [x["ms"] / (k * m) for x in rounds],
+           "aggregate_ms": agg_ms, "sweep2_by_leaf": sweep2,
+           "bf16_round": bf16,
+           "cli": {"argv": ["--demo", "--rounds", rounds_cli,
+                            "--local-steps", m_cli, "--clients", k_cli],
+                   "stdout": lines, "losses": cli_losses,
+                   "launches": cli_counts},
+           **train_bounds(n_params, tokens, pairs, cfg.head_dim, layers,
+                          flops, tf32),
+           "checks": checks}
+    log(rec)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"lm_train: failed {failed}")
+    return rec
+
+
 SWEEPS = ("round_stats", "superpose_normalize")
 
 
@@ -3936,6 +4516,7 @@ def main() -> int:
     swa = swa_path(swa_parity(dev, main_err))
     by_path["swa_path"] = swa["launches"]
     launches["swa_attention"] = swa["launches"]["swa_attention"]
+    swa_bwd = swa_bwd_parity(dev, bw, flops, tf32)
     lm = lm_serve(dev)
     by_path["lm_serve prefill"] = lm["launches"]["prefill_all"]
     by_path["lm_serve decode"] = lm["launches"]["decode_all"]
@@ -3985,6 +4566,17 @@ def main() -> int:
         "swa_attention"]
     torch.cuda.empty_cache()
 
+    # 15g. smollm-135m's PAOTA training at full width: the attention
+    # kernel's forward and backward in every layer, sweep 2 per leaf
+    train = lm_train(dev, bw, flops, tf32)
+    launches["swa_attention_bwd"] = 0
+    for rec in train["rounds"]:
+        by_path[f"lm_train round {rec['round']}"] = rec["launches"]
+        for kname in ("swa_attention", "swa_attention_bwd",
+                      "superpose_normalize"):
+            launches[kname] += rec["launches"][kname]
+    torch.cuda.empty_cache()
+
     # 16-17. the paper's harness at paper scale, the bench suite
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
         for path, counts in paper_harness(dev, tmpdir).items():
@@ -3997,6 +4589,8 @@ def main() -> int:
     carry_times = carry_sweep_times(dev, bw, flops, l2_flush(dev))
     stage_times(drv_main, l2_flush(dev))
     lm_times = lm_kernel_times(dev, bw, flops, tf32)
+    # last, so that the profiler cannot slow a phase after it
+    train_profile(dev)
 
     sources = {"round_stats": ("round_stats+payload",
                                "src/repro_torch/csrc/round_stats.cu",
@@ -4028,6 +4622,8 @@ def main() -> int:
             "yardstick_ms": t["yardstick_ms"], "yardstick": t["yardstick"],
             "launch_floor_ms": times["launch_floor"],
             "shape": list(shape), "dtype": "float32"})
+        if kname == "superpose_normalize":
+            kernels[-1]["train_leaf_shapes"] = train["sweep2_by_leaf"]
         # the bf16 and pytree carries' launches of the sweeps (100 x 8070)
         others = [{"layout": layout, "shape": [100, 8070],
                    "dtype": "bfloat16" if layout == "bf16" else "float32",
@@ -4102,6 +4698,29 @@ def main() -> int:
                     "ssd_chunk_reference_shape"),
                 **{k: ref[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "yardstick_ms")}}
+    main_bwd, other_bwd = swa_bwd[0], swa_bwd[1:]
+    kernels.append({
+        "name": "swa_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/swa_attention.cu",
+        "replaces": "src/repro/models/layers.py:213 (_flash_bwd, the "
+                    "reference's custom VJP; no Pallas kernel)",
+        "launches": launches["swa_attention_bwd"],
+        "launches_by_path": {p: v["swa_attention_bwd"]
+                             for p, v in by_path.items()
+                             if "swa_attention_bwd" in v},
+        "max_abs_err": main_bwd["float32"]["max_abs_err"],
+        "max_abs_err_bf16": main_bwd["bfloat16"]["max_abs_err"],
+        **{key: main_bwd[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library", "bound_cuda_cores_ms", "bound_as_run_ms",
+            "forward_ms", "shape", "model", "kv_heads", "causal")},
+        "dtype": "float32",
+        "other_shapes": [{key: o[key] for key in (
+            "model", "shape", "kv_heads", "window", "causal", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_cuda_cores_ms", "bound_as_run_ms")} | {"max_abs_err": o["float32"][
+                "max_abs_err"], "max_abs_err_bf16": o["bfloat16"][
+                "max_abs_err"]} for o in other_bwd]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

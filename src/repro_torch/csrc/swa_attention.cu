@@ -187,6 +187,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;            // (bh, t) f32, or null (serving)
   const int4* plan;
   int64_t bh, t, s, window;
   int d, causal, block_q, block_k;
@@ -406,6 +407,9 @@ swa_attention_kernel(Args a, int q_tiles) {
     const int64_t qi = row0 + 8 * r;
     if (qi >= t) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    // the row's log-sum-exp for the backward: m + log l (a row with no
+    // key keeps m = -1e30)
+    if (a.lse != nullptr && tq == 0) a.lse[bh * t + qi] = m[r] + logf(denom);
     T* orow = og + qi * d;
 #pragma unroll
     for (int n = 0; n < C::kOt; ++n) {
@@ -452,14 +456,17 @@ int dispatch(const Args& a, cudaStream_t st) {
 }  // namespace
 
 // q: (bh, t, d); k, v: (bh, s, d); out: (bh, t, d); row-major, dtype
-// 0 = f32, 1 = bf16. window < 0 means no window. plan: int32
+// 0 = f32, 1 = bf16. lse: (bh, t) f32 written with each row's log-sum-exp
+// of its scaled logits for the backward, or null (serving: nothing more
+// is written and out is unchanged). window < 0 means no window. plan: int32
 // (ceil(t / block_q), 4), 16-byte aligned, per query tile (lo, ilo, ihi,
 // hi) in key tiles of block_k (swa_attention.py band_plan); block_q and
 // block_k must be the instance's tiles for d (swa_attention.py tiles).
 // Launches on `stream`, allocates nothing, returns cudaGetLastError() (or
 // cudaErrorInvalidValue for a shape or plan the kernel does not take).
 extern "C" int repro_swa_attention(const void* q, const void* k,
-                                   const void* v, void* out, int64_t bh,
+                                   const void* v, void* out, void* lse,
+                                   int64_t bh,
                                    int64_t t, int64_t s, int64_t d,
                                    int64_t window, int causal, float scale,
                                    int dtype, const void* plan, int block_q,
@@ -473,10 +480,419 @@ extern "C" int repro_swa_attention(const void* q, const void* k,
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v);
-  Args a{q, k, v, out, static_cast<const int4*>(plan), bh, t, s, window,
+  Args a{q, k, v, out, static_cast<float*>(lse),
+         static_cast<const int4*>(plan), bh, t, s, window,
          static_cast<int>(d), causal, block_q, block_k, scale,
          (d * size) % 16 == 0 && bases % 16 == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a, st);
   return dispatch<float>(a, st);
+}
+
+// ---------------------------------------------------------------------------
+// Backward. Replaces no TPU kernel: the reference trains attention through
+// its plain _flash custom VJP (repro/models/layers.py _flash_bwd), and this
+// is that VJP's math by hand. With P = exp(scale q k^T - lse) inside the
+// band (0 outside it and in a row with no key), lse the forward's, and
+// D_i = rowsum(dO_i o O_i):
+//     dV = P^T dO,  dS = P o (dO V^T - D) scale,  dQ = dS K,  dK = dS^T Q.
+//
+// Bound on the H100: 10 D operations a (query, key) pair inside the band
+// (Q K^T, dO V^T, P^T dO, dS K, dS^T Q), 14 D as run here, the dQ pass
+// recomputing P and dP; in f32 on the CUDA cores (67 TFLOP/s) that is the
+// bound at the models' shapes (smollm-135m's 18 x 4,096 x 64 causal rows:
+// 2.0 ms at 14 D, 1.5 at 10 D), against 8 rows x T x D reads and writes.
+//
+// Design: simple and exact first, f32 FMA chains on the CUDA cores (no
+// tensor cores yet). No float atomics: two passes, each output written by
+// one block.
+// - Pass 1, per (bh, query tile of 64 rows): D for the tile's rows
+//   (written to a scratch row for pass 2), then for each key tile the band
+//   plan lists (band_plan, the forward's plan at 64 x 64), S and dP over
+//   the 64 x 64 pairs, dS into shared memory, dQ += dS K in registers.
+// - Pass 2, per (bh, key tile of 64 keys): for each query tile that sees
+//   the key tile (band_plan_t, the plan transposed), S and dP again, P and
+//   dS into shared memory, dV += P^T dO and dK += dS^T Q in registers.
+// - Inputs are converted to f32 as they are staged (bf16 too); the head
+//   dim is zero-padded to the instance's DP (32, 64, 80, 112, 128) in
+//   shared memory only. Row pitch DP + 1 (odd): the 16 keys a warp reads
+//   at one column fall in 16 banks. A thread owns 4 rows x 4 keys of S
+//   (rows 4 ty + a, keys tx + 16 b) and 4 rows x DP / 16 columns of its
+//   output.
+// - Every mask is computed per pair (kj < S, causal, window), so edge tiles
+//   need no plan of their own; P is 0 outside the band, so a row (key)
+//   with no admitted key (query) gets zero gradients.
+// - Fixed order of every sum: repeated calls are bit-identical.
+// Shared memory: pass 1 4 x 64 x (DP + 1) + 64 x 65 + 128 floats (149,248
+// B at DP = 128), pass 2 the same with a second 64 x 65 tile (165,888 B).
+
+namespace {
+
+constexpr int kBwdRows = 64;      // query rows and keys per tile
+constexpr int kBwdThreads = 256;
+constexpr int kLdS = kBwdRows + 1;
+
+template <int DP>
+struct BwdCfg {
+  static constexpr int kLd = DP + 1;
+  static constexpr int kCols = DP / 16;   // output columns per thread
+  static constexpr int kTile = kBwdRows * kLd;
+  static constexpr int kSmem1 =
+      static_cast<int>(sizeof(float)) * (4 * kTile + kBwdRows * kLdS +
+                                         2 * kBwdRows);
+  static constexpr int kSmem2 =
+      static_cast<int>(sizeof(float)) * (4 * kTile + 2 * kBwdRows * kLdS +
+                                         2 * kBwdRows);
+  static_assert(DP % 16 == 0, "DP: a multiple of 16");
+  static_assert(kSmem2 <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Rows [r0, r0 + 64) of an (n, d) plane into a 64 x DP f32 tile of pitch
+// DP + 1; rows >= n and columns >= d are 0
+template <typename T, int DP>
+__device__ __forceinline__ void stage_f32(float* dst, const T* src,
+                                          int64_t r0, int64_t n, int d) {
+  for (int i = threadIdx.x; i < kBwdRows * DP; i += kBwdThreads) {
+    const int r = i / DP, c = i % DP;
+    const int64_t row = r0 + r;
+    dst[r * (DP + 1) + c] =
+        row < n && c < d ? to_f32(src[row * d + c]) : 0.f;
+  }
+}
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;
+  float* delta;         // (bh, t) scratch: pass 1 writes, pass 2 reads
+  void* dq;
+  void* dk;
+  void* dv;
+  const int4* plan_q;   // per query tile (lo, ilo, ihi, hi) in key tiles
+  const int2* plan_k;   // per key tile (lo, hi) in query tiles
+  int64_t bh, t, s, window;
+  int d, causal;
+  float scale;
+};
+
+// P and dS of this thread's 4 x 4 pairs (rows 4 ty + a of the query tile
+// at q0, keys tx + 16 b of the key tile at k0): S and dP as FMA chains over
+// the head dim in column order, then the mask.
+template <int DP>
+__device__ __forceinline__ void pairs(const BwdArgs& a, const float* qs,
+                                      const float* dos, const float* ks,
+                                      const float* vs, const float* lse_s,
+                                      const float* delta_s, int64_t q0,
+                                      int64_t k0, float (&p)[4][4],
+                                      float (&ds)[4][4]) {
+  constexpr int kLd = DP + 1;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float sc[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < DP; ++c) {
+    float qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qa[i] = qs[(4 * ty + i) * kLd + c];
+      da[i] = dos[(4 * ty + i) * kLd + c];
+      kb[i] = ks[(tx + 16 * i) * kLd + c];
+      vb[i] = vs[(tx + 16 * i) * kLd + c];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
+        dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    const int64_t qi = q0 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t kj = k0 + tx + 16 * j;
+      const bool ok = qi < a.t && kj < a.s && (!a.causal || kj <= qi) &&
+                      (a.window < 0 || kj > qi - a.window);
+      const float pr = ok ? expf(sc[i][j] * a.scale - lse_s[r]) : 0.f;
+      p[i][j] = pr;
+      ds[i][j] = pr * (dp[i][j] - delta_s[r]) * a.scale;
+    }
+  }
+}
+
+// lse and D of the query tile at q0 into shared memory (rows past T: lse
+// 0, D 0; their pairs are masked)
+__device__ __forceinline__ void stage_rows(const BwdArgs& a, int64_t bh,
+                                           int64_t q0, float* lse_s,
+                                           float* delta_s) {
+  for (int r = threadIdx.x; r < kBwdRows; r += kBwdThreads) {
+    const int64_t qi = q0 + r;
+    lse_s[r] = qi < a.t ? a.lse[bh * a.t + qi] : 0.f;
+    delta_s[r] = qi < a.t ? a.delta[bh * a.t + qi] : 0.f;
+  }
+}
+
+// A thread's 4 rows x kCols columns (rows 4 ty + i, columns tx + 16 e)
+// of an (n, d) output
+template <typename T, int kCols>
+__device__ __forceinline__ void store_rows(T* dst, int64_t r0, int64_t n,
+                                           int d, int ty, int tx,
+                                           const float (&acc)[4 * kCols]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t row = r0 + 4 * ty + i;
+#pragma unroll
+    for (int e = 0; e < kCols; ++e) {
+      const int c = tx + 16 * e;
+      if (row < n && c < d) store(&dst[row * d + c], acc[i * kCols + e]);
+    }
+  }
+}
+
+// Pass 1: D, then dQ, per (bh, query tile)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+swa_bwd_dq_kernel(BwdArgs a, int q_tiles) {
+  using C = BwdCfg<DP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + C::kTile;
+  float* ks = dos + C::kTile;
+  float* vs = ks + C::kTile;
+  float* ds_s = vs + C::kTile;
+  float* lse_s = ds_s + kBwdRows * kLdS;
+  float* delta_s = lse_s + kBwdRows;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t bh = blockIdx.x / q_tiles;
+  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x % q_tiles);
+  const int4 pl = a.plan_q[qt];
+  const int64_t q0 = static_cast<int64_t>(qt) * kBwdRows;
+  const int64_t t = a.t, s = a.s;
+  const int d = a.d;
+  const T* qg = static_cast<const T*>(a.q) + bh * t * d;
+  const T* og = static_cast<const T*>(a.o) + bh * t * d;
+  const T* dog = static_cast<const T*>(a.dout) + bh * t * d;
+  const T* kg = static_cast<const T*>(a.k) + bh * s * d;
+  const T* vg = static_cast<const T*>(a.v) + bh * s * d;
+
+  stage_f32<T, DP>(qs, qg, q0, t, d);
+  stage_f32<T, DP>(dos, dog, q0, t, d);
+  // D = rowsum(dO o O): a warp per row, lanes over the columns in a fixed
+  // order, then a fixed shuffle tree
+  for (int r = warp; r < kBwdRows; r += kBwdThreads / 32) {
+    const int64_t qi = q0 + r;
+    float acc = 0.f;
+    if (qi < t) {
+      for (int c = lane; c < d; c += 32) {
+        acc = fmaf(to_f32(dog[qi * d + c]), to_f32(og[qi * d + c]), acc);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    }
+    if (lane == 0) {
+      delta_s[r] = acc;
+      if (qi < t) a.delta[bh * t + qi] = acc;
+      lse_s[r] = qi < t ? a.lse[bh * t + qi] : 0.f;
+    }
+  }
+
+  float acc[4 * C::kCols];
+#pragma unroll
+  for (int i = 0; i < 4 * C::kCols; ++i) acc[i] = 0.f;
+  for (int j = pl.x; j < pl.w; ++j) {
+    const int64_t k0 = static_cast<int64_t>(j) * kBwdRows;
+    __syncthreads();   // every warp is done with the last key tile
+    stage_f32<T, DP>(ks, kg, k0, s, d);
+    stage_f32<T, DP>(vs, vg, k0, s, d);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    pairs<DP>(a, qs, dos, ks, vs, lse_s, delta_s, q0, k0, p, ds);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        ds_s[(4 * ty + i) * kLdS + tx + 16 * jj] = ds[i][jj];
+    __syncthreads();
+    // dQ += dS K over the tile's keys in order
+#pragma unroll 4
+    for (int kk = 0; kk < kBwdRows; ++kk) {
+      float w[4], kv[C::kCols];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = ds_s[(4 * ty + i) * kLdS + kk];
+#pragma unroll
+      for (int e = 0; e < C::kCols; ++e) kv[e] = ks[kk * C::kLd + tx + 16 * e];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < C::kCols; ++e)
+          acc[i * C::kCols + e] = fmaf(w[i], kv[e], acc[i * C::kCols + e]);
+    }
+  }
+  store_rows<T, C::kCols>(static_cast<T*>(a.dq) + bh * t * d, q0, t, d, ty,
+                          tx, acc);
+}
+
+// Pass 2: dK and dV per (bh, key tile)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+swa_bwd_dkdv_kernel(BwdArgs a, int k_tiles) {
+  using C = BwdCfg<DP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + C::kTile;
+  float* ks = dos + C::kTile;
+  float* vs = ks + C::kTile;
+  float* p_s = vs + C::kTile;
+  float* ds_s = p_s + kBwdRows * kLdS;
+  float* lse_s = ds_s + kBwdRows * kLdS;
+  float* delta_s = lse_s + kBwdRows;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int64_t bh = blockIdx.x / k_tiles;
+  const int kt = static_cast<int>(blockIdx.x % k_tiles);
+  const int2 pl = a.plan_k[kt];
+  const int64_t k0 = static_cast<int64_t>(kt) * kBwdRows;
+  const int64_t t = a.t, s = a.s;
+  const int d = a.d;
+  const T* qg = static_cast<const T*>(a.q) + bh * t * d;
+  const T* dog = static_cast<const T*>(a.dout) + bh * t * d;
+  const T* kg = static_cast<const T*>(a.k) + bh * s * d;
+  const T* vg = static_cast<const T*>(a.v) + bh * s * d;
+
+  stage_f32<T, DP>(ks, kg, k0, s, d);
+  stage_f32<T, DP>(vs, vg, k0, s, d);
+  float dk[4 * C::kCols], dv[4 * C::kCols];
+#pragma unroll
+  for (int i = 0; i < 4 * C::kCols; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = pl.x; i < pl.y; ++i) {
+    const int64_t q0 = static_cast<int64_t>(i) * kBwdRows;
+    __syncthreads();   // every warp is done with the last query tile
+    stage_f32<T, DP>(qs, qg, q0, t, d);
+    stage_f32<T, DP>(dos, dog, q0, t, d);
+    stage_rows(a, bh, q0, lse_s, delta_s);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    pairs<DP>(a, qs, dos, ks, vs, lse_s, delta_s, q0, k0, p, ds);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        p_s[(4 * ty + r) * kLdS + tx + 16 * jj] = p[r][jj];
+        ds_s[(4 * ty + r) * kLdS + tx + 16 * jj] = ds[r][jj];
+      }
+    __syncthreads();
+    // this thread's keys 4 ty + c: dV += P^T dO, dK += dS^T Q over the
+    // tile's rows in order
+#pragma unroll 4
+    for (int r = 0; r < kBwdRows; ++r) {
+      float pw[4], sw[4], dov[C::kCols], qv[C::kCols];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        pw[c] = p_s[r * kLdS + 4 * ty + c];
+        sw[c] = ds_s[r * kLdS + 4 * ty + c];
+      }
+#pragma unroll
+      for (int e = 0; e < C::kCols; ++e) {
+        dov[e] = dos[r * C::kLd + tx + 16 * e];
+        qv[e] = qs[r * C::kLd + tx + 16 * e];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < C::kCols; ++e) {
+          dv[c * C::kCols + e] = fmaf(pw[c], dov[e], dv[c * C::kCols + e]);
+          dk[c * C::kCols + e] = fmaf(sw[c], qv[e], dk[c * C::kCols + e]);
+        }
+    }
+  }
+  store_rows<T, C::kCols>(static_cast<T*>(a.dk) + bh * s * d, k0, s, d, ty,
+                          tx, dk);
+  store_rows<T, C::kCols>(static_cast<T*>(a.dv) + bh * s * d, k0, s, d, ty,
+                          tx, dv);
+}
+
+template <typename T, int DP>
+int launch_bwd(const BwdArgs& a, cudaStream_t st) {
+  using C = BwdCfg<DP>;
+  const int64_t q_tiles = (a.t + kBwdRows - 1) / kBwdRows;
+  const int64_t k_tiles = (a.s + kBwdRows - 1) / kBwdRows;
+  if (a.bh * q_tiles > 2147483647LL || a.bh * k_tiles > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      swa_bwd_dq_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(swa_bwd_dkdv_kernel<T, DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  swa_bwd_dq_kernel<T, DP>
+      <<<static_cast<unsigned int>(a.bh * q_tiles), kBwdThreads, C::kSmem1,
+         st>>>(a, static_cast<int>(q_tiles));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  swa_bwd_dkdv_kernel<T, DP>
+      <<<static_cast<unsigned int>(a.bh * k_tiles), kBwdThreads, C::kSmem2,
+         st>>>(a, static_cast<int>(k_tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The padded head dims: the ported families' 64, 80, 112 and 128, and 32
+// (the reduced configs)
+template <typename T>
+int dispatch_bwd(const BwdArgs& a, cudaStream_t st) {
+  if (a.d <= 32) return launch_bwd<T, 32>(a, st);
+  if (a.d <= 64) return launch_bwd<T, 64>(a, st);
+  if (a.d <= 80) return launch_bwd<T, 80>(a, st);
+  if (a.d <= 112) return launch_bwd<T, 112>(a, st);
+  return launch_bwd<T, 128>(a, st);
+}
+
+}  // namespace
+
+// The backward of repro_swa_attention. q, o, dout, dq: (bh, t, d); k, v,
+// dk, dv: (bh, s, d); row-major, dtype 0 = f32, 1 = bf16 (one dtype for
+// all); lse: (bh, t) f32 from the forward; delta: (bh, t) f32 scratch.
+// plan_q: int32 (ceil(t / 64), 4), the forward's band plan at 64 x 64
+// tiles; plan_k: int32 (ceil(s / 64), 2), per key tile the query tiles
+// [lo, hi) that see it (swa_attention.py band_plan_t). d <= 128. Launches
+// two kernels on `stream` (dQ, then dK and dV), allocates nothing, returns
+// cudaGetLastError() (or cudaErrorInvalidValue for a shape the kernels do
+// not take).
+extern "C" int repro_swa_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int64_t bh, int64_t t, int64_t s, int64_t d, int64_t window,
+    int causal, float scale, int dtype, const void* plan_q,
+    const void* plan_k, void* stream) {
+  if (bh < 1 || t < 1 || s < 1 || d < 1 || d > 128 ||
+      reinterpret_cast<uintptr_t>(plan_q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(plan_k) % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse),
+            static_cast<float*>(delta), dq, dk, dv,
+            static_cast<const int4*>(plan_q),
+            static_cast<const int2*>(plan_k), bh, t, s, window,
+            static_cast<int>(d), causal, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(a, st);
+  return dispatch_bwd<float>(a, st);
 }

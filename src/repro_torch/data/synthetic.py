@@ -87,3 +87,25 @@ def get_dataset(prefer_real: bool = True, **kw):
         if real is not None:
             return real
     return make_mnist_like(**kw)
+
+
+# ---------------------------------------------------------------------------
+# synthetic LM tokens (the train CLI, the LM training tests)
+# ---------------------------------------------------------------------------
+
+def token_stream(vocab: int, batch: int, seq: int, n_batches: int,
+                 seed: int = 0):
+    """Markov-ish synthetic token batches: next token = (prev*a + c) % vocab
+    with noise — learnable structure, zero storage. A copy of the
+    reference's ``token_stream``: the same seed gives the same int32
+    batches, bit for bit."""
+    rng = np.random.default_rng(seed)
+    a = 31 % vocab or 1
+    for _ in range(n_batches):
+        x = np.empty((batch, seq), np.int64)
+        x[:, 0] = rng.integers(0, vocab, batch)
+        flip = rng.random((batch, seq)) < 0.1
+        for t in range(1, seq):
+            nxt = (x[:, t - 1] * a + 7) % vocab
+            x[:, t] = np.where(flip[:, t], rng.integers(0, vocab, batch), nxt)
+        yield {"tokens": x.astype(np.int32)}

@@ -104,14 +104,30 @@ def round_stats_compressed(values, idx, resid, resid_idx, g, scale=None):
                                       scale=scale)
 
 
+SSD_NO_BACKWARD = (
+    "the ssd_chunk kernel has no backward: training the ssm and hybrid "
+    "families on the card waits for a port of one (the reference trains "
+    "them with use_kernel=False, through no kernel); on the CPU they train "
+    "through the twin")
+
+
+def _no_ssd_backward(*tensors) -> None:
+    """Refuse a CUDA SSD call that autograd tracks: it would have no
+    gradient, and the twin is never taken on the card."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(SSD_NO_BACKWARD)
+
+
 def ssd_intra_chunk_grouped(cum, b, c, xdt):
     """The Mamba2 SSD intra-chunk part in ``ssd_chunked``'s layouts: cum
     (Bz, NC, Q, H) f32, B and C (Bz, NC, Q, G, N) (strided views are taken
     as they are), xdt (Bz, NC, Q, H, P). Returns ``(y (Bz, NC, Q, H, P),
     state (Bz, NC, H, P, N) f32, chunk_decay (Bz, NC, H) f32)``."""
-    fn = (_ssd.ssd_intra_chunk_grouped_cuda
-          if _route(cum.device, "ssd_intra_chunk_grouped")
-          else _ssd.ssd_intra_chunk_grouped_plain)
+    if _route(cum.device, "ssd_intra_chunk_grouped"):
+        _no_ssd_backward(cum, b, c, xdt)
+        fn = _ssd.ssd_intra_chunk_grouped_cuda
+    else:
+        fn = _ssd.ssd_intra_chunk_grouped_plain
     return fn(cum, b, c, xdt)
 
 
@@ -119,8 +135,11 @@ def ssd_intra_chunk(cum, b, c, xdt):
     """The reference-shaped SSD intra-chunk part over G = batch * chunks *
     heads cells: ``(y (G, Q, P), state (G, N, P) f32, chunk_decay (G,)
     f32)``; the same kernel as ``ssd_intra_chunk_grouped`` with H = G = 1."""
-    fn = (_ssd.ssd_intra_chunk_cuda if _route(cum.device, "ssd_intra_chunk")
-          else _ssd.ssd_intra_chunk_plain)
+    if _route(cum.device, "ssd_intra_chunk"):
+        _no_ssd_backward(cum, b, c, xdt)
+        fn = _ssd.ssd_intra_chunk_cuda
+    else:
+        fn = _ssd.ssd_intra_chunk_plain
     return fn(cum, b, c, xdt)
 
 
@@ -140,9 +159,16 @@ def swa_attention(q, k, v, *, window=None, causal: bool = True):
     """Sliding-window attention in the (B, T, H, D) / (B, S, Hkv, D)
     layout: GQA repeats each kv head over its H / Hkv query heads, as the
     reference's ``repro.kernels.ops.swa_attention`` does; (B, T, H, D)
-    out."""
+    out. On the card, where autograd tracks q, k or v, the kernel runs
+    under ``swa_attention_train`` (forward with the log-sum-exp, backward
+    kernel); the repeat and the layout copies stay outside it, so autograd
+    sums dK and dV over each kv head's query heads. On the CPU the twin
+    runs under torch's own autograd."""
     b, t, h, d = q.shape
-    fn = (_swa.swa_attention_cuda if _route(q.device, "swa_attention")
-          else _swa.swa_attention_plain)
+    if _route(q.device, "swa_attention"):
+        fn = (_swa.swa_attention_train if _swa.tracks_grad(q, k, v)
+              else _swa.swa_attention_cuda)
+    else:
+        fn = _swa.swa_attention_plain
     out = fn(*swa_layout(q, k, v), window=window, causal=causal)
     return out.reshape(b, h, t, d).transpose(1, 2)

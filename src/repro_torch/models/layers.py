@@ -10,11 +10,12 @@ under the reference's names. Initializers draw from an explicit
 ``torch.Generator`` at the reference's scales; the stream differs from
 ``jax.random``'s, so parity tests carry the reference's params across.
 
-Prefill attention goes through ``kernels.ops.swa_attention`` (the CUDA
-kernel on the card, its plain twin on the CPU) in place of both of the
-reference's routes (the masked einsum up to ``ATTN_CHUNK_THRESHOLD`` keys
-and the ``_flash`` scan beyond): one function, the same mask. It takes
-prefill positions ``arange(T)`` only. Decode attention and the int8 KV
+Prefill and training attention go through ``kernels.ops.swa_attention``
+(the CUDA kernel on the card, with its backward kernel under autograd; its
+plain twin on the CPU) in place of both of the reference's routes (the
+masked einsum up to ``ATTN_CHUNK_THRESHOLD`` keys and the ``_flash`` scan
+with its custom VJP beyond): one function, the same mask. It takes
+positions ``arange(T)`` only. Decode attention and the int8 KV
 helpers are plain torch, as the reference's are plain jnp.
 """
 from __future__ import annotations

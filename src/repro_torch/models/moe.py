@@ -141,10 +141,15 @@ def dispatch(params, x, cfg: ModelConfig):
 
 
 def expert_ffn(params, exp_in):
-    """Every expert's SwiGLU over its slots: (E, G C, d) -> (E, G C, d)."""
+    """Every expert's SwiGLU over its slots: (E, G C, d) -> (E, G C, d).
+    Serving runs the activation in place; under autograd (whose silu and
+    mul keep their inputs) out of place, with the same values."""
     h = torch.bmm(exp_in, params["gate"])               # (E, G C, ff)
     u = torch.bmm(exp_in, params["up"])
-    act = F.silu(h, inplace=True).mul_(u)
+    if torch.is_grad_enabled() and (h.requires_grad or u.requires_grad):
+        act = F.silu(h) * u
+    else:
+        act = F.silu(h, inplace=True).mul_(u)
     del u
     return torch.bmm(act, params["down"])
 

@@ -33,10 +33,23 @@ audio family ``frame_feats`` (B, T, F) and an optional
 ``mask_indicator`` (B, T). vlm decode is the dense family's: the rings
 hold the P + T prefill positions and decode takes tokens only. The
 encoder-only audio family has no decode state and no decode step; asking
-for one, the hybrid + ``kv_quant`` prefill hand-off and ``loss_fn`` are
-not ported and raise ``NotImplementedError`` naming themselves. Params
-hold no gradient: the port serves, it does not train yet. Decode writes
-the new K/V into the rings in place, under ``torch.inference_mode()``.
+for one, and the hybrid + ``kv_quant`` prefill hand-off, raise
+``NotImplementedError`` naming themselves. Decode writes the new K/V into
+the rings in place, under ``torch.inference_mode()``.
+
+Training: params are built without gradients (serving); ``trainable()``
+turns them on, and ``launch.steps.make_paota_train_step`` drives client
+views of a stacked store through ``torch.func.functional_call`` instead.
+``loss_fn`` is the reference's for every family: the causal-LM loss, the
+vlm text loss, the audio masked-prediction loss, the moe family's
+``router_aux_weight * aux``, and the cross-entropy streamed in chunks of
+512 tokens (each chunk recomputed in the backward) above
+``XENT_CHUNK_THRESHOLD``. ``cfg.remat == "block"`` checkpoints each
+block under autograd (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` per layer). On the card the attention families train
+through the attention kernel and its backward; the ssm and hybrid
+families raise there (the ``ssd_chunk`` kernel has no backward) and
+train on the CPU through the twin.
 """
 from __future__ import annotations
 
@@ -44,9 +57,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import f32, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -214,6 +229,16 @@ class LanguageModel(nn.Module):
     def device(self) -> torch.device:
         return self.embedding["embed"].device
 
+    def trainable(self) -> "LanguageModel":
+        """Let every param take gradients: params are built without, for
+        serving."""
+        return self.requires_grad_(True)
+
+    def _remat(self) -> bool:
+        """Checkpoint each block: ``cfg.remat == "block"`` and autograd on
+        (serving runs with it off and is unchanged)."""
+        return self.cfg.remat == "block" and torch.is_grad_enabled()
+
     def embed_inputs(self, batch: dict):
         """The reference's ``embed_inputs``: (B, T, d) in the param dtype
         at positions arange(T). vlm: the projected ``patch_embeds`` (B, P,
@@ -267,8 +292,13 @@ class LanguageModel(nn.Module):
 
     def _forward_attention(self, x, aux, return_cache: bool):
         kv = self._kv_stack(x, len(self.layers)) if return_cache else None
+        remat = self._remat()
         for i, block in enumerate(self.layers):
-            x, (k, v), aux_l = block(x, self.cfg)
+            if remat:
+                x, (k, v), aux_l = checkpoint(block, x, self.cfg,
+                                              use_reentrant=False)
+            else:
+                x, (k, v), aux_l = block(x, self.cfg)
             if kv is not None:
                 kv["k"][i] = k
                 kv["v"][i] = v
@@ -285,7 +315,12 @@ class LanguageModel(nn.Module):
         shared_kv = None
         if return_cache and self.shared_attn is not None:
             shared_kv = self._kv_stack(x, n_shared_slots(cfg))
+        remat = self._remat() and not return_cache
         for i, block in enumerate(self.layers):
+            if remat:
+                x = checkpoint(self._recurrent_layer, x, i,
+                               use_reentrant=False)
+                continue
             if self._shared_at(i):
                 x, (k, v), _ = self.shared_attn(x, cfg)
                 if shared_kv is not None:
@@ -304,6 +339,14 @@ class LanguageModel(nn.Module):
             if shared_kv is not None:
                 caches["shared_kv"] = shared_kv
         return x, caches
+
+    def _recurrent_layer(self, x, i: int):
+        """Layer i of the recurrent trunk without caches: the shared block
+        where it sits, then the Mamba2 block (one remat unit, as the
+        reference's scan body)."""
+        if self._shared_at(i):
+            x = self.shared_attn(x, self.cfg)[0]
+        return self.layers[i](x, self.cfg)[0]
 
     def init_decode_state(self, batch: int, seq_len: int):
         return init_decode_state(self.cfg, batch, seq_len, self.device)
@@ -565,6 +608,96 @@ def decode_step(model: LanguageModel, tokens, state, index: int):
     return model.decode_step(tokens, state, index)
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError("loss_fn is not ported yet: the port serves "
-                              "the LM zoo and does not train it")
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+XENT_CHUNK_THRESHOLD = 2 ** 27   # tokens * vocab above which xent streams
+XENT_CHUNK_TOKENS = 512
+
+
+def _nll(logits, labels):
+    """Each position's -log softmax(logits)[label]: logsumexp - logit."""
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - ll
+
+
+def _xent(logits, labels, mask=None):
+    """Mean token cross-entropy of f32 logits (..., V) against int labels;
+    with ``mask``, sum(nll * mask) / max(sum(mask), 1)."""
+    nll = _nll(logits, labels)
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
+
+
+def _xent_chunk(h, labels, mask, w, cfg: ModelConfig):
+    """One chunk's (sum of masked nll, sum of mask), the unembedding
+    weight ``w`` passed in (``embed`` when tied, else ``unembed``)."""
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    nll = _nll(L.unembed({name: w}, h, cfg), labels)
+    return (nll * mask).sum(), mask.sum()
+
+
+def _xent_chunked(embedding, hidden, labels, mask, cfg: ModelConfig):
+    """Streamed cross-entropy: the unembedding and log-sum-exp one chunk of
+    ``XENT_CHUNK_TOKENS`` positions at a time, each chunk under
+    ``torch.utils.checkpoint`` so the backward recomputes its logits and
+    the (T, V) logits never live whole (the reference's ``_xent_chunked``:
+    the same zero padding, the same sums in chunk order)."""
+    b, t, _ = hidden.shape
+    c = min(XENT_CHUNK_TOKENS, t)
+    pad = (-t) % c
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    w = embedding["embed"] if cfg.tie_embeddings else embedding["unembed"]
+    num = den = torch.zeros((), device=hidden.device)
+    for i in range(0, t + pad, c):
+        n, m = checkpoint(_xent_chunk, hidden[:, i:i + c],
+                          labels[:, i:i + c], mask[:, i:i + c], w, cfg,
+                          use_reentrant=False)
+        num, den = num + n, den + m
+    return num / torch.clamp_min(den, 1.0)
+
+
+def loss_fn(model: LanguageModel, batch: dict, cfg=None):
+    """Training loss for any family (the reference's ``loss_fn``): returns
+    (total, {"loss", "aux_loss"}), total = loss + router_aux_weight * aux.
+    Causal LM: logits[:, :-1] against ``labels`` (else ``tokens``)[:, 1:];
+    vlm: the text logits ``[:, num_patches:-1]`` against ``tokens[:,
+    1:]``; audio: ``targets`` where ``mask_indicator`` is set. Above
+    ``XENT_CHUNK_THRESHOLD`` tokens x vocab the cross-entropy streams
+    (``_xent_chunked``). The port's form takes the model, which carries
+    its config; the reference's ``loss_fn(params, batch, cfg)`` over a
+    params pytree raises ``NotImplementedError``."""
+    if cfg is not None or not isinstance(model, LanguageModel):
+        raise NotImplementedError(
+            "loss_fn(params, batch, cfg), the reference's form over a "
+            "params pytree, is not ported: the port's loss_fn takes "
+            "(model, batch), a LanguageModel carrying its config")
+    cfg = model.cfg
+    n_tok = (batch["targets"] if cfg.modality == "audio"
+             else batch["tokens"]).numel()
+    chunked = n_tok * cfg.vocab_size > XENT_CHUNK_THRESHOLD
+    out, aux, _ = model(batch, return_hidden=chunked)
+    if cfg.modality == "audio":
+        labels = batch["targets"]
+        mask = batch["mask_indicator"].float()
+    elif cfg.modality == "vision_text":
+        out = out[:, cfg.num_patches:-1]
+        labels = batch["tokens"][:, 1:]
+        mask = None
+    else:
+        out = out[:, :-1]
+        labels = batch.get("labels", batch["tokens"])[:, 1:]
+        mask = None
+    if chunked:
+        if mask is None:
+            mask = torch.ones(labels.shape, device=out.device)
+        loss = _xent_chunked(model.embedding, out, labels, mask, cfg)
+    else:
+        loss = _xent(out, labels, mask)
+    total = loss + f32(cfg.router_aux_weight) * aux
+    return total, {"loss": loss, "aux_loss": aux}

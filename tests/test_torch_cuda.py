@@ -1113,3 +1113,184 @@ def test_paper_harness_launches_each_sweep_once_per_paota_round(
                     sum(r["n_participants"] > 0 for r in rows))
             assert want > 0
         assert (rs.launches, ac.launches) == (want, want), name
+
+
+# The backward's cases (T, S, D, W, causal): every head dim of its
+# instances (32 to 128, 48 and 80 padded), ragged T and S both ways,
+# windows around the 64-row tile and beyond T, causal off with and without
+# a window (hubert-xlarge's D = 80 encoder row at T = 1,500), rows with no
+# key (W = 0; T > S with a window: zero gradients).
+SWA_BWD_CASES = ((128, 128, 64, None, True), (200, 200, 32, 64, True),
+                 (257, 257, 64, 65, True), (300, 280, 112, 1000, True),
+                 (190, 300, 128, 64, False), (100, 170, 48, 40, True),
+                 (150, 150, 80, 33, False), (1500, 1500, 80, None, False),
+                 (65, 70, 32, 0, True), (170, 100, 64, 20, True))
+
+
+def _swa_bwd_case(dev, t, s, d, window, causal, dtype, seed):
+    from repro_torch.kernels import swa_attention as sw
+    q, k, v = _swa_case(dev, 3, t, s, d, dtype, seed)
+    out, lse = sw.swa_attention_cuda(q, k, v, window=window, causal=causal,
+                                     return_lse=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+    return q, k, v, out, dout, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s,d,window,causal", SWA_BWD_CASES)
+def test_swa_attention_bwd_kernel_matches_twin(cuda, t, s, d, window, causal,
+                                               dtype):
+    """The backward kernel against swa_attention_bwd_plain on the same q,
+    k, v, out, dout and log-sum-exp (3e-5 in f32; in bf16 rtol 1e-2, atol
+    1e-3: both round f32 sums to bf16, one bf16 step apart at most, 2^-7
+    of the value), one count
+    a call, bit-identical on a rerun; the forward's log-sum-exp against the
+    twin's, and its output with the log-sum-exp bit-equal to the serving
+    call's (null pointer)."""
+    from repro_torch.kernels import swa_attention as sw
+    q, k, v, out, dout, lse = _swa_bwd_case(cuda, t, s, d, window, causal,
+                                            dtype, t + s + d)
+    assert torch.equal(out, sw.swa_attention_cuda(q, k, v, window=window,
+                                                  causal=causal))
+    _, want_lse = sw.swa_attention_plain(q, k, v, window=window,
+                                         causal=causal, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=3e-5, atol=3e-5)
+    before = sw.bwd_launches
+    got = sw.swa_attention_bwd_cuda(q, k, v, out, dout, lse, window=window,
+                                    causal=causal)
+    torch.cuda.synchronize()
+    assert sw.bwd_launches == before + 1
+    want = sw.swa_attention_bwd_plain(q, k, v, out, dout, lse,
+                                      window=window, causal=causal)
+    tol = (dict(rtol=1e-2, atol=1e-3) if dtype == torch.bfloat16
+           else dict(rtol=3e-5, atol=3e-5))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype, name
+        torch.testing.assert_close(g.float(), w.float(), **tol, msg=name)
+    again = sw.swa_attention_bwd_cuda(q, k, v, out, dout, lse, window=window,
+                                      causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    rows = sw.band_mask(t, s, window, causal, cuda).any(-1)
+    assert not got[0][:, ~rows].any()
+
+
+@pytest.mark.parametrize("h,hkv,d,window,causal", [
+    (9, 3, 64, None, True), (14, 2, 64, None, True), (6, 1, 128, 48, True),
+    (4, 4, 80, None, False)])
+def test_swa_attention_autograd_on_card_matches_cpu(cuda, h, hkv, d, window,
+                                                    causal):
+    """ops.swa_attention under autograd on the card (the GQA groups of
+    smollm-135m, internvl2-1b and mixtral, hubert's D = 80 encoder): one
+    forward and one backward launch, and the gradients of q, k, v against
+    torch's autograd through the twin on the CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swa_attention as sw
+    gen = torch.Generator(device=cuda).manual_seed(h + d)
+    q = torch.randn((2, 150, h, d), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 150, hkv, d), generator=gen, device=cuda)
+            for _ in range(2))
+    w = torch.randn((2, 150, h, d), generator=gen, device=cuda)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        fwd, bwd = sw.launches, sw.bwd_launches
+        out = ops.swa_attention(*leaves, window=window, causal=causal)
+        (out * w.to(dev)).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (sw.launches - fwd, sw.bwd_launches - bwd) == (1, 1)
+        grads[dev] = [x.grad.cpu() for x in leaves]
+    for name, g, want in zip("qkv", grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g, want, rtol=3e-5, atol=3e-5, msg=name)
+
+
+TRAIN_ARCHS = ("smollm-135m", "mixtral-8x22b", "internvl2-1b",
+               "hubert-xlarge")
+
+
+def _train_batch(cfg, k, m, mb, t, seed):
+    """A (K, M, mb, ...) batch for any attention family, as CPU tensors."""
+    gen = torch.Generator().manual_seed(seed)
+    lead = (k, m, mb)
+    if cfg.modality == "audio":
+        return {"frame_feats": torch.randn(lead + (t, cfg.frontend_dim),
+                                           generator=gen),
+                "mask_indicator": (torch.rand(lead + (t,), generator=gen)
+                                   < 0.3).to(torch.int32),
+                "targets": torch.randint(0, cfg.vocab_size, lead + (t,),
+                                         generator=gen, dtype=torch.int32)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, lead + (t,),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.modality == "vision_text":
+        batch["patch_embeds"] = torch.randn(
+            lead + (cfg.num_patches, cfg.frontend_dim), generator=gen)
+    return batch
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card_matches_cpu_route(cuda, arch):
+    """One PAOTA round (K = 2, M = 2, client 1 straggling, one noise draw
+    for both) of a reduced attention family on the card against the same
+    round on the CPU route: every leaf of the store at the LM tolerance;
+    per client step one forward and one backward attention launch a
+    layer, and one sweep 2 per reference leaf."""
+    import copy
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import init_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_reduced(arch)
+    k, m, mb, t = 2, 2, 2, 40
+    model = init_model(cfg, seed=0, device="cpu")
+    store = steps.stack_params(model, k)
+    batch = _train_batch(cfg, k, m, mb, t, 1)
+    d = sum(x[0].numel() for x in tree_leaves(store))
+    draw = torch.randn((d,), generator=torch.Generator().manual_seed(2))
+    powers, mask = torch.tensor([3.0, 5.0]), torch.tensor([1.0, 0.0])
+    shape = InputShape("t", t, k * mb, "train")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mod = copy.deepcopy(model).to(dev)
+        step = steps.make_paota_train_step(
+            mod, shape, k, lr=0.05, local_steps=m,
+            noise=lambda key, n, device: draw.to(device))
+        counts = (sw.launches, sw.bwd_launches, ac.launches)
+        st, metrics = step(tree_map(lambda x: x.to(dev), store),
+                           {n: x.to(dev) for n, x in batch.items()},
+                           powers.to(dev), mask.to(dev), 0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n_steps = k * m * cfg.num_layers
+            assert (sw.launches - counts[0], sw.bwd_launches - counts[1],
+                    ac.launches - counts[2]) == (
+                        n_steps, n_steps, len(tree_leaves(st)))
+        out[dev] = (st, metrics)
+    for got, want in zip(tree_leaves(out["cuda"][0]),
+                         tree_leaves(out["cpu"][0])):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out["cuda"][1]["loss"].cpu(),
+                               out["cpu"][1]["loss"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_recurrent_training_on_card_names_the_ssd_backward(cuda, arch):
+    """The ssm and hybrid families do not train on the card: the train step
+    and a loss backward through the model both refuse, naming the missing
+    ssd_chunk backward, and nothing falls back to the twin."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import init_model
+    from repro_torch.models.transformer import loss_fn
+    cfg = get_reduced(arch)
+    model = init_model(cfg, seed=0, device=cuda)
+    with pytest.raises(NotImplementedError, match="ssd_chunk"):
+        steps.make_paota_train_step(model, InputShape("t", 32, 2, "train"),
+                                    1)
+    tokens = torch.zeros((1, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ssd_chunk"):
+        loss_fn(model.trainable(), {"tokens": tokens})
