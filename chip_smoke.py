@@ -83,8 +83,9 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
 - the attention backward (``swa_attention_bwd``) against its twin at
   each attention family's in-model shapes (smollm-135m's train step,
   internvl2-1b's GQA 7, hubert-xlarge's D = 80 encoder, mixtral-shaped
-  windowed rows) in f32 and bf16, timed beside SDPA's backward
-  (``swa_bwd``); then smollm-135m's PAOTA training at full width through
+  windowed rows) in f32 and bf16, each dtype timed beside SDPA's
+  backward in that dtype and its bound (``swa_bwd``); then smollm-135m's
+  PAOTA training at full width through
   ``launch.steps.make_paota_train_step`` (``lm_train``: f32, K = 4
   clients, 2 x 4,096 tokens a client, M = 2, 3 rounds with stragglers,
   every layer's attention forward and backward on the two kernels, one
@@ -3235,8 +3236,13 @@ def swa_bwd_parity(dev, bw, flops, tf32):
     is_causal, the band's mask, or none) timed against the bound: the
     larger of the bytes and 10 D operations a pair in f32-accurate 3xTF32
     (495 / 3 TFLOP/s on an H100), as the forward's bound is. Beside it the
-    same operations on the CUDA cores, and 14 D there as the kernel runs
-    them."""
+    same operations on the CUDA cores, and the 14 D the kernel runs in
+    3xTF32 (``bound_as_run_ms``). In bf16, the kernel and SDPA's bf16
+    backward (the flash backend where the band is causal or absent, the
+    efficient one with the band's mask) against the bf16 bound: the
+    bytes, or the five products at the bf16 rate (990 TFLOP/s) with the
+    three that take a split P or dS counted twice (16 D a pair; the kernel
+    runs 20 D, its dQ pass recomputing S and dP)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import ops
@@ -3292,26 +3298,40 @@ def swa_bwd_parity(dev, bw, flops, tf32):
                         "share_of_limit": share, "rtol": rtol, "atol": atol,
                         "lse_max_abs_err": lse_err,
                         "bit_identical_on_repeat": True}
-            if dtype == torch.float32:
-                pairs, ops10, ops14, nbytes = swa_bwd_work(
-                    b * h, t, d, window, causal, 4, dev)
-                mask = (None if window is None and not causal
-                        else sw.band_mask(t, t, window, causal, dev))
-                leaves = [x.view(1, b * h, t, d).detach().requires_grad_()
-                          for x in (q, k, v)]
-                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                    lib_out = F.scaled_dot_product_attention(
-                        *leaves, attn_mask=None if window is None else mask,
-                        is_causal=causal and window is None)
-                d4 = dout.view(1, b * h, t, d)
+            pairs, ops10, ops14, nbytes = swa_bwd_work(
+                b * h, t, d, window, causal, q.element_size(), dev)
+            mask = None if window is None else sw.band_mask(
+                t, t, window, causal, dev)
+            backend = (SDPBackend.FLASH_ATTENTION
+                       if dtype == torch.bfloat16 and mask is None
+                       else SDPBackend.EFFICIENT_ATTENTION)
+            leaves = [x.view(1, b * h, t, d).detach().requires_grad_()
+                      for x in (q, k, v)]
+            with sdpa_kernel(backend):
+                lib_out = F.scaled_dot_product_attention(
+                    *leaves, attn_mask=mask,
+                    is_causal=causal and window is None)
+            d4 = dout.view(1, b * h, t, d)
 
-                def library():
-                    return torch.autograd.grad(lib_out, leaves, d4,
-                                               retain_graph=True)
+            def library():
+                return torch.autograd.grad(lib_out, leaves, d4,
+                                           retain_graph=True)
 
-                lib_err = max(float((x.view(b * h, t, d) - g).abs().max())
-                              for x, g in zip(library(), got))
-                runs = SWA_BWD_TIMING_RUNS
+            lib_err = max(float((x.view(b * h, t, d).float() - g.float())
+                                .abs().max())
+                          for x, g in zip(library(), got))
+            runs = SWA_BWD_TIMING_RUNS
+            if dtype == torch.bfloat16:
+                ops16 = 16 * d * pairs
+                rec[key].update(
+                    ms=time_ms(lambda: sw.swa_attention_bwd_cuda(*args, **kw),
+                               flush, runs),
+                    library_ms=time_ms(library, flush, runs),
+                    library_backend=str(backend).split(".")[-1],
+                    library_max_abs_diff_vs_kernel=lib_err,
+                    flops_counted=ops16, bytes_counted=nbytes,
+                    **_bound(nbytes, ops16, bw, 2 * tf32))
+            else:
                 rec.update(
                     ms=time_ms(lambda: sw.swa_attention_bwd_cuda(*args, **kw),
                                flush, runs),
@@ -3328,10 +3348,9 @@ def swa_bwd_parity(dev, bw, flops, tf32):
                         return_lse=True), flush, runs),
                     pairs=pairs, flops_counted=ops10, bytes_counted=nbytes,
                     bound_cuda_cores_ms=max(nbytes / bw, ops10 / flops) * 1e3,
-                    bound_as_run_ms=max(nbytes / bw, ops14 / flops) * 1e3,
+                    bound_as_run_ms=max(nbytes / bw, 3 * ops14 / tf32) * 1e3,
                     **_bound(nbytes, 3 * ops10, bw, tf32))
-                del leaves, lib_out
-            del q, k, v, out, lse, dout, got, again, want
+            del leaves, lib_out, q, k, v, out, lse, dout, got, again, want
         log({"phase": "swa_bwd", **rec})
         out_recs.append(rec)
     return out_recs
@@ -4710,6 +4729,8 @@ def main() -> int:
                              if "swa_attention_bwd" in v},
         "max_abs_err": main_bwd["float32"]["max_abs_err"],
         "max_abs_err_bf16": main_bwd["bfloat16"]["max_abs_err"],
+        **{f"{key}_bf16": main_bwd["bfloat16"][key] for key in (
+            "ms", "library_ms", "bound_ms", "bound_by")},
         **{key: main_bwd[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library", "bound_cuda_cores_ms", "bound_as_run_ms",
@@ -4718,9 +4739,12 @@ def main() -> int:
         "other_shapes": [{key: o[key] for key in (
             "model", "shape", "kv_heads", "window", "causal", "ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "bound_cuda_cores_ms", "bound_as_run_ms")} | {"max_abs_err": o["float32"][
-                "max_abs_err"], "max_abs_err_bf16": o["bfloat16"][
-                "max_abs_err"]} for o in other_bwd]})
+            "bound_cuda_cores_ms", "bound_as_run_ms")} | {
+                "max_abs_err": o["float32"]["max_abs_err"],
+                "max_abs_err_bf16": o["bfloat16"]["max_abs_err"]} | {
+                f"{key}_bf16": o["bfloat16"][key] for key in (
+                    "ms", "library_ms", "bound_ms", "bound_by")}
+            for o in other_bwd]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -30,12 +30,17 @@ kernel: the reference trains attention through its plain ``_flash``
 custom VJP (``repro/models/layers.py`` ``_flash_bwd``), whose math it
 runs: P recomputed from q, k and the log-sum-exp, D = rowsum(dout o
 out), dV = P^T dout, dS = P o (dout V^T - D) scale, dQ = dS K, dK = dS^T
-Q. Bound: 10 D operations a pair in the band (14 D as run), f32 on the
-CUDA cores. Two kernels, no float atomics: dQ per (bh, query tile) over
-the key tiles of ``band_plan``, dK and dV per (bh, key tile) over the
-query tiles of ``band_plan_t``, the plan transposed; f32 FMA chains on
-the CUDA cores for f32 and bf16 inputs, D up to 128. A row with no key
-gets zero gradients. ``swa_attention_train`` puts both under autograd.
+Q. Bound: 10 D operations a pair in the band (14 D as run), every
+product on the tensor cores (f32 in three TF32 passes, bf16 one mma, two
+where P or dS is split into bf16 hi + lo). Two kernels, no float atomics:
+dQ per (bh, query tile) over the key tiles of ``band_plan``, dK and dV
+per (bh, key tile) over the query tiles of ``band_plan_t``, the plan
+transposed, which also names each key tile's interior query tiles (no
+mask there); both plans at 64 x 64 tiles, a block taking one or two of
+them. P and dS stay in the mma's registers; K and V (pass 1) or Q and
+dO (pass 2) stream through a cp.async ring in the inputs' dtype.
+D up to 128. A row with no key gets zero gradients.
+``swa_attention_train`` puts both under autograd.
 
 ``swa_attention_cuda`` and ``swa_attention_bwd_cuda`` launch the kernels
 and count their launches in the module-level ``launches`` and
@@ -235,9 +240,11 @@ def band_plan(t: int, s: int, window: Optional[int], causal: bool,
 def band_plan_t(t: int, s: int, window: Optional[int], causal: bool,
                 block_q: int, block_k: int) -> torch.Tensor:
     """The band plan transposed, for the backward's dK / dV pass:
-    (ceil(S / block_k), 2) int32, per key tile (lo, hi) in query tiles of
-    block_q. The tile's keys are seen by queries in tiles [lo, hi) only;
-    a key tile no query sees visits nothing (lo = hi)."""
+    (ceil(S / block_k), 4) int32, per key tile (lo, ilo, ihi, hi) in query
+    tiles of block_q. The tile's keys are seen by queries in tiles [lo, hi)
+    only; tiles in [ilo, ihi) lie inside T, face a key tile inside S and
+    hold allowed pairs only, so they run with no mask; the rest of [lo, hi)
+    is the band's edge. A key tile no query sees visits nothing."""
 
     def queries(j):                   # key j's queries [a, b)
         a = j if causal else 0
@@ -245,14 +252,24 @@ def band_plan_t(t: int, s: int, window: Optional[int], causal: bool,
 
     plan = []
     for k0 in range(0, s, block_k):
-        spans = [queries(j) for j in range(k0, min(k0 + block_k, s))]
+        k1 = min(k0 + block_k, s)
+        spans = [queries(j) for j in range(k0, k1)]
         spans = [(a, b) for a, b in spans if a < b]
         if not spans:
-            plan.append((0, 0))
+            plan.append((0, 0, 0, 0))
             continue
-        plan.append((min(a for a, _ in spans) // block_q,
-                     -(-max(b for _, b in spans) // block_q)))
-    return torch.tensor(plan, dtype=torch.int32).reshape(-1, 2)
+        lo = min(a for a, _ in spans) // block_q
+        hi = -(-max(b for _, b in spans) // block_q)
+        if k1 == k0 + block_k:
+            # the queries that see every key of the tile: from the last
+            # key's first query to the first key's end
+            ilo = -(-queries(k1 - 1)[0] // block_q)
+            ihi = queries(k0)[1] // block_q
+        else:
+            ilo = ihi = hi
+        ilo = min(max(ilo, lo), hi)
+        plan.append((lo, ilo, max(ilo, min(ihi, hi)), hi))
+    return torch.tensor(plan, dtype=torch.int32).reshape(-1, 4)
 
 
 @functools.lru_cache(maxsize=64)

@@ -1119,12 +1119,15 @@ def test_paper_harness_launches_each_sweep_once_per_paota_round(
 # instances (32 to 128, 48 and 80 padded), ragged T and S both ways,
 # windows around the 64-row tile and beyond T, causal off with and without
 # a window (hubert-xlarge's D = 80 encoder row at T = 1,500), rows with no
-# key (W = 0; T > S with a window: zero gradients).
+# key (W = 0; T > S with a window: zero gradients); T and S ragged at
+# both the 32-query tiles (the dK / dV pass's at D > 80) and the 64-row
+# plan tiles (1,000 and 968).
 SWA_BWD_CASES = ((128, 128, 64, None, True), (200, 200, 32, 64, True),
                  (257, 257, 64, 65, True), (300, 280, 112, 1000, True),
                  (190, 300, 128, 64, False), (100, 170, 48, 40, True),
                  (150, 150, 80, 33, False), (1500, 1500, 80, None, False),
-                 (65, 70, 32, 0, True), (170, 100, 64, 20, True))
+                 (65, 70, 32, 0, True), (170, 100, 64, 20, True),
+                 (1000, 1000, 128, 300, True), (1000, 968, 112, None, False))
 
 
 def _swa_bwd_case(dev, t, s, d, window, causal, dtype, seed):
@@ -1173,6 +1176,36 @@ def test_swa_attention_bwd_kernel_matches_twin(cuda, t, s, d, window, causal,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     rows = sw.band_mask(t, s, window, causal, cuda).any(-1)
     assert not got[0][:, ~rows].any()
+
+
+def test_swa_attention_bwd_long_peaked_band_f64(cuda):
+    """A long peaked band: 2 rows, T = S = 8,192, W = 4,096, D = 128, q,
+    k, v of std 1.5684 (mixtral's first layer, as
+    test_swa_attention_window_gqa6), f32. The kernel, handed the f64
+    oracle's output and log-sum-exp rounded to f32, against torch's f64
+    autograd through the plain softmax attention on the same values, within
+    the twin's 3e-5: a dK or dV accumulated in the mma over the band's
+    128 query tiles (dQ over its 64 key tiles) would drift past it."""
+    from repro_torch.kernels import swa_attention as sw
+    t, w, d, scale = 8192, 4096, 128, 1.5684
+    gen = torch.Generator(device=cuda).manual_seed(t + w)
+    q, k, v = (scale * torch.randn((2, t, d), generator=gen, device=cuda)
+               for _ in range(3))
+    dout = torch.randn((2, t, d), generator=gen, device=cuda)
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    logits = leaves[0] @ leaves[1].transpose(1, 2) / d ** 0.5
+    logits = logits.masked_fill(~sw.band_mask(t, t, w, True, cuda),
+                                float("-inf"))
+    lse = torch.logsumexp(logits, -1)
+    out = torch.softmax(logits, -1) @ leaves[2]
+    out.backward(dout.double())
+    del logits
+    got = sw.swa_attention_bwd_cuda(q, k, v, out.detach().float(), dout,
+                                    lse.detach().float(), window=w)
+    torch.cuda.synchronize()
+    for name, g, x in zip(("dq", "dk", "dv"), got, leaves):
+        torch.testing.assert_close(g.double(), x.grad, rtol=3e-5, atol=3e-5,
+                                   msg=name)
 
 
 @pytest.mark.parametrize("h,hkv,d,window,causal", [

@@ -3,8 +3,9 @@ twin the backward kernel is held against on the card) against ``jax.vjp``
 of the reference's ``_flash`` (its custom VJP, ``_flash_bwd``) at small
 chunks, and against torch's autograd through ``swa_attention_plain``;
 causal, windowed, bidirectional, GQA, rows with no key. The band plan
-transposed (``band_plan_t``, the dK / dV pass's) and the forward plan at
-the backward's 64 x 64 tiles (the dQ pass's) against ``band_mask``. Inputs
+transposed (``band_plan_t``, the dK / dV pass's, with the interior query
+tiles it runs unmasked) and the forward plan at the backward's 64 x 64
+tiles (the dQ pass's) against ``band_mask``. Inputs
 come from fixed numpy seeds; tolerance is the reference's kernel one. The
 CUDA kernel is held against the twin in tests/test_torch_cuda.py and
 chip_smoke.py."""
@@ -149,18 +150,32 @@ PLAN_WINDOWS = [None, 0, 1, 63, 64, 65, 1000]
 def test_transposed_band_plan_matches_band_mask(t, s, window, causal):
     """Per key tile, [lo, hi) in query tiles holds every query that sees the
     tile, and its first and last tiles hold one each (none: lo = hi); the
-    forward plan at the backward's tiles visits exactly the key tiles with
-    an allowed pair."""
+    interior [ilo, ihi) inside it is exactly the query tiles that lie in T,
+    face a key tile inside S and hold allowed pairs only (the kernel runs
+    them unmasked), and the edge tiles [lo, ilo) and [ihi, hi) hold the
+    tile's other allowed pairs; the forward plan at the backward's tiles
+    visits exactly the key tiles with an allowed pair."""
     mask = sw.band_mask(t, s, window, causal, "cpu")
     for bq, bk in ((sw.BWD_BLOCK, sw.BWD_BLOCK), (16, 8)):
         plan = sw.band_plan_t(t, s, window, causal, bq, bk)
         assert plan.dtype == torch.int32
-        assert tuple(plan.shape) == (-(-s // bk), 2)
-        for kt, (lo, hi) in enumerate(plan.tolist()):
-            cols = mask[:, kt * bk:(kt + 1) * bk].any(-1)
+        assert tuple(plan.shape) == (-(-s // bk), 4)
+        for kt, (lo, ilo, ihi, hi) in enumerate(plan.tolist()):
+            block = mask[:, kt * bk:(kt + 1) * bk]
+            cols = block.any(-1)
             tiles = [i for i in range(-(-t // bq))
                      if cols[i * bq:(i + 1) * bq].any()]
             assert tiles == list(range(lo, hi)), (kt, lo, hi)
+            assert lo <= ilo <= ihi <= hi, (kt, lo, ilo, ihi, hi)
+            full = [i for i in tiles if (i + 1) * bq <= t
+                    and (kt + 1) * bk <= s
+                    and bool(block[i * bq:(i + 1) * bq].all())]
+            assert full == list(range(ilo, ihi)), (kt, ilo, ihi, full)
+            edge = block.clone()
+            edge[ilo * bq:ihi * bq] = False
+            rows = torch.arange(t)
+            assert not (edge & ~((rows >= lo * bq) & (rows < hi * bq))[
+                :, None]).any(), kt
         fwd = sw.band_plan(t, s, window, causal, bq, bk)
         for qt, (lo, _, _, hi) in enumerate(fwd.tolist()):
             rows = mask[qt * bq:(qt + 1) * bq].any(0)
