@@ -92,8 +92,20 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   sweep 2 per params leaf a round, the loss finite and falling, a
   straggler's loss dropping on its own microbatches, the gradients at
   full width against the same step with the attention twin; one bf16
-  round under ``runtime_config``; the ssm family refused on the card; the
+  round under ``runtime_config``; reduced mamba2 trained on the card; the
   train CLI's demo).
+- the SSD backward (``ssd_chunk_bwd``) against its twin at mamba2-370m's
+  and zamba2-7b's train shapes on views of their conv outputs, two
+  groups, a ragged shape and a binding -60 clip, f32 and bf16, timed
+  beside the twin and the forward against its bound (``ssd_bwd``); then
+  mamba2-370m's PAOTA training at full width (``ssm_train``: as
+  ``lm_train``, every layer's SSD forward and backward on the two
+  kernels, the gradients against the same step with the SSD twin, a bf16
+  round) and zamba2-7b's at full width with 12 of its 81 layers
+  (``hybrid_train``: K = 2, 1 x 4,096 tokens a client, the SSD and the
+  attention kernels in every layer and slot, the gradients against both
+  twins). ``train_profile``, last, profiles a client step of
+  smollm-135m and of mamba2-370m.
 
 - the paper's harness (``repro_torch.bench``) at the reference's paper
   scale (``REPRO_BENCH_FULL=1``: K = 100, 120 rounds, 50 synchronous
@@ -107,8 +119,8 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   and the differ over them (``bench_suite``).
 
 It times the seven kernels (the two sweeps also in bf16, as the pytree
-carry's six per-leaf launches and at the train store's leaves) and the
-attention backward with ``repro_torch.bench.timing``,
+carry's six per-leaf launches and at the train store's leaves), the
+attention backward and the SSD backward with ``repro_torch.bench.timing``,
 the benches' own method, and prints one JSON record per phase. Its last
 three lines are the ``kernels`` record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -999,14 +1011,15 @@ def _counters() -> dict:
             "gather_superpose": (gs, "launches"),
             "ssd_chunk": (sc, "launches"),
             "swa_attention": (sw, "launches"),
-            "swa_attention_bwd": (sw, "bwd_launches")}
+            "swa_attention_bwd": (sw, "bwd_launches"),
+            "ssd_chunk_bwd": (sc, "bwd_launches")}
 
 
 COHORT_KERNELS = ("round_stats", "superpose_normalize", "gather_superpose")
 
 
 def read_counters(names=None) -> dict:
-    """The launch counts of the named kernels (all seven by default)."""
+    """The launch counts of the named kernels (all of them by default)."""
     return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()
             if names is None or k in names}
 
@@ -1164,23 +1177,12 @@ def ssd_inputs(dev, g, q, n, p, dtype, seed):
 
 
 def ssd_grouped_inputs(dev, bz, nc, h, g, q, n, p, offset, dtype, seed):
-    """Grouped SSD inputs: cum (Bz, NC, Q, H), xdt (Bz, NC, Q, H, P), and B,
-    C (Bz, NC, Q, G, N), contiguous, or with ``offset`` strided views of a
-    (Bz, NC*Q, offset + 2 G N) conv-output-like tensor as ``apply_mamba2``
-    hands them over."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    cum = -torch.cumsum(0.05 + 0.2 * torch.rand((bz, nc, q, h), generator=gen,
-                                                device=dev), dim=2)
-    xdt = torch.randn((bz, nc, q, h, p), generator=gen, device=dev).to(dtype)
-    if offset is None:
-        b, c = (torch.randn((bz, nc, q, g, n), generator=gen,
-                            device=dev).to(dtype) for _ in range(2))
-    else:
-        xbc = torch.randn((bz, nc * q, offset + 2 * g * n), generator=gen,
-                          device=dev).to(dtype)
-        b = xbc[..., offset:offset + g * n].reshape(bz, nc, q, g, n)
-        c = xbc[..., offset + g * n:].reshape(bz, nc, q, g, n)
-    return cum, b, c, xdt
+    """``ssd_chunk.grouped_example`` in SSD_GROUPED's order (Bz, NC, H, G,
+    Q, N, P): cum, B, C (with ``offset`` strided views of a conv-output-like
+    tensor, as ``apply_mamba2`` hands them over) and xdt."""
+    from repro_torch.kernels import ssd_chunk as sc
+    return sc.grouped_example(bz, nc, q, h, g, n, p, dtype=dtype, seed=seed,
+                              offset=offset, device=dev)
 
 
 def _check_ssd(got, again, want, dtype, what):
@@ -3363,7 +3365,6 @@ TRAIN_K, TRAIN_M, TRAIN_ROUNDS, TRAIN_LR, TRAIN_SIGMA = 4, 2, 3, 0.1, 1e-4
 # each round's participants: client 3 straggles in round 0, client 1 in
 # round 1, none in round 2
 TRAIN_MASKS = ((1, 1, 1, 0), (1, 0, 1, 1), (1, 1, 1, 1))
-TRAIN_STRAGGLER = 3
 # the kernels' gradients against the twin's, per leaf (2-norm): far above
 # f32 sums taken in another order, far below a kernel output off by a
 # tile or a factor
@@ -3373,56 +3374,81 @@ TRAIN_POWER = 15.0
 TRAIN_CLI = (3, 2, 2)
 
 
-def train_bounds(n_params, tokens, attn_pairs, d_head, layers, flops, tf32):
-    """A client step's least time in f32: 6 N operations a token (the
-    products' forward and backward) on the CUDA cores, as the f32 run
-    (TF32 off) does them, and the attention's band beside them (4 D a pair
-    forward, 10 D backward, per layer) in 3xTF32, as the attention kernels'
-    own bounds count it (and on the CUDA cores beside it)."""
-    dense = 6 * n_params * tokens
-    attn = layers * attn_pairs * 14 * d_head
+def train_bounds(cfg, n_params, mb, per_step, flops, tf32):
+    """A client step's least time in f32 at mb x TRAIN_SEQ tokens: 6 N
+    operations a token (the products' forward and backward) on the CUDA
+    cores, as the f32 run (TF32 off) does them; beside it the same plus
+    the hand-written kernels' work in 3xTF32, as their own bounds count it
+    (and all on the CUDA cores): the attention band (4 D a pair forward,
+    10 D backward) per ``swa_attention`` launch of ``per_step``, the SSD
+    intra-chunk part (``ssd_work`` forward, ``ssd_bwd_work`` backward) per
+    ``ssd_chunk`` launch."""
+    t = TRAIN_SEQ
+    dense = 6 * n_params * mb * t
+    attn = ssd = 0
+    if per_step.get("swa_attention"):
+        attn = (per_step["swa_attention"] * mb * cfg.num_heads
+                * (t * (t + 1) // 2) * 14 * cfg.head_dim)
+    if per_step.get("ssd_chunk"):
+        q = min(cfg.ssm_chunk, t)
+        shape = (mb * -(-t // q), cfg.ssm_nheads, cfg.ssm_ngroups, q,
+                 cfg.ssm_state, cfg.ssm_head_dim, 4)
+        fwd_cuda, fwd_mma, _ = ssd_work(*shape)
+        ssd = per_step["ssd_chunk"] * (fwd_cuda + fwd_mma
+                                       + ssd_bwd_work(*shape)[0])
+    kernels = attn + ssd
     return {"client_step_bound_ms": dense / flops * 1e3,
-            "client_step_bound_with_attention_ms": (
-                dense / flops + 3 * attn / tf32) * 1e3,
-            "client_step_bound_with_attention_cuda_cores_ms": (
-                dense + attn) / flops * 1e3,
-            "flops_6n_tokens": dense, "flops_attention": attn}
+            "client_step_bound_with_kernels_ms": (
+                dense / flops + 3 * kernels / tf32) * 1e3,
+            "client_step_bound_with_kernels_cuda_cores_ms": (
+                dense + kernels) / flops * 1e3,
+            "flops_6n_tokens": dense, "flops_attention": attn,
+            "flops_ssd": ssd}
 
 
 def train_profile(dev):
-    """One smollm-135m client step (lm_train's: f32, a microbatch of 2 x
-    4,096 tokens, K = 1, M = 1) under torch.profiler, after a warm-up:
-    device time by kernel (``profile_client_step``) beside the step's
-    host-clock time. Run last in the script (see ``lm_train``)."""
+    """One client step of smollm-135m and one of mamba2-370m (lm_train's
+    and ssm_train's: f32, a microbatch of 2 x 4,096 tokens, K = 1, M = 1)
+    under torch.profiler, each after a warm-up: device time by kernel
+    (``profile_client_step``; for mamba2-370m the SSD backward's share)
+    beside the step's host-clock time. Run last in the script (see
+    ``lm_train``)."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_stream
     from repro_torch.launch import steps
     from repro_torch.launch.shapes import InputShape
     from repro_torch.models import init_model
-    free_held("train_profile")
-    cfg = get_config(TRAIN_ARCH)
-    mb = TRAIN_BATCH // TRAIN_K
-    model = init_model(cfg, seed=0, device=dev)
-    client = steps.make_paota_train_step(
-        model, InputShape("train_4k_b8", TRAIN_SEQ, mb, "train"), 1,
-        lr=TRAIN_LR, local_steps=1, sigma_over_varsigma=TRAIN_SIGMA,
-        noise=steps.KeyedNormal(0))
-    store = steps.stack_params(model, 1)
-    batch = {"tokens": torch.from_numpy(next(token_stream(
-        cfg.vocab_size, mb, TRAIN_SEQ, 1, seed=0))["tokens"]).to(dev)
-        .view(1, 1, mb, TRAIN_SEQ)}
-    ones = torch.ones((1,), device=dev)
-    client(store, batch, ones, ones, 0)             # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    client(store, batch, ones, ones, 1)
-    torch.cuda.synchronize()
-    rec = {"phase": "train_profile", "arch": TRAIN_ARCH,
-           "client_step_ms": (time.perf_counter() - t0) * 1e3,
-           **(profile_client_step(lambda: client(store, batch, ones, ones,
-                                                  2)) or {"device_ms": None})}
-    log(rec)
-    return rec
+    recs = []
+    for arch in (TRAIN_ARCH, SSM_ARCH):
+        free_held(f"train_profile {arch}")
+        cfg = get_config(arch)
+        mb = TRAIN_BATCH // TRAIN_K
+        model = init_model(cfg, seed=0, device=dev)
+        client = steps.make_paota_train_step(
+            model, InputShape("train_4k_b8", TRAIN_SEQ, mb, "train"), 1,
+            lr=TRAIN_LR, local_steps=1, sigma_over_varsigma=TRAIN_SIGMA,
+            noise=steps.KeyedNormal(0))
+        store = steps.stack_params(model, 1)
+        batch = {"tokens": torch.from_numpy(next(token_stream(
+            cfg.vocab_size, mb, TRAIN_SEQ, 1, seed=0))["tokens"]).to(dev)
+            .view(1, 1, mb, TRAIN_SEQ)}
+        ones = torch.ones((1,), device=dev)
+        client(store, batch, ones, ones, 0)             # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        client(store, batch, ones, ones, 1)
+        torch.cuda.synchronize()
+        rec = {"phase": "train_profile", "arch": arch,
+               "client_step_ms": (time.perf_counter() - t0) * 1e3,
+               **(profile_client_step(lambda: client(
+                   store, batch, ones, ones, 2)) or {"device_ms": None})}
+        if rec["device_ms"] and arch == SSM_ARCH:
+            rec["ssd_bwd_share_of_device_time"] = (rec["ssd_bwd_ms"]
+                                                   / rec["device_ms"])
+        log(rec)
+        recs.append(rec)
+        del model, client, store, batch
+    return recs
 
 
 def profile_client_step(fn):
@@ -3455,6 +3481,8 @@ def profile_client_step(fn):
     return {"device_ms": total / 1e3,
             "swa_bwd_ms": share("swa_bwd"),
             "swa_fwd_ms": share("swa_attention_kernel"),
+            "ssd_bwd_ms": share("ssd_bwd"),
+            "ssd_fwd_ms": share("ssd_grouped_kernel"),
             "gemm_ms": share("gemm", "sm90", "cutlass", "xmma", "sgemm"),
             "top": [{"kernel": k[:120], "ms": us / 1e3, "count": n}
                     for k, us, n in rows[:12]]}
@@ -3501,13 +3529,20 @@ def twin_attention(q, k, v, *, window=None, causal=True):
     return out.reshape(b, h, t, d).transpose(1, 2)
 
 
-def grads_vs_twin(model, leaves, batch):
-    """One client's loss gradients at full width through the attention
-    kernels (forward with the log-sum-exp, backward kernel) and through
-    the twin under torch's autograd, on the same params and batch, both
-    with block remat (so that the twin's (rows, T, T) matrices live one
-    layer at a time): per leaf |g - g_twin| / |g_twin| (2-norms) and the
-    losses."""
+def ssd_twin(cum, b, c, xdt):
+    """``ops.ssd_intra_chunk_grouped`` with the twin in place of the
+    kernels, under torch's own autograd."""
+    from repro_torch.kernels import ssd_chunk as sc
+    return sc.ssd_intra_chunk_grouped_plain(cum, b, c, xdt)
+
+
+def grads_vs_twin(model, leaves, batch, twins):
+    """One client's loss gradients at full width through the kernels
+    (forward and backward kernels) and through the twins under torch's
+    autograd (``twins``: ops entry -> twin), on the same params and batch,
+    both with block remat (so that the twins' (rows, T, T) matrices live
+    one layer at a time): per leaf |g - g_twin| / |g_twin| (2-norms) and
+    the losses."""
     import dataclasses
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
@@ -3523,57 +3558,75 @@ def grads_vs_twin(model, leaves, batch):
             (batch, own))
     try:
         loss, got = run()
-        with mock.patch.object(ops, "swa_attention", twin_attention):
+        with contextlib.ExitStack() as stack:
+            for name, fn in twins.items():
+                stack.enter_context(mock.patch.object(ops, name, fn))
             want_loss, want = run()
     finally:
         model.cfg = cfg
     rel = [float((g - w).norm() / w.norm().clamp_min(1e-30))
            for g, w in zip(got, want)]
     return {"rel_l2_by_leaf": rel, "max_rel_l2": max(rel),
-            "loss": float(loss), "loss_twin": float(want_loss),
+            "twins": sorted(twins), "loss": float(loss),
+            "loss_twin": float(want_loss),
             "grad_norm": float(torch.stack([g.norm() for g in got]).norm())}
 
 
-def lm_train(dev, bw, flops, tf32):
-    """smollm-135m's PAOTA training at full width on the card
+def train_round(step, store, batch, powers, mask, r):
+    """One train round with the counters at 0 before and read after:
+    (store, the round's record with its launches)."""
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    store, met = step(store, batch, powers, mask, r)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return store, {"round": r, "ms": ms, "loss": float(met["loss"]),
+                   "varsigma": float(met["varsigma"]),
+                   "participants": float(met["participants"]),
+                   "launches": read_counters()}
+
+
+def finish(rec):
+    """Log a phase's record; raise if any of its checks failed."""
+    log(rec)
+    failed = [c for c, ok in rec["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"{rec['phase']}: failed {failed}")
+    return rec
+
+
+def paota_train(dev, phase, arch, cfg, *, k, m, mb, rounds, masks, per_step,
+                twins, flops, tf32, bf16_round=True, after_rounds=None):
+    """PAOTA training of ``cfg`` on the card as a user runs it
     (``launch.steps.make_paota_train_step``): f32, TF32 off, random weights
-    from seed 0, K = 4 clients, the reference's train_4k length (4,096)
-    with the global batch cut from 256 to 8 (mb = 2 a client), M = 2 local
-    SGD steps, 3 rounds, sigma_over_varsigma 1e-4 (so sweep 2 runs), a
-    straggler in rounds 0 and 1. Counters set to 0 before each round and
-    read after: per client step one forward and one backward attention
-    launch a layer, one sweep 2 per reference leaf a round. Checks: the
-    loss finite, the last round's below the first's; the participants'
-    rows equal and a straggler's its own; round 0's straggler (client
-    TRAIN_STRAGGLER, which keeps its local params) has a lower loss on
-    each of its own two microbatches after its local steps than before;
-    the gradients of client 0's first microbatch at the initial params,
-    per leaf within TRAIN_GRAD_RTOL (2-norm) of the same gradients with
-    the attention twin (``grads_vs_twin``). A held-out batch's loss is
-    logged before and after each round. Then one round in bf16 under
-    ``runtime_config`` (block remat) on round 0's batch, its loss within
-    2e-2 of the f32 round's; the ssm family refused on the card; the
-    train CLI's demo. Times: rounds (per client step against 6 N tokens
-    at the f32 rate), the aggregation, sweep 2 at the store's leaf widths.
-    The timed and profiled single client step is ``train_profile``, which
-    main runs last, so that the profiler cannot slow the phases after
-    it."""
-    import io
-    from repro_torch.configs import get_config, get_reduced
-    from repro_torch.core.aggregation import paota_aggregate_stacked
+    from seed 0, ``k`` clients of ``m`` local SGD steps on ``mb`` x
+    TRAIN_SEQ tokens each, ``rounds`` rounds with ``masks[r]``'s
+    participants, lr TRAIN_LR, sigma_over_varsigma TRAIN_SIGMA (so sweep 2
+    runs). Counters at 0 before each round and read after: ``per_step``
+    (kernel -> launches) per client step, one sweep 2 per reference leaf a
+    round, nothing else. Checks: the loss finite and, over two rounds or
+    more, the last round's below the first's; the store finite; the
+    participants' rows equal and a straggler's its own; round 0's
+    stragglers (which keep their local params) lower on each of their own
+    microbatches after their local steps than before; client 0's
+    first-microbatch gradients at the initial params per leaf within
+    TRAIN_GRAD_RTOL (2-norm) of the same with ``twins``
+    (``grads_vs_twin``). A held-out batch's loss is logged before and after
+    each round. ``after_rounds(model, store, powers, masks)``, where given,
+    runs on the last round's store and returns fields for the record. With
+    ``bf16_round``, one round in bf16 under ``runtime_config`` (block
+    remat: each forward kernel twice a step) on round 0's batch, its loss
+    within 2e-2 of the f32 round's. Returns the record; ``finish`` enforces
+    its checks."""
     from repro_torch.data.synthetic import token_stream
-    from repro_torch.kernels import aircomp_sum as ac
     from repro_torch.launch import steps
-    from repro_torch.launch import train as train_cli
     from repro_torch.launch.shapes import InputShape
     from repro_torch.models import init_model, param_count
     from repro_torch.tree import tree_leaves
-    free_held("lm_train")
-    cfg = get_config(TRAIN_ARCH)
-    shape = InputShape("train_4k_b8", TRAIN_SEQ, TRAIN_BATCH, "train")
-    k, m = TRAIN_K, TRAIN_M
-    mb = TRAIN_BATCH // k
-    layers = cfg.num_layers
+    free_held(phase)
+    t_phase = time.perf_counter()
+    shape = InputShape("train_4k", TRAIN_SEQ, k * mb, "train")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3586,71 +3639,114 @@ def lm_train(dev, bw, flops, tf32):
     n_leaves = len(tree_leaves(store))
     store_mb = sum(x.numel() * x.element_size()
                    for x in tree_leaves(store)) / 2**20
-    stream = token_stream(cfg.vocab_size, k * m * mb, TRAIN_SEQ,
-                          TRAIN_ROUNDS, seed=0)
     batches = [torch.from_numpy(b["tokens"].reshape(k, m, mb, TRAIN_SEQ))
-               .to(dev) for b in stream]
+               .to(dev) for b in token_stream(cfg.vocab_size, k * m * mb,
+                                              TRAIN_SEQ, rounds, seed=0)]
+    held = {"tokens": torch.from_numpy(next(token_stream(
+        cfg.vocab_size, mb, TRAIN_SEQ, 1, seed=1))["tokens"]).to(dev)}
     powers = torch.full((k,), TRAIN_POWER, device=dev)
-    masks = [torch.tensor(x, dtype=torch.float32, device=dev)
-             for x in TRAIN_MASKS]
+    mask_t = [torch.tensor(x, dtype=torch.float32, device=dev)
+              for x in masks]
     step = steps.make_paota_train_step(
         model, shape, k, lr=TRAIN_LR, local_steps=m,
         sigma_over_varsigma=TRAIN_SIGMA, noise=steps.KeyedNormal(0))
-    held = {"tokens": torch.from_numpy(next(token_stream(
-        cfg.vocab_size, mb, TRAIN_SEQ, 1, seed=1))["tokens"]).to(dev)}
+    stragglers = [i for i, on in enumerate(masks[0]) if not on]
+    theta0 = {i: [x.clone() for x in row(store, i)] for i in stragglers}
+    want = dict({n: k * m * c for n, c in per_step.items()},
+                superpose_normalize=n_leaves)
     held_losses = [loss_at(model, row(store, 0), held)]
-    theta0 = [x.clone() for x in row(store, TRAIN_STRAGGLER)]
-    per_step = k * m * layers
-    want = {"swa_attention": per_step, "swa_attention_bwd": per_step,
-            "superpose_normalize": n_leaves}
-    rounds, checks = [], {}
-    for r in range(TRAIN_ROUNDS):
-        torch.cuda.synchronize()
-        zero_counters()
-        t0 = time.perf_counter()
-        store, met = step(store, {"tokens": batches[r]}, powers, masks[r], r)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        counts = read_counters()
+    recs, checks = [], {}
+    for r in range(rounds):
+        store, rnd = train_round(step, store, {"tokens": batches[r]}, powers,
+                                 mask_t[r], r)
+        recs.append(rnd)
         held_losses.append(loss_at(model, row(store, 0), held))
         if r == 0:
-            theta1 = [x.clone() for x in row(store, TRAIN_STRAGGLER)]
+            theta1 = {i: [x.clone() for x in row(store, i)]
+                      for i in stragglers}
         emb = store["embedding"]["embed"]
-        rows = [i for i, on in enumerate(TRAIN_MASKS[r]) if on]
-        strag = [i for i, on in enumerate(TRAIN_MASKS[r]) if not on]
-        rounds.append({"round": r, "ms": ms, "loss": float(met["loss"]),
-                       "varsigma": float(met["varsigma"]),
-                       "participants": float(met["participants"]),
-                       "launches": counts})
-        checks[f"round {r}: launches"] = counts == dict(
-            {n: 0 for n in counts}, **want)
+        on = [i for i, x in enumerate(masks[r]) if x]
+        off = [i for i, x in enumerate(masks[r]) if not x]
+        checks[f"round {r}: launches"] = rnd["launches"] == dict(
+            {n: 0 for n in rnd["launches"]}, **want)
         checks[f"round {r}: participants share the aggregate"] = all(
-            bool(torch.equal(emb[i], emb[rows[0]])) for i in rows)
+            bool(torch.equal(emb[i], emb[on[0]])) for i in on)
         checks[f"round {r}: a straggler keeps its own"] = all(
-            not bool(torch.equal(emb[i], emb[rows[0]])) for i in strag)
-    losses = [x["loss"] for x in rounds]
+            not bool(torch.equal(emb[i], emb[on[0]])) for i in off)
+    losses = [x["loss"] for x in recs]
     checks["loss finite"] = all(np.isfinite(losses))
-    checks["loss falling: last round below the first"] = (
-        losses[-1] < losses[0])
+    if rounds > 1:
+        checks["loss falling: last round below the first"] = (
+            losses[-1] < losses[0])
     checks["store finite"] = all(bool(torch.isfinite(x).all())
                                  for x in tree_leaves(store))
     peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
-
-    # round 0's straggler kept its local params: its loss on each of its
-    # own microbatches, before and after its M SGD steps
-    own = [{"tokens": batches[0][TRAIN_STRAGGLER, j]} for j in range(m)]
-    straggler = {"client": TRAIN_STRAGGLER,
-                 "before": [loss_at(model, theta0, b) for b in own],
-                 "after": [loss_at(model, theta1, b) for b in own]}
-    checks["straggler: loss drops on each own microbatch"] = all(
-        a < b for a, b in zip(straggler["after"], straggler["before"]))
-    del theta0, theta1, own
-    # client 0's first step's gradients against the twin's
+    own = {i: [{"tokens": batches[0][i, j]} for j in range(m)]
+           for i in stragglers}
+    straggler = [{"client": i,
+                  "before": [loss_at(model, theta0[i], b) for b in own[i]],
+                  "after": [loss_at(model, theta1[i], b) for b in own[i]]}
+                 for i in stragglers]
+    if stragglers:
+        checks["straggler: loss drops on each own microbatch"] = all(
+            a < b for s in straggler for a, b in zip(s["after"],
+                                                     s["before"]))
+    extra = after_rounds(model, store, powers, mask_t) if after_rounds else {}
+    del theta0, theta1, own, store, step
     grads = grads_vs_twin(model, row(steps.stack_params(model, 1), 0),
-                          {"tokens": batches[0][0, 0]})
-    checks[f"gradients within {TRAIN_GRAD_RTOL} of the twin's"] = (
+                          {"tokens": batches[0][0, 0]}, twins)
+    checks[f"gradients within {TRAIN_GRAD_RTOL} of the twins' "
+           f"({', '.join(sorted(twins))})"] = (
         grads["max_rel_l2"] <= TRAIN_GRAD_RTOL)
-    tokens = mb * TRAIN_SEQ
+    del model
+    bf16 = None
+    if bf16_round:
+        free_held(f"{phase} bf16")
+        model16 = init_model(steps.runtime_config(cfg), seed=0, device=dev)
+        step16 = steps.make_paota_train_step(
+            model16, shape, k, lr=TRAIN_LR, local_steps=m,
+            sigma_over_varsigma=TRAIN_SIGMA, noise=steps.KeyedNormal(0))
+        store16, bf16 = train_round(step16, steps.stack_params(model16, k),
+                                    {"tokens": batches[0]}, powers,
+                                    mask_t[0], 0)
+        bf16["dtype"] = str(tree_leaves(store16)[0].dtype).split(".")[-1]
+        bf16["rel_diff_vs_f32_round0"] = abs(bf16["loss"] - losses[0]) / abs(
+            losses[0])
+        checks["bf16 round: loss within 2e-2 of f32"] = (
+            np.isfinite(bf16["loss"])
+            and bf16["rel_diff_vs_f32_round0"] <= 2e-2)
+        checks["bf16 round: launches (remat: forward twice)"] = (
+            bf16["launches"] == dict(
+                {n: 0 for n in bf16["launches"]},
+                **{n: (1 if n.endswith("_bwd") else 2) * k * m * c
+                   for n, c in per_step.items()},
+                superpose_normalize=n_leaves))
+        checks["bf16 round: store stays bf16"] = bf16["dtype"] == "bfloat16"
+        del store16, model16, step16
+    del batches
+    return {"phase": phase, "arch": arch, "params": n_params,
+            "layers": cfg.num_layers, "dtype": "float32", "clients": k,
+            "local_steps": m, "microbatch": mb, "seq_len": TRAIN_SEQ,
+            "lr": TRAIN_LR, "sigma_over_varsigma": TRAIN_SIGMA,
+            "masks": masks, "launches_per_client_step": per_step,
+            "leaves": n_leaves, "store_mb": store_mb, "init_s": init_s,
+            "peak_mb_above_start": peak_mb, "rounds": recs,
+            "losses": losses, "held_out_losses": held_losses,
+            "straggler_own_losses": straggler, "grads_vs_twin": grads,
+            "round_ms_per_client_step": [x["ms"] / (k * m) for x in recs],
+            "bf16_round": bf16, **extra,
+            **train_bounds(cfg, n_params, mb, per_step, flops, tf32),
+            "seconds": time.perf_counter() - t_phase, "checks": checks}
+
+
+def train_aggregation(dev, bw, model, store, powers, masks):
+    """The aggregation of a train store (round 0's mask, zero noise) timed,
+    and sweep 2 at each of its leaf widths against its twin (3e-5), timed
+    beside the twin, ``mv`` and the bound."""
+    from repro_torch.core.aggregation import paota_aggregate_stacked
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.tree import tree_leaves
+    k = powers.numel()
     agg_ms = time_ms(lambda: paota_aggregate_stacked(
         store, powers, masks[0], torch.zeros(
             sum(x[0].numel() for x in tree_leaves(store)), device=dev)),
@@ -3662,10 +3758,10 @@ def lm_train(dev, bw, flops, tf32):
         nz = torch.zeros(x.shape[1], device=dev)
         nbytes = 4 * (x.numel() + 2 * x.shape[1])
         got, _ = ac.superpose_normalize_cuda(x, powers, masks[0], nz)
-        want2, _ = ac.superpose_normalize_plain(x, powers, masks[0], nz)
-        torch.testing.assert_close(got, want2, rtol=3e-5, atol=3e-5)
+        want, _ = ac.superpose_normalize_plain(x, powers, masks[0], nz)
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
         sweep2.append({"shape": list(x.shape),
-                       "max_abs_err": float((got - want2).abs().max()),
+                       "max_abs_err": float((got - want).abs().max()),
                        "ms": time_ms(lambda: ac.superpose_normalize_cuda(
                            x, powers, masks[0], nz), flush, 20),
                        "plain_ms": time_ms(
@@ -3674,48 +3770,52 @@ def lm_train(dev, bw, flops, tf32):
                        "yardstick_ms": time_ms(lambda: torch.mv(
                            x.t(), powers * masks[0]), flush, 20),
                        "bound_ms": nbytes / bw * 1e3})
-    del store, model, step, batches, x, nz, got, want2, flush
-    free_held("lm_train bf16")
+    return {"aggregate_ms": agg_ms, "sweep2_by_leaf": sweep2}
 
-    # one bf16 round under runtime_config (bf16, block remat)
-    cfg16 = steps.runtime_config(cfg)
-    model16 = init_model(cfg16, seed=0, device=dev)
-    store16 = steps.stack_params(model16, k)
-    stream = token_stream(cfg.vocab_size, k * m * mb, TRAIN_SEQ, 1, seed=0)
-    batch0 = torch.from_numpy(next(stream)["tokens"].reshape(
-        k, m, mb, TRAIN_SEQ)).to(dev)
-    step16 = steps.make_paota_train_step(
-        model16, shape, k, lr=TRAIN_LR, local_steps=m,
-        sigma_over_varsigma=TRAIN_SIGMA, noise=steps.KeyedNormal(0))
-    torch.cuda.synchronize()
+
+def lm_train(dev, bw, flops, tf32):
+    """smollm-135m's PAOTA training at full width on the card
+    (``paota_train``): the reference's train_4k length (4,096) with the
+    global batch cut from 256 to 8 (K = 4, mb = 2 a client), M = 2 local
+    steps, 3 rounds with TRAIN_MASKS' stragglers; per client step one
+    forward and one backward attention launch a layer; gradients against
+    the attention twin; a bf16 round. Then the aggregation and sweep 2 at
+    the store's leaf widths timed (``train_aggregation``), reduced mamba2
+    trains on the card (one round, both SSD kernels once a layer), and the
+    train CLI's demo. The timed and profiled single client step is
+    ``train_profile``, which main runs last, so that the profiler cannot
+    slow the phases after it."""
+    import io
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import init_model
+    cfg = get_config(TRAIN_ARCH)
+    layers = cfg.num_layers
+    rec = paota_train(
+        dev, "lm_train", TRAIN_ARCH, cfg, k=TRAIN_K, m=TRAIN_M,
+        mb=TRAIN_BATCH // TRAIN_K, rounds=TRAIN_ROUNDS, masks=TRAIN_MASKS,
+        per_step={"swa_attention": layers, "swa_attention_bwd": layers},
+        twins={"swa_attention": twin_attention}, flops=flops, tf32=tf32,
+        after_rounds=lambda *a: train_aggregation(dev, bw, *a))
+    checks = rec["checks"]
+
+    # reduced mamba2 trains on the card, through both SSD kernels
+    ssm = init_model(get_reduced(SSM_ARCH), seed=0, device=dev)
+    ssm_step = steps.make_paota_train_step(
+        ssm, InputShape("t", 40, 2, "train"), 1, lr=TRAIN_LR, local_steps=1)
+    ones = torch.ones((1,), device=dev)
     zero_counters()
-    t0 = time.perf_counter()
-    store16, met16 = step16(store16, {"tokens": batch0}, powers, masks[0], 0)
+    _, ssm_met = ssm_step(steps.stack_params(ssm, 1), {"tokens": torch.zeros(
+        (1, 1, 2, 40), dtype=torch.int32, device=dev)}, ones, ones, 0)
     torch.cuda.synchronize()
-    bf16 = {"ms": (time.perf_counter() - t0) * 1e3,
-            "loss": float(met16["loss"]), "launches": read_counters(),
-            "dtype": str(tree_leaves(store16)[0].dtype).split(".")[-1]}
-    bf16["rel_diff_vs_f32_round0"] = abs(bf16["loss"] - losses[0]) / abs(
-        losses[0])
-    checks["bf16 round: loss within 2e-2 of f32"] = (
-        np.isfinite(bf16["loss"]) and bf16["rel_diff_vs_f32_round0"] <= 2e-2)
-    checks["bf16 round: launches (remat: forward twice)"] = (
-        bf16["launches"] == dict({n: 0 for n in bf16["launches"]},
-                                 swa_attention=2 * per_step,
-                                 swa_attention_bwd=per_step,
-                                 superpose_normalize=n_leaves))
-    checks["bf16 round: store stays bf16"] = bf16["dtype"] == "bfloat16"
-    del store16, model16, step16
-
-    # the ssm family is refused on the card, naming the missing backward
-    ssm = init_model(get_reduced("mamba2-370m"), seed=0, device=dev)
-    try:
-        steps.make_paota_train_step(ssm, InputShape("t", 32, 2, "train"), 1)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    checks["ssm training refused naming ssd_chunk"] = "ssd_chunk" in refused
-    del ssm
+    ssm_counts = read_counters(("ssd_chunk", "ssd_chunk_bwd"))
+    checks["reduced mamba2 trains on the card"] = bool(
+        torch.isfinite(ssm_met["loss"])) and ssm_counts == {
+            "ssd_chunk": ssm.cfg.num_layers,
+            "ssd_chunk_bwd": ssm.cfg.num_layers}
+    del ssm, ssm_step
 
     # the train CLI's demo (reduced smollm, block remat)
     rounds_cli, m_cli, k_cli = TRAIN_CLI
@@ -3736,31 +3836,206 @@ def lm_train(dev, bw, flops, tf32):
     checks["cli: kernels launched"] = (
         cli_counts["swa_attention_bwd"] == rounds_cli * k_cli * m_cli
         * red.num_layers and cli_counts["superpose_normalize"] > 0)
+    rec["cli"] = {"argv": ["--demo", "--rounds", rounds_cli,
+                           "--local-steps", m_cli, "--clients", k_cli],
+                  "stdout": lines, "losses": cli_losses,
+                  "launches": cli_counts}
+    return finish(rec)
 
-    pairs = mb * cfg.num_heads * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    rec = {"phase": "lm_train", "arch": TRAIN_ARCH, "params": n_params,
-           "dtype": "float32", "clients": k, "local_steps": m,
-           "microbatch": mb, "seq_len": TRAIN_SEQ, "lr": TRAIN_LR,
-           "sigma_over_varsigma": TRAIN_SIGMA, "masks": TRAIN_MASKS,
-           "leaves": n_leaves, "store_mb": store_mb, "init_s": init_s,
-           "peak_mb_above_start": peak_mb, "rounds": rounds,
-           "losses": losses, "held_out_losses": held_losses,
-           "straggler_own_losses": straggler, "grads_vs_twin": grads,
-           "round_ms_per_client_step": [x["ms"] / (k * m) for x in rounds],
-           "aggregate_ms": agg_ms, "sweep2_by_leaf": sweep2,
-           "bf16_round": bf16,
-           "cli": {"argv": ["--demo", "--rounds", rounds_cli,
-                            "--local-steps", m_cli, "--clients", k_cli],
-                   "stdout": lines, "losses": cli_losses,
-                   "launches": cli_counts},
-           **train_bounds(n_params, tokens, pairs, cfg.head_dim, layers,
-                          flops, tf32),
-           "checks": checks}
-    log(rec)
-    failed = [c for c, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"lm_train: failed {failed}")
-    return rec
+
+# the SSD backward's cases (name, Bz, NC, Q, H, G, N, P, offset of B in a
+# conv output or None for contiguous B and C, the log-decay's steepness):
+# mamba2-370m's train microbatch (2 x 4,096 tokens) and zamba2-7b's (1 x
+# 4,096) on strided views of their conv outputs as the models hand them
+# over, two groups, ragged Q / N / P on views whose rows are no 16-byte
+# multiple, and log-decays steep enough that the -60 clip binds
+SSD_BWD_CASES = (("mamba2-370m", 2, 16, 256, 32, 1, 128, 64, 2048, 0.2),
+                 ("zamba2-7b", 1, 16, 256, 112, 1, 64, 64, 7168, 0.2),
+                 ("groups", 2, 4, 256, 8, 2, 64, 64, None, 0.2),
+                 ("ragged", 1, 3, 100, 8, 2, 40, 70, 3, 0.2),
+                 ("clip", 1, 4, 256, 4, 1, 64, 64, None, 1.0))
+SSD_BWD_TIMING_RUNS = 20
+
+
+def ssd_bwd_work(cells, h, g, q, n, p, itemsize):
+    """The SSD backward's work as its inputs need it: (operations,
+    operations as bf16 tensor-core products count them, bytes). Over the
+    causal half (i >= j): per cell and group S = C B^T, (sum dS) B and
+    (sum dS)^T C, 2 N a pair each; per head dM and M^T dy, 2 P a pair
+    each, and the pair's dS, M, dS * S, its two sums (5 a pair); per head
+    B dstate^T and xdt dstate (2 Q N P each) and the tail terms (3 Q P).
+    In bf16, a product with an operand that is no bf16 input (sum dS, M,
+    the f32 dstate) is counted twice, split hi + lo as the attention
+    backward's P and dS are. Each input read once (cum, B, C, xdt, dy,
+    dstate, ddecay), each output written once (dcum, dB, dC, dxdt)."""
+    pairs = q * (q + 1) // 2
+    ops = cells * (g * pairs * 6 * n
+                   + h * (pairs * (4 * p + 5) + 4 * q * n * p + 3 * q * p))
+    ops16 = cells * (g * pairs * 10 * n
+                     + h * (pairs * (6 * p + 5) + 8 * q * n * p + 3 * q * p))
+    nbytes = (8 * cells * q * h + 4 * itemsize * cells * q * g * n
+              + 3 * itemsize * cells * q * h * p + 4 * cells * h * (p * n + 1))
+    return ops, ops16, nbytes
+
+
+def ssd_bwd_parity(dev, bw, flops, tf32):
+    """The SSD backward kernel against its twin at each SSD_BWD_CASES
+    entry (inputs from ``ssd_chunk.grouped_bwd_example``), f32 within 2e-5
+    and bf16 within 2e-2 of each gradient's largest |value| where that
+    exceeds 1 (dcum sums up to Q^2 terms a row; the reference's SSD
+    tolerance), two calls bit-identical. Timed (f32 and bf16) beside the
+    twin and the forward kernel against the bound: the larger of the bytes
+    and the operations, in f32 in f32-accurate 3xTF32 (495 / 3 TFLOP/s on
+    an H100) as the attention backward's bound is, with the CUDA cores'
+    rate beside it (``bound_cuda_cores_ms``, also ``bound_as_run_ms``:
+    every product of the kernel is an f32 FMA chain); in bf16 at the bf16
+    rate (990 TFLOP/s), products with an f32 operand counted twice.
+    Library: none; cuBLAS's bmm of the group's dS with B stands as a
+    partial yardstick, as bmm(C, B^T) does for the forward."""
+    from repro_torch.kernels import ssd_chunk as sc
+    flush = l2_flush(dev)
+    recs = []
+    for name, bz, nc, q, h, g, n, p, offset, steep in SSD_BWD_CASES:
+        t0 = time.perf_counter()
+        rec = {"case": name, "model": (name if name in (SSM_ARCH, HYBRID_ARCH)
+                                      else f"synthetic ({name})"), "shape": {
+            "Bz": bz, "NC": nc, "Q": q, "H": h, "G": g, "N": n, "P": p},
+            "b_c_views_of_conv_output": offset is not None, "kv_heads": None,
+            "causal": True, "library": "none", "library_ms": None}
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[-1]
+            args = sc.grouped_bwd_example(
+                bz, nc, q, h, g, n, p, offset=offset, steep=steep,
+                dtype=dtype, seed=q + h + n + p, device=dev)
+            if name == "clip":
+                cum = args[0]
+                rec["clip_binds"] = bool(
+                    (cum[:, :, -1] - cum[:, :, 0] < -60.0).any())
+            got = sc.ssd_intra_chunk_grouped_bwd_cuda(*args)
+            again = sc.ssd_intra_chunk_grouped_bwd_cuda(*args)
+            want = sc.ssd_intra_chunk_grouped_bwd_plain(*args)
+            torch.cuda.synchronize()
+            tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+            errs, wmax = {}, {}
+            for gname, a, b2, w in zip(("dcum", "db", "dc", "dxdt"), got,
+                                       again, want):
+                scale = max(1.0, float(w.float().abs().max()))
+                torch.testing.assert_close(
+                    a.float(), w.float(), rtol=tol, atol=tol * scale,
+                    msg=f"ssd_bwd {name} {key} {gname}")
+                if not torch.equal(a, b2):
+                    raise AssertionError(f"ssd_bwd {name} {key}: two calls "
+                                         f"differ in {gname}")
+                errs[gname] = float((a.float() - w.float()).abs().max())
+                wmax[gname] = float(w.float().abs().max())
+            nops, nops16, nbytes = ssd_bwd_work(bz * nc, h, g, q, n, p,
+                                                args[3].element_size())
+            sub = {"max_abs_err": max(errs.values()), "by_output": errs,
+                   "max_abs_want": wmax,
+                   "max_rel_err": max(errs[k] / max(1.0, wmax[k])
+                                      for k in errs),
+                   "tol_relative_to_max": tol,
+                   "bit_identical_on_repeat": True,
+                   "ms": time_ms(lambda: sc.ssd_intra_chunk_grouped_bwd_cuda(
+                       *args), flush, SSD_BWD_TIMING_RUNS),
+                   "library_ms": None, "bytes_counted": nbytes}
+            if dtype == torch.bfloat16:
+                sub.update(flops_counted=nops16,
+                           **_bound(nbytes, nops16, bw, 2 * tf32))
+            else:
+                cum, b, c, xdt = args[:4]
+                cells = bz * nc * g
+                dsg = torch.randn((cells, q, q), device=dev)
+                bg = torch.randn((cells, q, n), device=dev)
+                cuda_cores = max(nbytes / bw, nops / flops) * 1e3
+                sub.update(flops_counted=nops,
+                           **_bound(nbytes, 3 * nops, bw, tf32))
+                rec.update(
+                    ms=sub["ms"],
+                    plain_ms=time_ms(
+                        lambda: sc.ssd_intra_chunk_grouped_bwd_plain(*args),
+                        flush, SSD_BWD_TIMING_RUNS),
+                    forward_ms=time_ms(
+                        lambda: sc.ssd_intra_chunk_grouped_cuda(cum, b, c,
+                                                                xdt),
+                        flush, SSD_BWD_TIMING_RUNS),
+                    yardstick_ms=time_ms(lambda: torch.bmm(dsg, bg), flush,
+                                         SSD_BWD_TIMING_RUNS),
+                    yardstick="torch.bmm(sum_h dS, B) per group (partial: "
+                              "one of the backward's products, full Q x Q)",
+                    bound_cuda_cores_ms=cuda_cores,
+                    bound_as_run_ms=cuda_cores,
+                    bound_ms=sub["bound_ms"], bound_by=sub["bound_by"])
+                del dsg, bg
+            rec[key] = sub
+            del args, got, again, want
+        rec["seconds"] = time.perf_counter() - t0
+        log({"phase": "ssd_bwd", **rec})
+        recs.append(rec)
+    if not recs[-1]["clip_binds"]:
+        raise AssertionError("ssd_bwd: the clip case's log-decays never "
+                             "pass -60")
+    return recs
+
+
+SSM_ARCH = "mamba2-370m"
+# zamba2-7b at full width, its depth cut to fit one card in training: 12
+# of 81 layers (the shared block at 2 of its 14 slots); K = 2 clients, M =
+# 1 local step, a microbatch of 1 x 4,096 tokens, 1 round
+HYBRID_ARCH, HYBRID_LAYERS = "zamba2-7b", 12
+HYBRID_K, HYBRID_M, HYBRID_MB, HYBRID_ROUNDS = 2, 1, 1, 1
+HYBRID_MASK = (1, 1)
+
+
+def ssm_train(dev, bw, flops, tf32):
+    """mamba2-370m's PAOTA training at full width on the card (48 layers,
+    d_model 1,024, vocab 50,280, tied; ``paota_train``), as ``lm_train``
+    trains smollm-135m: K = 4, M = 2, 2 x 4,096 tokens a client, 3 rounds
+    with TRAIN_MASKS' stragglers; per client step one ``ssd_chunk`` and
+    one ``ssd_chunk_bwd`` launch a layer; gradients against the SSD twin's
+    forward and backward; a bf16 round. The profiled client step is
+    ``train_profile``'s, last."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SSM_ARCH)
+    layers = cfg.num_layers
+    rec = paota_train(
+        dev, "ssm_train", SSM_ARCH, cfg, k=TRAIN_K, m=TRAIN_M,
+        mb=TRAIN_BATCH // TRAIN_K, rounds=TRAIN_ROUNDS, masks=TRAIN_MASKS,
+        per_step={"ssd_chunk": layers, "ssd_chunk_bwd": layers},
+        twins={"ssd_intra_chunk_grouped": ssd_twin}, flops=flops, tf32=tf32)
+    rec["reduced"] = None
+    return finish(rec)
+
+
+def hybrid_train(dev, bw, flops, tf32):
+    """zamba2-7b's PAOTA training on the card at its published width
+    (d_model 3,584, 112 SSM heads, 32 attention heads of D 112, W 4,096)
+    with its depth cut to HYBRID_LAYERS of 81 layers (the shared block at
+    2 slots) to fit one card (``paota_train``): K = 2, M = 1, 1 x 4,096
+    tokens a client, one round with both clients, no bf16 round; per
+    client step one ``ssd_chunk`` and one ``ssd_chunk_bwd`` launch a
+    layer, one ``swa_attention`` and one ``swa_attention_bwd`` a shared
+    slot; gradients against both twins (SSD and attention)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import n_shared_slots
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=HYBRID_LAYERS)
+    slots = n_shared_slots(cfg)
+    rec = paota_train(
+        dev, "hybrid_train", HYBRID_ARCH, cfg, k=HYBRID_K, m=HYBRID_M,
+        mb=HYBRID_MB, rounds=HYBRID_ROUNDS,
+        masks=(HYBRID_MASK,) * HYBRID_ROUNDS,
+        per_step={"ssd_chunk": HYBRID_LAYERS, "ssd_chunk_bwd": HYBRID_LAYERS,
+                  "swa_attention": slots, "swa_attention_bwd": slots},
+        twins={"swa_attention": twin_attention,
+               "ssd_intra_chunk_grouped": ssd_twin},
+        flops=flops, tf32=tf32, bf16_round=False)
+    rec.update(shared_slots=slots, reduced={
+        "num_layers": [HYBRID_LAYERS, full.num_layers],
+        "shared_slots": [slots, n_shared_slots(full)],
+        "why": "f32 training of the full depth needs more than one card's "
+               "80 GB; width is as published"})
+    return finish(rec)
 
 
 SWEEPS = ("round_stats", "superpose_normalize")
@@ -4536,6 +4811,7 @@ def main() -> int:
     by_path["swa_path"] = swa["launches"]
     launches["swa_attention"] = swa["launches"]["swa_attention"]
     swa_bwd = swa_bwd_parity(dev, bw, flops, tf32)
+    ssd_bwd = ssd_bwd_parity(dev, bw, flops, tf32)
     lm = lm_serve(dev)
     by_path["lm_serve prefill"] = lm["launches"]["prefill_all"]
     by_path["lm_serve decode"] = lm["launches"]["decode_all"]
@@ -4595,6 +4871,19 @@ def main() -> int:
                       "superpose_normalize"):
             launches[kname] += rec["launches"][kname]
     torch.cuda.empty_cache()
+
+    # 15h. mamba2-370m's PAOTA training at full width and zamba2-7b's at
+    # full width, cut depth: the SSD kernel's forward and backward in
+    # every layer (zamba2: the attention pair at each shared slot)
+    launches["ssd_chunk_bwd"] = 0
+    for tag, rec in (("ssm_train", ssm_train(dev, bw, flops, tf32)),
+                     ("hybrid_train", hybrid_train(dev, bw, flops, tf32))):
+        for rnd in rec["rounds"]:
+            by_path[f"{tag} round {rnd['round']}"] = rnd["launches"]
+            for kname in ("ssd_chunk", "ssd_chunk_bwd", "swa_attention",
+                          "swa_attention_bwd", "superpose_normalize"):
+                launches[kname] += rnd["launches"][kname]
+        torch.cuda.empty_cache()
 
     # 16-17. the paper's harness at paper scale, the bench suite
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
@@ -4745,6 +5034,36 @@ def main() -> int:
                 f"{key}_bf16": o["bfloat16"][key] for key in (
                     "ms", "library_ms", "bound_ms", "bound_by")}
             for o in other_bwd]})
+    main_ssd, other_ssd = ssd_bwd[0], ssd_bwd[1:]
+    kernels.append({
+        "name": "ssd_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_chunk_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:81 (ssd_chunked's plain jnp, "
+                    "which jax.grad differentiates; no Pallas kernel)",
+        "launches": launches["ssd_chunk_bwd"],
+        "launches_by_path": {p: v["ssd_chunk_bwd"]
+                             for p, v in by_path.items()
+                             if "ssd_chunk_bwd" in v},
+        "max_abs_err": main_ssd["float32"]["max_abs_err"],
+        "max_abs_err_bf16": main_ssd["bfloat16"]["max_abs_err"],
+        **{f"{key}_bf16": main_ssd["bfloat16"][key] for key in (
+            "ms", "library_ms", "bound_ms", "bound_by")},
+        **{key: main_ssd[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library", "bound_cuda_cores_ms", "bound_as_run_ms",
+            "forward_ms", "shape", "model", "kv_heads", "causal")},
+        "yardstick_ms": main_ssd["yardstick_ms"],
+        "yardstick": main_ssd["yardstick"],
+        "dtype": "float32",
+        "other_shapes": [{key: o[key] for key in (
+            "model", "shape", "kv_heads", "causal", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_cuda_cores_ms",
+            "bound_as_run_ms")} | {
+                "max_abs_err": o["float32"]["max_abs_err"],
+                "max_abs_err_bf16": o["bfloat16"]["max_abs_err"]} | {
+                f"{key}_bf16": o["bfloat16"][key] for key in (
+                    "ms", "library_ms", "bound_ms", "bound_by")}
+            for o in other_ssd]})
     log({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -73,10 +73,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssd.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
+using ssd::clipped_exp;
+using ssd::load4;
+using ssd::store;
+using ssd::to_f32;
 using tc::cp_async16;
 using tc::cp_commit;
 using tc::cp_wait;
@@ -101,25 +106,11 @@ struct Params {
   int nc, q, h, g, n, p, rep, hs, h_sub, q_tiles, n_tiles, p_tiles, q_pad;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// exp(clip(x, -60, 0)), the reference's clip before exp
-__device__ __forceinline__ float clipped_exp(float x) {
-  return expf(fminf(fmaxf(x, -60.f), 0.f));
-}
-
 // Row strides in elements such that fragment loads hit 32 distinct banks:
 // "A" tiles are read as (row + g) * ld + t, "B" tiles as t * ld + g
 // (g = lane / 4, t = lane % 4), so ld is 4 words past a multiple of 32
@@ -198,24 +189,6 @@ __device__ __forceinline__ void zero_acc(float (&acc)[2][4][4]) {
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-}
-
-// Four consecutive elements as f32 (16-byte or 8-byte aligned loads)
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  v[0] = __low2float(lo);
-  v[1] = __high2float(lo);
-  v[2] = __low2float(hi);
-  v[3] = __high2float(hi);
 }
 
 // y block: (cell, group, query tile qt, head subset, P tile). Both of its

@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 SOURCES = ("round_stats", "aircomp_sum", "gather_superpose", "ssd_chunk",
-           "swa_attention")
+           "ssd_chunk_bwd", "swa_attention")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

@@ -104,28 +104,18 @@ def round_stats_compressed(values, idx, resid, resid_idx, g, scale=None):
                                       scale=scale)
 
 
-SSD_NO_BACKWARD = (
-    "the ssd_chunk kernel has no backward: training the ssm and hybrid "
-    "families on the card waits for a port of one (the reference trains "
-    "them with use_kernel=False, through no kernel); on the CPU they train "
-    "through the twin")
-
-
-def _no_ssd_backward(*tensors) -> None:
-    """Refuse a CUDA SSD call that autograd tracks: it would have no
-    gradient, and the twin is never taken on the card."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(SSD_NO_BACKWARD)
-
-
 def ssd_intra_chunk_grouped(cum, b, c, xdt):
     """The Mamba2 SSD intra-chunk part in ``ssd_chunked``'s layouts: cum
     (Bz, NC, Q, H) f32, B and C (Bz, NC, Q, G, N) (strided views are taken
     as they are), xdt (Bz, NC, Q, H, P). Returns ``(y (Bz, NC, Q, H, P),
-    state (Bz, NC, H, P, N) f32, chunk_decay (Bz, NC, H) f32)``."""
+    state (Bz, NC, H, P, N) f32, chunk_decay (Bz, NC, H) f32)``. On the
+    card, where autograd tracks an input, the kernel runs under
+    ``ssd_intra_chunk_grouped_train`` (the forward kernel, then the
+    backward kernel); on the CPU the twin runs under torch's autograd."""
     if _route(cum.device, "ssd_intra_chunk_grouped"):
-        _no_ssd_backward(cum, b, c, xdt)
-        fn = _ssd.ssd_intra_chunk_grouped_cuda
+        fn = (_ssd.ssd_intra_chunk_grouped_train
+              if _swa.tracks_grad(cum, b, c, xdt)
+              else _ssd.ssd_intra_chunk_grouped_cuda)
     else:
         fn = _ssd.ssd_intra_chunk_grouped_plain
     return fn(cum, b, c, xdt)
@@ -134,10 +124,11 @@ def ssd_intra_chunk_grouped(cum, b, c, xdt):
 def ssd_intra_chunk(cum, b, c, xdt):
     """The reference-shaped SSD intra-chunk part over G = batch * chunks *
     heads cells: ``(y (G, Q, P), state (G, N, P) f32, chunk_decay (G,)
-    f32)``; the same kernel as ``ssd_intra_chunk_grouped`` with H = G = 1."""
+    f32)``; the same kernels as ``ssd_intra_chunk_grouped`` with H = G =
+    1, routed the same way."""
     if _route(cum.device, "ssd_intra_chunk"):
-        _no_ssd_backward(cum, b, c, xdt)
-        fn = _ssd.ssd_intra_chunk_cuda
+        fn = (_ssd.ssd_intra_chunk_train if _swa.tracks_grad(cum, b, c, xdt)
+              else _ssd.ssd_intra_chunk_cuda)
     else:
         fn = _ssd.ssd_intra_chunk_plain
     return fn(cum, b, c, xdt)

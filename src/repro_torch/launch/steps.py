@@ -28,7 +28,6 @@ from torch.func import functional_call
 
 from repro_torch.core.aggregation import paota_aggregate_stacked
 from repro_torch.device import f32
-from repro_torch.kernels.ops import SSD_NO_BACKWARD
 from repro_torch.launch.shapes import InputShape, shape_config
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -183,15 +182,7 @@ def make_paota_train_step(model: nn.Module, shape: InputShape,
     (sigma_over_varsigma = 0: the noiseless contraction, no sweep);
     participants (mask 1) take the aggregate and stragglers keep their
     local params. Leaves keep the store's dtype. Metrics: ``loss`` (the
-    mean of the K x M step losses), ``varsigma``, ``participants``.
-
-    On the card the ssm and hybrid families raise: the ``ssd_chunk``
-    kernel has no backward."""
-    cfg = model.cfg
-    if model.device.type == "cuda" and cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) on the card: "
-            f"{SSD_NO_BACKWARD}")
+    mean of the K x M step losses), ``varsigma``, ``participants``."""
     k = max(int(k_clients), 1)
     noise = KeyedNormal() if noise is None else noise
     mb_total = max(shape.global_batch // k, 1)

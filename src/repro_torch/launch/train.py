@@ -17,8 +17,10 @@ family random frames with ``mask_prob`` masked and the stream's tokens as
 targets), a mask of participants drawn at 0.8 (at least one), powers 15,
 the noise keyed on the round. It prints one line a round (loss,
 participants, seconds) and with ``--checkpoint`` writes the stacked params
-in the reference's npz layout. On the card the ssm and hybrid families
-raise (the ``ssd_chunk`` kernel has no backward).
+in the reference's npz layout. On the card every family trains through
+the port's kernels: the attention families through ``swa_attention`` and
+its backward, the ssm and hybrid families through ``ssd_chunk`` and its
+backward (``ssd_chunk_bwd``; the hybrid through both pairs).
 """
 from __future__ import annotations
 

@@ -47,9 +47,10 @@ vlm text loss, the audio masked-prediction loss, the moe family's
 ``XENT_CHUNK_THRESHOLD``. ``cfg.remat == "block"`` checkpoints each
 block under autograd (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` per layer). On the card the attention families train
-through the attention kernel and its backward; the ssm and hybrid
-families raise there (the ``ssd_chunk`` kernel has no backward) and
-train on the CPU through the twin.
+through the attention kernel and its backward, the ssm and hybrid
+families through the SSD intra-chunk kernel and its backward (the
+hybrid's shared block through the attention pair too); on the CPU every
+family trains through the twins under torch's autograd.
 """
 from __future__ import annotations
 

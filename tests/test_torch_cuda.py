@@ -871,22 +871,14 @@ def test_swa_attention_window_gqa6(cuda, t, scale):
 
 
 def _grouped_case(dev, bz, nc, q, h, g, n, p, dtype, seed, offset=None):
-    """Grouped SSD inputs: cum (Bz, NC, Q, H), xdt (Bz, NC, Q, H, P), and B,
-    C (Bz, NC, Q, G, N), either contiguous or, with ``offset``, strided
-    views of one conv-output-like (Bz, NC*Q, offset + 2 G N) tensor."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    cum = -torch.cumsum(0.05 + 0.2 * torch.rand((bz, nc, q, h), generator=gen,
-                                                device=dev), dim=2)
-    xdt = torch.randn((bz, nc, q, h, p), generator=gen, device=dev).to(dtype)
-    if offset is None:
-        b, c = (torch.randn((bz, nc, q, g, n), generator=gen,
-                            device=dev).to(dtype) for _ in range(2))
-    else:
-        xbc = torch.randn((bz, nc * q, offset + 2 * g * n), generator=gen,
-                          device=dev).to(dtype)
-        b = xbc[..., offset:offset + g * n].reshape(bz, nc, q, g, n)
-        c = xbc[..., offset + g * n:].reshape(bz, nc, q, g, n)
-        assert not b.is_contiguous()
+    """Grouped SSD inputs (``ssd_chunk.grouped_example``): cum (Bz, NC, Q,
+    H), xdt (Bz, NC, Q, H, P), and B, C (Bz, NC, Q, G, N), either
+    contiguous or, with ``offset``, strided views of one conv-output-like
+    (Bz, NC*Q, offset + 2 G N) tensor."""
+    from repro_torch.kernels import ssd_chunk as sc
+    cum, b, c, xdt = sc.grouped_example(bz, nc, q, h, g, n, p, dtype=dtype,
+                                        seed=seed, offset=offset, device=dev)
+    assert offset is None or not b.is_contiguous()
     return cum, b, c, xdt
 
 
@@ -1311,19 +1303,153 @@ def test_train_step_on_card_matches_cpu_route(cuda, arch):
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
 def test_recurrent_training_on_card_names_the_ssd_backward(cuda, arch):
-    """The ssm and hybrid families do not train on the card: the train step
-    and a loss backward through the model both refuse, naming the missing
-    ssd_chunk backward, and nothing falls back to the twin."""
+    """The ssm and hybrid families train on the card through the SSD
+    backward kernel: one PAOTA round (K = 2, M = 2, client 1 straggling,
+    one noise draw for both; T = 40, no multiple of the 32-token chunk) of
+    the reduced config against the same round on the CPU route, every leaf
+    at the LM tolerance; per client step one ssd_chunk and one
+    ssd_chunk_bwd launch a layer (the hybrid: one swa_attention and one
+    swa_attention_bwd a shared slot), one sweep 2 per leaf; nothing falls
+    back to the twin."""
+    import copy
     from repro_torch.configs import get_reduced
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels import swa_attention as sw
     from repro_torch.launch import steps
     from repro_torch.launch.shapes import InputShape
     from repro_torch.models import init_model
-    from repro_torch.models.transformer import loss_fn
+    from repro_torch.models.transformer import n_shared_slots
+    from repro_torch.tree import tree_leaves, tree_map
     cfg = get_reduced(arch)
-    model = init_model(cfg, seed=0, device=cuda)
-    with pytest.raises(NotImplementedError, match="ssd_chunk"):
-        steps.make_paota_train_step(model, InputShape("t", 32, 2, "train"),
-                                    1)
-    tokens = torch.zeros((1, 32), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ssd_chunk"):
-        loss_fn(model.trainable(), {"tokens": tokens})
+    k, m, mb, t = 2, 2, 2, 40
+    model = init_model(cfg, seed=0, device="cpu")
+    store = steps.stack_params(model, k)
+    batch = _train_batch(cfg, k, m, mb, t, 1)
+    d = sum(x[0].numel() for x in tree_leaves(store))
+    draw = torch.randn((d,), generator=torch.Generator().manual_seed(2))
+    powers, mask = torch.tensor([3.0, 5.0]), torch.tensor([1.0, 0.0])
+    shape = InputShape("t", t, k * mb, "train")
+    slots = n_shared_slots(cfg) if cfg.family == "hybrid" else 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mod = copy.deepcopy(model).to(dev)
+        step = steps.make_paota_train_step(
+            mod, shape, k, lr=0.05, local_steps=m,
+            noise=lambda key, n, device: draw.to(device))
+        counts = (sc.launches, sc.bwd_launches, sw.launches,
+                  sw.bwd_launches, ac.launches)
+        st, metrics = step(tree_map(lambda x: x.to(dev), store),
+                           {n: x.to(dev) for n, x in batch.items()},
+                           powers.to(dev), mask.to(dev), 0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n_steps = k * m
+            assert (sc.launches - counts[0], sc.bwd_launches - counts[1],
+                    sw.launches - counts[2], sw.bwd_launches - counts[3],
+                    ac.launches - counts[4]) == (
+                        n_steps * cfg.num_layers, n_steps * cfg.num_layers,
+                        n_steps * slots, n_steps * slots,
+                        len(tree_leaves(st)))
+        out[dev] = (st, metrics)
+    for got, want in zip(tree_leaves(out["cuda"][0]),
+                         tree_leaves(out["cpu"][0])):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(out["cuda"][1]["loss"].cpu(),
+                               out["cpu"][1]["loss"], rtol=1e-4, atol=1e-5)
+
+
+# the SSD backward's cases (Bz, NC, Q, H, G, N, P, offset of B in a conv
+# output or None for contiguous B and C, the log-decay's steepness): a
+# reduced one, mamba2-370m's train microbatch (2 x 4,096 tokens) and
+# zamba2-7b's (1 x 4,096) on views of their conv outputs, a group per head,
+# ragged Q / N / P, N and P over one 64-wide tile, views whose rows are no
+# 16-byte multiple, and log-decays steep enough that the -60 clip binds
+SSD_BWD_CASES = {
+    "reduced": (2, 3, 64, 8, 2, 32, 32, None, 0.2),
+    "mamba2-370m": (2, 16, 256, 32, 1, 128, 64, 2048, 0.2),
+    "zamba2-7b": (1, 16, 256, 112, 1, 64, 64, 7168, 0.2),
+    "G-eq-H": (2, 2, 64, 4, 4, 32, 32, None, 0.2),
+    "ragged": (1, 2, 100, 8, 2, 40, 70, None, 0.2),
+    "wide": (1, 1, 200, 4, 1, 130, 72, None, 0.2),
+    "unaligned": (1, 2, 100, 8, 2, 40, 64, 3, 0.2),
+    "clip": (1, 2, 256, 4, 1, 64, 64, None, 1.0)}
+
+
+def _ssd_bwd_case(dev, name, dtype):
+    """cum, b, c, xdt, dy, dstate, ddecay for a SSD_BWD_CASES entry
+    (``ssd_chunk.grouped_bwd_example``)."""
+    from repro_torch.kernels import ssd_chunk as sc
+    bz, nc, q, h, g, n, p, offset, steep = SSD_BWD_CASES[name]
+    return sc.grouped_bwd_example(bz, nc, q, h, g, n, p, steep=steep,
+                                  dtype=dtype, seed=q + h + n + p,
+                                  offset=offset, device=dev)
+
+
+def _ssd_bwd_close(got, want, dtype):
+    """f32 within 2e-5 and bf16 within 2e-2, relative to each gradient's
+    largest |value| where that exceeds 1 (dcum sums up to Q^2 terms)."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for name, a, w in zip(("dcum", "db", "dc", "dxdt"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        scale = max(1.0, float(w.float().abs().max()))
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol,
+                                   atol=tol * scale, msg=name)
+
+
+@pytest.mark.parametrize("case", list(SSD_BWD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_matches_twin(cuda, case, dtype):
+    """The SSD backward kernel against its plain twin, one count a call,
+    bit-identical on repeat."""
+    from repro_torch.kernels import ssd_chunk as sc
+    args = _ssd_bwd_case(cuda, case, dtype)
+    if case == "clip":
+        cum = args[0]
+        assert bool((cum[:, :, -1] - cum[:, :, 0] < -60.0).any())
+    before = sc.bwd_launches
+    got = sc.ssd_intra_chunk_grouped_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert sc.bwd_launches == before + 1
+    want = sc.ssd_intra_chunk_grouped_bwd_plain(*args)
+    _ssd_bwd_close(got, want, dtype)
+    again = sc.ssd_intra_chunk_grouped_bwd_cuda(*args)
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("case", ["reduced", "unaligned"])
+def test_ssd_autograd_on_card_matches_cpu(cuda, case):
+    """``ops.ssd_intra_chunk_grouped`` under autograd on the card (the
+    forward and the backward kernel, one launch each) against the twin
+    under torch's autograd on the CPU: the gradients of the same
+    cotangents in cum, xdt and the conv output B and C are views of."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
+    bz, nc, q, h, g, n, p, offset, _ = SSD_BWD_CASES[case]
+    gen = torch.Generator().manual_seed(7)
+    cum0 = -torch.cumsum(0.05 + 0.2 * torch.rand((bz, nc, q, h),
+                                                 generator=gen), dim=2)
+    off = offset or 0
+    xbc0 = torch.randn((bz, nc * q, off + 2 * g * n), generator=gen)
+    xdt0 = torch.randn((bz, nc, q, h, p), generator=gen)
+    cots = [torch.randn(s, generator=gen) for s in (
+        (bz, nc, q, h, p), (bz, nc, h, p, n), (bz, nc, h))]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [x.to(dev).requires_grad_() for x in (cum0, xbc0, xdt0)]
+        cum, xbc, xdt = leaves
+        b = xbc[..., off:off + g * n].reshape(bz, nc, q, g, n)
+        c = xbc[..., off + g * n:].reshape(bz, nc, q, g, n)
+        fwd, bwd = sc.launches, sc.bwd_launches
+        outs = ops.ssd_intra_chunk_grouped(cum, b, c, xdt)
+        grads[dev] = [x.cpu() for x in torch.autograd.grad(
+            outs, leaves, [x.to(dev) for x in cots])]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (sc.launches - fwd, sc.bwd_launches - bwd) == (1, 1)
+    for name, a, w in zip(("cum", "xbc", "xdt"), grads["cuda"],
+                          grads["cpu"]):
+        scale = max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(a, w, rtol=2e-5, atol=2e-5 * scale,
+                                   msg=name)
