@@ -3482,6 +3482,9 @@ def profile_client_step(fn):
             "swa_bwd_ms": share("swa_bwd"),
             "swa_fwd_ms": share("swa_attention_kernel"),
             "ssd_bwd_ms": share("ssd_bwd"),
+            "ssd_bwd_by_kernel": {
+                name: share(name) for name in (
+                    "ssd_bwd_scores", "ssd_bwd_heads", "ssd_bwd_reduce")},
             "ssd_fwd_ms": share("ssd_grouped_kernel"),
             "gemm_ms": share("gemm", "sm90", "cutlass", "xmma", "sgemm"),
             "top": [{"kernel": k[:120], "ms": us / 1e3, "count": n}
@@ -3886,12 +3889,15 @@ def ssd_bwd_parity(dev, bw, flops, tf32):
     tolerance), two calls bit-identical. Timed (f32 and bf16) beside the
     twin and the forward kernel against the bound: the larger of the bytes
     and the operations, in f32 in f32-accurate 3xTF32 (495 / 3 TFLOP/s on
-    an H100) as the attention backward's bound is, with the CUDA cores'
-    rate beside it (``bound_cuda_cores_ms``, also ``bound_as_run_ms``:
-    every product of the kernel is an f32 FMA chain); in bf16 at the bf16
-    rate (990 TFLOP/s), products with an f32 operand counted twice.
-    Library: none; cuBLAS's bmm of the group's dS with B stands as a
-    partial yardstick, as bmm(C, B^T) does for the forward."""
+    an H100) as the attention backward's bound is and as the kernel runs
+    every product (``bound_as_run_ms``), with the CUDA cores' rate beside
+    it (``bound_cuda_cores_ms``); in bf16 at the bf16 rate (990 TFLOP/s),
+    products with an f32 operand counted twice, as the kernel splits that
+    operand into bf16 hi + lo. Each record names the staging the case's
+    strides choose (``ssd_chunk._bwd_vec16``: 16-byte cp.async or plain
+    loads) and the launches' blocks (``ssd_chunk.bwd_blocks``). Library:
+    none; cuBLAS's bmm of the group's dS with B stands as a partial
+    yardstick, as bmm(C, B^T) does for the forward."""
     from repro_torch.kernels import ssd_chunk as sc
     flush = l2_flush(dev)
     recs = []
@@ -3901,12 +3907,22 @@ def ssd_bwd_parity(dev, bw, flops, tf32):
                                       else f"synthetic ({name})"), "shape": {
             "Bz": bz, "NC": nc, "Q": q, "H": h, "G": g, "N": n, "P": p},
             "b_c_views_of_conv_output": offset is not None, "kv_heads": None,
-            "causal": True, "library": "none", "library_ms": None}
+            "causal": True, "library": "none", "library_ms": None,
+            "products": "mma.sync: 3xTF32 m16n8k8 (f32); bf16 m16n8k16, "
+                        "f32 operands split into bf16 hi + lo (bf16)",
+            "blocks": sc.bwd_blocks(bz, nc, q, h, g, n, p)}
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).split(".")[-1]
             args = sc.grouped_bwd_example(
                 bz, nc, q, h, g, n, p, offset=offset, steep=steep,
                 dtype=dtype, seed=q + h + n + p, device=dev)
+            rec[f"staging_{key}"] = ("cp.async" if sc._bwd_vec16(*args[1:6])
+                                     else "plain loads")
+            # views 3 elements into the conv output take plain loads
+            if rec[f"staging_{key}"] != ("plain loads" if offset == 3
+                                         else "cp.async"):
+                raise AssertionError(f"ssd_bwd {name} {key}: staged by "
+                                     f"{rec[f'staging_{key}']}")
             if name == "clip":
                 cum = args[0]
                 rec["clip_binds"] = bool(
@@ -3964,7 +3980,7 @@ def ssd_bwd_parity(dev, bw, flops, tf32):
                     yardstick="torch.bmm(sum_h dS, B) per group (partial: "
                               "one of the backward's products, full Q x Q)",
                     bound_cuda_cores_ms=cuda_cores,
-                    bound_as_run_ms=cuda_cores,
+                    bound_as_run_ms=sub["bound_ms"],
                     bound_ms=sub["bound_ms"], bound_by=sub["bound_by"])
                 del dsg, bg
             rec[key] = sub

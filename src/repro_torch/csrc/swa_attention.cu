@@ -115,37 +115,9 @@ __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Four 8 x 8 b16 matrices, transposed: lane l names row l % 8 of matrix
-// l / 8; r[i] is matrix i's fragment
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const unsigned char* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// d += a b, one m16n8k16 bf16 product with f32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// (x, y) = hi + lo, each a bf16 pair (x in the low half)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
+using tc::ldsm_x4_trans;
+using tc::mma_bf16;
+using tc::split_bf16;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {

@@ -39,12 +39,15 @@ differentiates ``ssd_chunked``'s plain jnp (``repro/models/ssm.py:81``).
 ``ssd_intra_chunk_grouped_bwd_cuda`` launches ``csrc/ssd_chunk_bwd.cu``
 (three kernels, one count in ``bwd_launches``): from the saved cum, B, C,
 xdt and the outputs' gradients it recomputes C B^T and the decays and
-returns (dcum, dB, dC, dxdt), every product an f32 FMA chain on the
-CUDA cores, the heads of a group summing dS before the dB and dC
-products, no atomics (bit-identical on repeat). At mamba2-370m's train
-microbatch (Bz 2, NC 16, H 32, Q 256, N 128, P 64) that is 18.2 GFLOP:
-0.11 ms on an H100 in f32-accurate 3xTF32 (495 / 3 TFLOP/s), 0.27 at the
-CUDA cores' 67 TFLOP/s, as this kernel runs it. ``ssd_intra_chunk_grouped_bwd_plain`` is its twin,
+returns (dcum, dB, dC, dxdt). Every product runs on the tensor cores
+(``mma.sync``: 3xTF32 in f32; in bf16 one m16n8k16 pass, two where an
+operand is f32 and split into bf16 hi + lo), its tiles staged through a
+cp.async ring where ``_bwd_vec16`` holds; the heads of a group sum dS in
+subsets of ``bwd_heads_per_block`` before the dB and dC products, no
+atomics (bit-identical on repeat); ``bwd_blocks`` counts its blocks. At
+mamba2-370m's train microbatch (Bz 2, NC 16, H 32, Q 256, N 128, P 64)
+that is 18.2 GFLOP: 0.11 ms on an H100 in f32-accurate 3xTF32 (495 / 3
+TFLOP/s). ``ssd_intra_chunk_grouped_bwd_plain`` is its twin,
 the formulas written out. ``ssd_intra_chunk_grouped_train`` (and the
 reference-shaped ``ssd_intra_chunk_train``) run the forward kernel under
 ``_SsdIntraChunk``, a ``torch.autograd.Function`` whose backward is the
@@ -65,6 +68,7 @@ bwd_launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_Q = 512          # the kernel's score rows and B slab fit shared memory
 HEADS_PER_BLOCK = 8  # csrc/ssd_chunk.cu's head subset (at most)
+BWD_HEADS_PER_BLOCK = 16   # csrc/ssd_chunk_bwd.cu's head subset (at most)
 
 
 def check_grouped(cum, b, c, xdt) -> None:
@@ -271,10 +275,36 @@ def grouped_bwd_example(bz, nc, q, h, g, n, p, *, steep=0.2,
     return cum, b, c, xdt, dy, dstate, ddecay
 
 
-def heads_per_block(rep: int) -> int:
-    """The kernel's head subset: the largest divisor of rep up to 8."""
-    return max(d for d in range(1, min(rep, HEADS_PER_BLOCK) + 1)
-               if rep % d == 0)
+def heads_per_block(rep: int, cap: int = HEADS_PER_BLOCK) -> int:
+    """The kernel's head subset: the largest divisor of rep up to ``cap``
+    (8, the forward's)."""
+    return max(d for d in range(1, min(rep, cap) + 1) if rep % d == 0)
+
+
+def bwd_heads_per_block(rep: int) -> int:
+    """The backward's head subset, the pair and state blocks' heads: the
+    largest divisor of rep up to 16."""
+    return heads_per_block(rep, BWD_HEADS_PER_BLOCK)
+
+
+def bwd_blocks(bz, nc, q, h, g, n, p) -> dict:
+    """The backward's blocks per launch, as ``csrc/ssd_chunk_bwd.cu``
+    lays them out over (cell, group) x roles, 64-row tiles: ``scores`` one
+    per lower (query tile, key tile) pair; ``heads`` state blocks (head
+    subset, key tile), pair blocks (head subset, pair) and dxdt blocks
+    (head, key tile); ``reduce`` (row tile, N tile, dC or dB)."""
+    rep = h // g
+    hs = bwd_heads_per_block(rep)
+    q_tiles, n_tiles = -(-q // 64), -(-n // 64)
+    pairs = q_tiles * (q_tiles + 1) // 2
+    cells = bz * nc * g
+    state, pair = rep // hs * q_tiles, rep // hs * pairs
+    dxdt = rep * q_tiles
+    return {"heads_per_block": hs, "subsets": rep // hs,
+            "scores": cells * pairs, "state": cells * state,
+            "pair": cells * pair, "dxdt": cells * dxdt,
+            "heads": cells * (state + pair + dxdt),
+            "reduce": cells * q_tiles * n_tiles * 2}
 
 
 def _lib():
@@ -292,6 +322,14 @@ def _vec16(b, c, xdt) -> bool:
     strides = [s * sz for t in (b, c) for s in t.stride()[:4]]
     strides.append(xdt.shape[4] * sz)       # a head's row offset in xdt
     return all(v % 16 == 0 for v in ptrs + strides)
+
+
+def _bwd_vec16(b, c, xdt, dy, dstate) -> bool:
+    """The backward's staging variant, as ``repro_ssd_grouped_bwd`` picks
+    it: True (16-byte cp.async) when every tile row it stages from B, C,
+    xdt, dy and dstate starts on 16 bytes, else plain loads."""
+    return (_vec16(b, c, xdt) and dy.data_ptr() % 16 == 0
+            and dstate.data_ptr() % 16 == 0 and dstate.shape[4] * 4 % 16 == 0)
 
 
 def ssd_intra_chunk_grouped_cuda(cum, b, c, xdt):
@@ -350,7 +388,7 @@ def ssd_intra_chunk_grouped_bwd_cuda(cum, b, c, xdt, dy, dstate, ddecay):
                          f"tensors, got {cum.device}")
     bz, nc, q, h = cum.shape
     g, n, p = b.shape[3], b.shape[4], xdt.shape[4]
-    hs = heads_per_block(h // g)
+    hs = bwd_heads_per_block(h // g)
     fn, ws = _bwd_lib()
     nbytes = ws(bz, nc, q, h, g, n, p, hs)
     if nbytes <= 0:

@@ -1364,7 +1364,11 @@ def test_recurrent_training_on_card_names_the_ssd_backward(cuda, arch):
 # reduced one, mamba2-370m's train microbatch (2 x 4,096 tokens) and
 # zamba2-7b's (1 x 4,096) on views of their conv outputs, a group per head,
 # ragged Q / N / P, N and P over one 64-wide tile, views whose rows are no
-# 16-byte multiple, and log-decays steep enough that the -60 clip binds
+# 16-byte multiple (staged by plain loads, as are P = 70 and N = 130),
+# log-decays steep enough that the -60 clip binds, and zamba2-7b's 112
+# heads at N = 64 over one 64-row tile, where every key tile is kt = 0 (a
+# dxdt block a head), the kernel's largest chunk (Q = 512), and 17 heads a
+# group, whose subsets are single heads (17 partials summed as they land)
 SSD_BWD_CASES = {
     "reduced": (2, 3, 64, 8, 2, 32, 32, None, 0.2),
     "mamba2-370m": (2, 16, 256, 32, 1, 128, 64, 2048, 0.2),
@@ -1373,7 +1377,12 @@ SSD_BWD_CASES = {
     "ragged": (1, 2, 100, 8, 2, 40, 70, None, 0.2),
     "wide": (1, 1, 200, 4, 1, 130, 72, None, 0.2),
     "unaligned": (1, 2, 100, 8, 2, 40, 64, 3, 0.2),
-    "clip": (1, 2, 256, 4, 1, 64, 64, None, 1.0)}
+    "clip": (1, 2, 256, 4, 1, 64, 64, None, 1.0),
+    "heads-112-kt0": (1, 4, 64, 112, 1, 64, 64, None, 0.2),
+    "q512": (1, 1, 512, 4, 1, 64, 64, None, 0.2),
+    "subsets-17": (1, 2, 128, 17, 1, 32, 32, None, 0.2)}
+# the cases the backward stages by plain loads (ssd_chunk._bwd_vec16)
+SSD_BWD_PLAIN_LOADS = ("ragged", "wide", "unaligned")
 
 
 def _ssd_bwd_case(dev, name, dtype):
@@ -1401,9 +1410,11 @@ def _ssd_bwd_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_bwd_kernel_matches_twin(cuda, case, dtype):
     """The SSD backward kernel against its plain twin, one count a call,
-    bit-identical on repeat."""
+    bit-identical on repeat, in the staging variant the case's strides
+    choose."""
     from repro_torch.kernels import ssd_chunk as sc
     args = _ssd_bwd_case(cuda, case, dtype)
+    assert sc._bwd_vec16(*args[1:6]) == (case not in SSD_BWD_PLAIN_LOADS)
     if case == "clip":
         cum = args[0]
         assert bool((cum[:, :, -1] - cum[:, :, 0] < -60.0).any())
@@ -1416,6 +1427,53 @@ def test_ssd_bwd_kernel_matches_twin(cuda, case, dtype):
     again = sc.ssd_intra_chunk_grouped_bwd_cuda(*args)
     for a, w in zip(got, again):
         assert torch.equal(a, w)
+
+
+def _ssd_forward_f64(cum, b, c, xdt):
+    """``ssd_intra_chunk_grouped_plain``'s formulas in f64 (the twin takes
+    f32 and bf16 only): (y, state, chunk_decay), differentiable."""
+    bz, nc, q, h = cum.shape
+    g, n, p = b.shape[3], b.shape[4], xdt.shape[4]
+    rep = h // g
+    b6 = b.permute(0, 1, 3, 2, 4)[:, :, :, None]
+    c6 = c.permute(0, 1, 3, 2, 4)[:, :, :, None]
+    x6 = xdt.permute(0, 1, 3, 2, 4).reshape(bz, nc, g, rep, q, p)
+    cumh = cum.permute(0, 1, 3, 2).reshape(bz, nc, g, rep, q)
+    decay = torch.exp(torch.clamp(cumh[..., :, None] - cumh[..., None, :],
+                                  -60.0, 0.0))
+    causal = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
+    scores = torch.where(causal, (c6 @ b6.transpose(-1, -2)) * decay, 0.0)
+    y = (scores @ x6).reshape(bz, nc, h, q, p).permute(0, 1, 3, 2, 4)
+    tail = torch.exp(torch.clamp(cumh[..., -1:] - cumh, -60.0, 0.0))
+    state = x6.transpose(-1, -2) @ (b6 * tail[..., None])
+    return (y, state.reshape(bz, nc, h, p, n),
+            torch.exp(torch.clamp(cum[:, :, -1], -60.0, 0.0)))
+
+
+def test_ssd_bwd_large_gradients_f64(cuda):
+    """mamba2-370m's chunk (Q 256, N 128, P 64) with 8 heads of one group
+    at the default steepness, where the gradients reach ~1e3 (dcum sums
+    dS * S over up to Q^2 terms): the kernel's four gradients, f32, and the
+    twin's beside them, against torch's f64 autograd of the forward's
+    formulas on the same values, each within 2e-5 of its largest |value|
+    (3xTF32's partials from zeroed accumulators, summed in depth order,
+    must not drift past it)."""
+    from repro_torch.kernels import ssd_chunk as sc
+    args = sc.grouped_bwd_example(1, 2, 256, 8, 1, 128, 64, seed=11,
+                                  device=cuda)
+    leaves = [x.double().requires_grad_() for x in args[:4]]
+    want = torch.autograd.grad(_ssd_forward_f64(*leaves), leaves,
+                               [x.double() for x in args[4:]])
+    got = sc.ssd_intra_chunk_grouped_bwd_cuda(*args)
+    twin = sc.ssd_intra_chunk_grouped_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert float(want[0].abs().max()) > 100.0
+    for name, a, t, w in zip(("dcum", "db", "dc", "dxdt"), got, twin, want):
+        scale = float(w.abs().max())
+        for who, x in (("kernel", a), ("twin", t)):
+            torch.testing.assert_close(x.double(), w, rtol=0.0,
+                                       atol=2e-5 * scale,
+                                       msg=f"{who} {name}")
 
 
 @pytest.mark.parametrize("case", ["reduced", "unaligned"])

@@ -175,6 +175,69 @@ def test_bwd_cuda_wrapper_refuses_cpu_tensors():
         sc.ssd_intra_chunk_grouped_bwd_cuda(*args)
 
 
+# (dtype, offset of B in the conv output or None, N, P, whether every row
+# the backward stages starts on 16 bytes)
+STAGING_CASES = [
+    (torch.float32, None, 32, 32, True),
+    (torch.float32, 2048, 128, 64, True),      # mamba2-370m's views
+    (torch.float32, 3, 40, 64, False),         # the card's "unaligned"
+    (torch.float32, None, 40, 70, False),      # P = 70: a head's 280 bytes
+    (torch.float32, None, 130, 72, False),     # N = 130: rows of 520 bytes
+    (torch.bfloat16, None, 32, 32, True),
+    (torch.bfloat16, 8, 64, 64, True),         # 16 bytes into the output
+    (torch.bfloat16, 3, 40, 64, False),
+    (torch.bfloat16, None, 64, 36, False)]     # P = 36: 72 bytes
+
+
+@pytest.mark.parametrize("dtype,offset,n,p,aligned", STAGING_CASES)
+def test_bwd_staging_variant(dtype, offset, n, p, aligned):
+    """``_bwd_vec16``, the backward's staging variant as
+    ``repro_ssd_grouped_bwd`` picks it from the pointers and strides:
+    16-byte cp.async where every tile row of B, C, xdt, dy and dstate
+    starts on 16 bytes, plain loads for views 3 elements into the conv
+    output and for a P or N whose rows are no 16-byte multiple; the
+    forward's ``_vec16`` agrees where dy and dstate add nothing."""
+    args = sc.grouped_bwd_example(1, 2, 64, 4, 2, n, p, dtype=dtype,
+                                  offset=offset)
+    assert sc._bwd_vec16(*args[1:6]) == aligned
+    if n % 4 == 0:
+        assert sc._vec16(*args[1:4]) == aligned
+
+
+@pytest.mark.parametrize("shape,want", [
+    # mamba2-370m's train microbatch: Bz 2, NC 16, Q 256, H 32, G 1, N 128
+    ((2, 16, 256, 32, 1, 128, 64),
+     dict(heads_per_block=16, subsets=2, scores=320, state=256, pair=640,
+          dxdt=4096, heads=4992, reduce=512)),
+    # zamba2-7b's: Bz 1, NC 16, H 112, N 64
+    ((1, 16, 256, 112, 1, 64, 64),
+     dict(heads_per_block=16, subsets=7, scores=160, state=448, pair=1120,
+          dxdt=7168, heads=8736, reduce=128)),
+    # 112 heads over one 64-row tile: every key tile kt = 0
+    ((1, 4, 64, 112, 1, 64, 64),
+     dict(heads_per_block=16, subsets=7, scores=4, state=28, pair=28,
+          dxdt=448, heads=504, reduce=8)),
+    # two groups, ragged Q and N
+    ((1, 2, 100, 8, 2, 40, 70),
+     dict(heads_per_block=4, subsets=1, scores=12, state=8, pair=12,
+          dxdt=32, heads=52, reduce=16))])
+def test_bwd_blocks(shape, want):
+    """The backward's head subset and its blocks per launch at both
+    models' shapes: one dxdt block a head and key tile (no serial head
+    loop), pair and state blocks over subsets of up to 16 heads."""
+    assert sc.bwd_blocks(*shape) == want
+
+
+@pytest.mark.parametrize("rep,hs", [(1, 1), (4, 4), (7, 7), (24, 12),
+                                    (32, 16), (112, 16)])
+def test_bwd_heads_per_block(rep, hs):
+    """The largest divisor of the heads a group up to 16; the forward's
+    subset stays at most 8."""
+    assert sc.bwd_heads_per_block(rep) == hs
+    assert sc.heads_per_block(rep) == max(
+        d for d in range(1, min(rep, 8) + 1) if rep % d == 0)
+
+
 @pytest.mark.parametrize("offset,steep", [(None, 0.2), (3, 1.0)])
 def test_bwd_example_inputs_are_what_the_kernel_takes(offset, steep):
     """``grouped_bwd_example``, the draw the card's checks hold the kernel
