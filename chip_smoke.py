@@ -16,6 +16,15 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   100 rounds per mode), fault injection with screening, the norm fence and
   the divergence rollback (``faults``), and checkpoint/resume bit for bit
   (dense f32, dense bf16 with rollback, the compressed int8 cohort);
+- the sharded round (``ShardedPAOTA``, ``sharded``): 4 ranks sharing
+  this card over gloo (NCCL refuses two ranks on one device), spawned
+  once after a probe of gloo's sum / min / max on CUDA tensors, run
+  flat (K = 100 both transmit modes, K = 1000), pytree, phantom-padded
+  (K = 102), grouped (2 pods x 2 at N = 1 and N = 4), TP (2 x 2) and
+  with pod 1 blacked out, each against a single-process FusedPAOTA on
+  the same counter draws round for round, with the reducer's calls and
+  each rank's launches of sweep 1 and of the partial entry (once a leaf
+  a round); then the partial entry against its twin and ``torch.mv``;
 - the host-path ``PAOTAServer`` (30 rounds without and 30 with
   ``use_kernel``, the ``aircomp_sum`` kernel's route), held against the
   fused round on the same counter draws;
@@ -120,7 +129,8 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
 
 It times the seven kernels (the two sweeps also in bf16, as the pytree
 carry's six per-leaf launches and at the train store's leaves), the
-attention backward and the SSD backward with ``repro_torch.bench.timing``,
+attention backward, the SSD backward and the sharded round's partial
+entry with ``repro_torch.bench.timing``,
 the benches' own method, and prints one JSON record per phase. Its last
 three lines are the ``kernels`` record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -4655,6 +4665,266 @@ def swa_time(dev, name, dtype, flush, bw, flops, tf32):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the sharded round: 4 ranks over gloo on cuda:0 against the fused round
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 4
+SHARDED_TOL = {"model": dict(rtol=1e-4, atol=1e-5),
+               "delta": dict(rtol=1e-4, atol=5e-5)}
+# (name, K, sizes, transmit, mesh, knobs, rounds, step, fused twin)
+SHARDED_CASES = (
+    ("flat_model", 100, "paper", "model", [("data", 4)], {}, 20, 1,
+     "model"),
+    ("flat_delta", 100, "paper", "delta", [("data", 4)], {}, 20, 1,
+     "delta"),
+    ("flat_k1000", 1000, "fast", "model", [("data", 4)], {}, 10, 1,
+     "k1000"),
+    ("pytree", 100, "paper", "model", [("data", 4)],
+     {"params_mode": "pytree"}, 10, 1, "pytree"),
+    ("phantoms_k102", 102, "paper", "model", [("data", 4)], {}, 10, 1,
+     "k102"),
+    ("grouped_n1", 100, "paper", "model", [("pod", 2), ("data", 2)],
+     {"group_period": 1}, 10, 1, "model"),
+    ("grouped_n4", 100, "paper", "model", [("pod", 2), ("data", 2)],
+     {"group_period": 4}, 12, 4, None),
+    ("tp_2x2", 100, "paper", "model", [("data", 2), ("tp", 2)],
+     {"params_mode": "pytree"}, 10, 1, "pytree"),
+    ("blackout", 100, "paper", "model", [("pod", 2), ("data", 2)],
+     {"group_period": 2, "faults": {"pod_blackout": (1,),
+                                    "blackout_start": 2,
+                                    "blackout_stop": 5}}, 8, 2, None))
+# the partial entry's shapes on the sharded paths: a rank's rows of the
+# raveled plane (K = 100 and 1000 over 4 ranks) and a TP rank's block of
+# the MLP's first layer ((25, 784, 5) of (25, 784, 10): seg 5, pitch 10)
+PARTIAL_SHAPES = ((25, 8070, 8070, 8070), (250, 8070, 8070, 8070),
+                  (25, 3920, 5, 10))
+
+
+def partial_times(dev, bw, flops):
+    """The partial entry against its twin at the sharded paths' shapes, f32
+    and bf16 (3e-5 / 2e-2), bit-identical on repeat, timed beside the twin
+    and ``torch.mv``; the bound is its bytes (x once, bp, the placed
+    columns and the varsigma slot) over the card's rate."""
+    from repro_torch.kernels import aircomp_sum as ac
+    flush = l2_flush(dev)
+    recs = []
+    for k, d, seg, pitch in PARTIAL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(k + d)
+            x = torch.randn((k, d), generator=gen, device=dev).to(dtype)
+            bp = 15.0 * torch.rand((k,), generator=gen, device=dev) * (
+                torch.rand((k,), generator=gen, device=dev) < 0.5).float()
+            n = (d // seg - 1) * pitch + seg + 1
+            got, again, want = (torch.zeros((n,), device=dev)
+                                for _ in range(3))
+            ac.aircomp_partial_cuda(x, bp, got, seg=seg, pitch=pitch)
+            ac.aircomp_partial_cuda(x, bp, again, seg=seg, pitch=pitch)
+            ac.aircomp_partial_plain(x, bp, want, seg=seg, pitch=pitch)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = _tol(dtype) if dtype == torch.bfloat16 else dict(
+                rtol=3e-5, atol=3e-5)
+            torch.testing.assert_close(got, want, **tol)
+            if not torch.equal(got, again):
+                raise AssertionError(f"aircomp_partial {k}x{d}: a repeat "
+                                     f"differs")
+            nbytes = x.element_size() * k * d + 4 * (k + d + 1)
+            nops = 2 * k * d + k
+            xt = x.t()
+            rec = {"shape": [k, d], "seg": seg, "pitch": pitch,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "max_abs_err": err, "repeat_bit_identical": True,
+                   "ms": time_ms(lambda: ac.aircomp_partial_cuda(
+                       x, bp, got, seg=seg, pitch=pitch), flush),
+                   "plain_ms": time_ms(lambda: ac.aircomp_partial_plain(
+                       x, bp, want, seg=seg, pitch=pitch), flush),
+                   "library_ms": time_ms(
+                       lambda: torch.mv(xt, bp.to(dtype)), flush),
+                   "library": "torch.mv(x.t(), bp) (the sum only: no "
+                              "placement, no varsigma slot)",
+                   "bound_ms": max(nbytes / bw, nops / flops) * 1e3,
+                   "bound_by": "bytes" if nbytes / bw >= nops / flops
+                   else "operations"}
+            log({"phase": "kernel_time", "kernel": "aircomp_partial",
+                 **rec})
+            recs.append(rec)
+    return recs
+
+
+def sharded(dev, data, tmpdir, name, smi):
+    """The sharded round (``ShardedPAOTA``) on SHARDED_RANKS ranks that
+    share cuda:0 over gloo (NCCL refuses two ranks on one device), every
+    case of SHARDED_CASES in one group of ranks
+    (``repro_torch.launch.sharded_cases``), each held against a
+    single-process FusedPAOTA on the same CounterDraws round for round
+    (rtol 1e-4 / atol 1e-5, delta 5e-5). The kernels are built before the
+    ranks start, so each only loads them. Per case: the gap to fused, the
+    ranks' globals bit-identical, the reducer's calls a round (and the
+    model-sized ones), each rank's launches of round_stats and the partial
+    entry (once a leaf a round), ms a round on rank 0 after the first
+    step, labelled as what it is: 4 ranks sharing one H100 over gloo."""
+    from repro_torch.data.partition import FAST_SIZES, PAPER_SIZES
+    from repro_torch.launch.mesh import start_ranks
+    from repro_torch.launch.sharded_cases import run_cases
+    from repro_torch.models.mlp import init_mlp_params
+    from repro_torch.tree import tree_map
+    from repro_torch.data.partition import partition_noniid
+    x, y, _, _ = data
+    xp, yp = os.path.join(tmpdir, "x.npy"), os.path.join(tmpdir, "y.npy")
+    np.save(xp, x)
+    np.save(yp, y)
+    feds, cases = {}, [{"name": "gloo_probe", "kind": "probe"}]
+    for (case, k, sizes, transmit, mesh, knobs, rounds, step,
+         _) in SHARDED_CASES:
+        key = f"{k}-{sizes}"
+        if key not in feds:
+            feds[key] = {"x_path": xp, "y_path": yp,
+                         "parts": partition_noniid(
+                             y, n_clients=k, seed=0,
+                             sizes=PAPER_SIZES if sizes == "paper"
+                             else FAST_SIZES)}
+        cases.append({"name": case, "fed": key, "mesh": mesh,
+                      "rounds": rounds, "step": step, "sched": SCHED,
+                      "chan": CHAN, "cfg": {"transmit": transmit,
+                                            "seed": 0}, "knobs": knobs})
+    spec = {"feds": feds, "cases": cases,
+            "params": tree_map(lambda t: t.numpy(), init_mlp_params(0))}
+    t0 = time.perf_counter()
+    ranks = start_ranks(run_cases, SHARDED_RANKS, backend="gloo",
+                        device=str(dev), timeout_s=600, threads=2,
+                        args=(spec,))
+
+    # meanwhile the fused twins, one process on the same counter draws, a
+    # round an advance for as many rounds as the longest case asks
+    fused = {}
+    for (case, k, sizes, transmit, mesh, knobs, rounds, step,
+         twin) in SHARDED_CASES:
+        if twin is None or twin in fused:
+            continue
+        rounds = max(c[6] for c in SHARDED_CASES if c[8] == twin)
+        clients, _ = _federation(dev, data, k, PAPER_SIZES
+                                 if sizes == "paper" else FAST_SIZES)
+        drv = _paper_driver(dev, clients, transmit,
+                            params_mode=knobs.get("params_mode",
+                                                  "raveled"))
+        globs, secs = [], []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            drv.advance(1)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            globs.append(drv.global_vec.copy())
+        fused[twin] = (globs, drv.history, secs)
+        del drv, clients
+    got = ranks.wait()
+    ranks_s = time.perf_counter() - t0
+    probe = got[0]["gloo_probe"]
+    want = {"SUM": [10.0, 14.0], "MIN": [1.0, 2.0], "MAX": [4.0, 5.0]}
+    log({"phase": "sharded_probe", "backend": "gloo", "device": str(dev),
+         "ranks": SHARDED_RANKS, "what": "all_reduce of [1 + rank, 5 - "
+         "rank] on cuda:0, each op", "got": probe,
+         "ok": all(r["gloo_probe"] == want for r in got)})
+    if any(r["gloo_probe"] != want for r in got):
+        raise AssertionError(f"gloo on CUDA tensors gave {probe}")
+
+    by_path, records = {}, []
+    for (case, k, sizes, transmit, mesh, knobs, rounds, step,
+         twin) in SHARDED_CASES:
+        res = [r[case] for r in got]
+        r0 = res[0]
+        leaves = r0["leaves"]
+        same = all(all(np.array_equal(a, b)
+                       for a, b in zip(r["globals"], r0["globals"]))
+                   for r in res[1:])
+        calls = [len(c) for c in r0["calls"]]
+        model = [sum(1 for c in cs if c[2] == r0["d"] + 1)
+                 for cs in r0["calls"]]
+        cross = [sum(1 for c in cs if c[2] == r0["d"] + 1 and "pod" in c[1])
+                 for cs in r0["calls"]]
+        per_round = rounds
+        launches = [r["launches"] for r in res]
+        checks = {
+            "ranks_bit_identical": same,
+            "finite": bool(np.isfinite(r0["globals"][-1]).all()),
+            "some_uploaders": any(row["n_participants"] > 0
+                                  for row in r0["rows"]),
+            "round_stats_once_a_leaf_a_round": all(
+                la["round_stats"] == leaves * per_round for la in launches),
+            "partial_once_a_leaf_a_round": all(
+                la["aircomp_partial"] == leaves * per_round
+                for la in launches),
+            "no_fused_sweep2": all(la["superpose_normalize"] == 0
+                                   for la in launches),
+        }
+        rec = {"phase": "sharded", "case": case, "clients": k,
+               "k_pad": r0["k_pad"], "k_local": r0["k_local"],
+               "mesh": mesh, "transmit": transmit, **{
+                   kk: vv for kk, vv in knobs.items() if kk != "faults"},
+               "rounds": rounds, "step": step, "model_dim": r0["d"],
+               "calls_per_step": calls[0], "model_sized_per_step": model,
+               "cross_pod_model_sized_per_step": cross,
+               "bytes_per_step": sum(c[3] for c in r0["calls"][0]),
+               "launches_per_rank": launches,
+               "ms_per_round_4_ranks_on_one_h100_over_gloo": (
+                   sum(r0["seconds"][1:]) * 1e3
+                   / (rounds - step)),
+               "first_step_s": r0["seconds"][0]}
+        if "grouped" in case or case == "blackout":
+            n = knobs["group_period"]
+            checks["one_cross_pod_all_reduce_a_window"] = all(
+                c == step // n for c in cross)
+        else:
+            checks["one_model_sized_all_reduce_a_round"] = all(
+                m == step for m in model)
+        if twin is not None:
+            globs, hist, secs = fused[twin]
+            tol = SHARDED_TOL[transmit]
+            gap = max(float(np.abs(a - b).max())
+                      for a, b in zip(r0["globals"], globs))
+            rec["max_gap_to_fused"] = gap
+            rec["varsigma_rel_gap"] = max(
+                abs(a["varsigma"] - b["varsigma"]) / max(b["varsigma"],
+                                                         1e-30)
+                for a, b in zip(r0["rows"], hist))
+            # timed while the ranks ran on the same card: contended
+            rec["fused_ms_per_round_beside_the_ranks"] = sum(
+                secs[1:]) * 1e3 / (len(secs) - 1)
+            checks["allclose_to_fused_every_round"] = all(
+                np.allclose(a, b, **tol)
+                for a, b in zip(r0["globals"], globs))
+            checks["participants_equal_fused"] = [
+                row["n_participants"] for row in r0["rows"]] == [
+                row["n_participants"] for row in hist[:rounds]]
+        if case == "grouped_n1":
+            flat = got[0]["flat_model"]["globals"]
+            checks["bit_equal_to_flat"] = all(
+                np.array_equal(a, b) for a, b in zip(r0["globals"], flat))
+        if case == "blackout":
+            # step 1 ends at round 3, inside [2, 5): pod 1 restarts nobody
+            checks["dark_pod_restarts_nobody"] = all(
+                r["restarted"][1] == 0 for r in res
+                if r["coords"]["pod"] == 1)
+            checks["lit_pod_restarts"] = sum(
+                sum(r["restarted"]) for r in res
+                if r["coords"]["pod"] == 0) > 0
+        rec["checks"] = checks
+        log(rec)
+        records.append(rec)
+        by_path[f"sharded {case}"] = {
+            "round_stats": sum(la["round_stats"] for la in launches),
+            "aircomp_partial": sum(la["aircomp_partial"]
+                                   for la in launches),
+            "superpose_normalize": 0}
+        failed = [c for c, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"sharded {case}: failed {failed}")
+    log({"phase": "sharded_done", "ranks_s": ranks_s, "nvidia_smi": smi,
+         "device": name, "label": "4 ranks on one H100 over gloo"})
+    return by_path, records
+
+
 def stage_times(drv, flush):
     """ms of the round's two heaviest non-kernel stages at the main path's
     shapes: local SGD for all K clients, and the water-filling P2 solve."""
@@ -4788,6 +5058,15 @@ def main() -> int:
     # 5. scale: K = 1000
     run_path(dev, data, k=1000, sizes=FAST_SIZES, transmit="delta",
              rounds=SCALE_ROUNDS, tag="scale")
+
+    # 5b. the sharded round: 4 ranks over gloo on this card, each case
+    # against the fused round; the partial entry against its twin
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
+        sharded_paths, _ = sharded(dev, data, tmpdir, name, smi)
+    by_path.update(sharded_paths)
+    launches["aircomp_partial"] = sum(v["aircomp_partial"]
+                                      for v in sharded_paths.values())
+    partial = partial_times(dev, bw, flops)
 
     # 6-8. the host-path server (both aggregation routes), the cosine
     # route on its delta plane, the synchronous baselines
@@ -5022,6 +5301,23 @@ def main() -> int:
                     "ssd_chunk_reference_shape"),
                 **{k: ref[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "yardstick_ms")}}
+    kernels.append({
+        "name": "aircomp_partial", "route": "cuda",
+        "source": "src/repro_torch/csrc/aircomp_sum.cu",
+        "replaces": "src/repro/kernels/aircomp_sum.py:237 "
+                    "(aircomp_partial_tree, plain dot_general; no Pallas "
+                    "kernel)",
+        "launches": launches["aircomp_partial"],
+        "launches_by_path": {p: v["aircomp_partial"]
+                             for p, v in by_path.items()
+                             if "aircomp_partial" in v},
+        **{key: partial[0][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library", "shape", "dtype")},
+        "other_shapes": [{key: o[key] for key in (
+            "shape", "seg", "pitch", "dtype", "max_abs_err", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for o in partial[1:]]})
     main_bwd, other_bwd = swa_bwd[0], swa_bwd[1:]
     kernels.append({
         "name": "swa_attention_bwd", "route": "cuda",

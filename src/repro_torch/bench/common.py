@@ -5,9 +5,11 @@ MNIST-like, non-IID partition per Section IV-A) and runs PAOTA / Local SGD
 / COTAF servers on the device, recording (round, simulated time, train
 loss, test accuracy) trajectories.
 
-``BenchSetting`` carries the reference's fields that the single-device
-port runs; ``group_period`` and ``tp`` (the reference's sharded engine)
-are refused by name, and so are the ``legacy`` and ``sharded`` engines.
+``BenchSetting`` carries the reference's fields. ``engine="sharded"``
+(``ShardedPAOTA``, with ``group_period`` and ``tp``) runs once a process
+group is up, e.g. under ``python -m torch.distributed.run``; without one
+it is refused with that command. The ``legacy`` engine is refused by
+name.
 Beside the reference's fields it keeps the port's ``transmit`` (unset:
 "delta" under ``compress``, "model" otherwise) and ``slot_dtype``.
 Artifacts go to ``out_dir()``: ``$REPRO_BENCH_OUT``, by default
@@ -26,6 +28,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import ChannelConfig, SchedulerConfig
 from repro_torch.core.scheduler import FaultConfig
@@ -34,12 +37,17 @@ from repro_torch.data.pipeline import build_federation
 from repro_torch.data.synthetic import get_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fl import (COTAFServer, FLClient, FusedPAOTA, LocalSGDServer,
-                            PAOTAConfig, PAOTAServer, SyncConfig, evaluate)
+                            PAOTAConfig, PAOTAServer, ShardedPAOTA,
+                            SyncConfig, evaluate)
 from repro_torch.models.mlp import init_mlp_params, mlp_apply, mlp_loss
 
 DEFAULT_OUT_DIR = "experiments/bench_torch"
-ENGINES = ("batched", "fused")
-NOT_PORTED_ENGINES = ("legacy", "sharded")
+ENGINES = ("batched", "fused", "sharded")
+NOT_PORTED_ENGINES = ("legacy",)
+# how the sharded engine is started: one process a rank
+SHARDED_COMMAND = ("python -m torch.distributed.run --nproc-per-node N -m "
+                   "repro_torch.launch.fl_train --engine sharded "
+                   "--dist-backend nccl|gloo ...")
 
 
 def out_dir() -> str:
@@ -106,16 +114,17 @@ class BenchSetting:
     seed: int = 0
     solver: str = "waterfill"
     engine: str = "batched"      # batched: host-path PAOTAServer; fused:
-                                 # FusedPAOTA (baselines stay batched)
+                                 # FusedPAOTA; sharded: ShardedPAOTA over
+                                 # the process group (baselines batched)
     params_mode: str = "raveled"   # fused: raveled | pytree carry
     pending_dtype: str = "float32"  # fused: (K, ...) plane storage
-    group_period: int = 0        # the reference's sharded engine: refused
+    group_period: int = 0        # sharded: grouped aggregation window N
     cohort_size: int = 0         # fused: m in-flight slots (0: dense)
     compress: str = ""           # fused cohort: "" | topk | randmask;
                                  # switches transmit to "delta"
     compress_ratio: float = 1.0  # kept fraction s/d
     error_feedback: bool = True  # compress: per-client EF residuals
-    tp: int = 1                  # the reference's sharded engine: refused
+    tp: int = 1                  # sharded + pytree: intra-client TP extent
     faults: str = ""             # fused: parse_faults spec
     screen: bool = False         # fused: mask non-finite uploads
     screen_max_norm: float = 0.0  # screening norm fence (0: finite-only)
@@ -136,15 +145,20 @@ class BenchSetting:
         if self.engine not in ENGINES:
             raise ValueError(f"engine={self.engine!r} (expected one of "
                              f"{ENGINES})")
-        if self.group_period:
+        if self.engine == "sharded" and not dist.is_initialized():
+            raise NotImplementedError(
+                f"engine='sharded' runs the round over a process group, "
+                f"and none is up: start one process a rank, e.g. "
+                f"{SHARDED_COMMAND}")
+        if self.group_period and self.engine != "sharded":
             raise NotImplementedError(
                 f"group_period={self.group_period}: grouped aggregation "
-                f"needs the reference's sharded engine, not ported")
-        if self.tp != 1:
+                f"runs on engine='sharded' (--engine sharded)")
+        if self.tp != 1 and self.engine != "sharded":
             raise NotImplementedError(
-                f"tp={self.tp}: intra-client tensor parallelism needs the "
-                f"reference's sharded engine, not ported")
-        if self.engine != "fused" and (
+                f"tp={self.tp}: intra-client tensor parallelism runs on "
+                f"engine='sharded' (--engine sharded)")
+        if self.engine == "batched" and (
                 self.cohort_size or self.compress or self.slot_dtype
                 or self.params_mode != "raveled"
                 or self.pending_dtype != "float32" or self.fault_tolerant):
@@ -251,12 +265,24 @@ def make_server(name: str, s: BenchSetting, clients, params,
     if name == "paota":
         cfg = PAOTAConfig(solver=s.solver, seed=s.seed,
                           transmit=s.paota_transmit)
-        if s.engine != "fused":
+        if s.engine == "batched":
             return PAOTAServer(params, clients, chan, sched, cfg,
                                device=dev, draws=draws)
         kw = {}
         if s.faults:
             kw["faults"] = parse_faults(s.faults)
+        if s.engine == "sharded":
+            return ShardedPAOTA(params, clients, chan, sched, cfg,
+                                mesh=sharded_mesh(s), device=dev,
+                                draws=draws, params_mode=s.params_mode,
+                                pending_dtype=s.pending_dtype,
+                                group_period=s.group_period,
+                                cohort_size=s.cohort_size,
+                                compress=s.compress or None,
+                                checkpoint_every=s.checkpoint_every,
+                                screen=s.screen,
+                                screen_max_norm=s.screen_max_norm,
+                                divergence_factor=s.divergence_factor, **kw)
         if s.checkpoint_every:
             kw.update(checkpoint_every=s.checkpoint_every,
                       checkpoint_dir=s.checkpoint_dir
@@ -284,6 +310,19 @@ def make_server(name: str, s: BenchSetting, clients, params,
     raise ValueError(name)
 
 
+def sharded_mesh(s: BenchSetting):
+    """The sharded engine's mesh over the process group: every rank a
+    client shard, or with ``tp > 1`` a ("pod", "data", "tp") mesh of one
+    pod whose data axis takes world / tp ranks (the reference's)."""
+    from repro_torch.launch.mesh import make_client_mesh, make_pod_mesh
+    if s.tp > 1:
+        world = dist.get_world_size()
+        if world % s.tp:
+            raise ValueError(f"tp={s.tp} does not divide the {world} ranks")
+        return make_pod_mesh(pods=1, data=world // s.tp, tp=s.tp)
+    return make_client_mesh()
+
+
 def run_algorithm(name: str, s: BenchSetting, clients, params, data,
                   seed_offset: int = 0, *, device=None,
                   draws=None) -> List[Dict]:
@@ -298,8 +337,17 @@ def run_algorithm(name: str, s: BenchSetting, clients, params, data,
         return []
     rows = []
     t0 = time.time()
+    # grouped aggregation advances whole windows: drain a window's rows
+    window = s.group_period if (name == "paota" and s.engine == "sharded"
+                                and s.group_period > 1) else 0
+    pending: List[Dict] = []
     for r in range(s.n_rounds):
-        info = srv.round()
+        if window:
+            if not pending:
+                pending = list(srv.advance(window))
+            info = pending.pop(0)
+        else:
+            info = srv.round()
         if r % s.eval_every == 0 or r == s.n_rounds - 1:
             gp = srv.global_params()
             ev = evaluate(gp, x_te, y_te, mlp_apply)

@@ -9,15 +9,28 @@ AWGN realization split across the leaves; with ``use_kernel`` the host
 path's ``aircomp_sum`` route), the active cohort's superposition of its
 compressed (m, s) plane (``gather_superpose``), and the zero-uploader
 guarded update.
+
+Under the sharded round (``reducer``: ``repro_torch.launch.collectives
+.Reducer``) the superposition splits in two halves around one
+all-reduce: ``paota_partial_stacked`` (the local flat (d_total + 1,) f32
+partial, the varsigma partial appended; ``ops.aircomp_partial``, one
+launch a leaf) and ``paota_finalize_stacked`` (the noise once, after the
+collective, then the division). ``paota_allreduce`` and
+``exact_average`` are the reference's per-leaf collective aggregations
+for one payload a rank.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Tuple
 
 import torch
 
 from repro_torch.core.aircomp import VARSIGMA_MIN, aircomp_aggregate
 from repro_torch.device import f32
+from repro_torch.kernels.aircomp_sum import (aircomp_finalize_tree,
+                                             aircomp_partial_tree,
+                                             aircomp_partial_tree_tp)
 from repro_torch.kernels.ops import gather_superpose, superpose_normalize
 from repro_torch.tree import (build, leaf2d, leaves_with_paths, tree_leaves,
                               tree_map)
@@ -83,7 +96,8 @@ def stacked_tree_noise(noise: torch.Tensor, stacked_leaves) -> list:
 
 def paota_aggregate_stacked(stacked, powers: torch.Tensor,
                             mask: torch.Tensor, noise,
-                            use_kernel: bool = False):
+                            use_kernel: bool = False, reducer=None,
+                            tp=None):
     """Eq. (8) over the stacked payload: w = (sum_k b_k p_k w_k + n) /
     sum_k b_k p_k, with the AWGN realization ``noise`` (d,) already scaled
     by sigma_n. Returns (aggregate, clamped varsigma): a params dict of
@@ -101,7 +115,25 @@ def paota_aggregate_stacked(stacked, powers: torch.Tensor,
     Otherwise sweep 2 runs, and where the reference re-sums b*p for
     varsigma the kernel's raw sum comes back with the aggregate and is
     clamped, so no second reduction runs (an all-zero mask sums to exactly
-    0 either way)."""
+    0 either way).
+
+    ``reducer``: the (K, ...) rows are this rank's clients; the local
+    partial goes through ONE all-reduce over the reducer's axes (and
+    ``tp.axes`` where ``tp``, a ``TPTopology``, says the leaves are
+    TP-local blocks, which embed at their place in the full leaves), and
+    the noise (drawn at the full shapes) joins once, after it. The
+    aggregate leaves come back full-shape."""
+    if reducer is not None:
+        leaves = tree_leaves(stacked)
+        flat = paota_partial_stacked(stacked, powers, mask, tp=tp)
+        axes = reducer.axes + (tp.axes if tp is not None else ())
+        flat = reducer.sum(flat, axes=axes, tag="superpose")
+        if tp is not None:
+            from repro_torch.sharding.tp import tp_full_shapes
+            shapes = tp_full_shapes(leaves, tp)
+        else:
+            shapes = [tuple(l.shape) for l in leaves]
+        return paota_finalize_stacked(flat, stacked, noise, shapes=shapes)
     if use_kernel and isinstance(stacked, torch.Tensor):
         return aircomp_aggregate(stacked, powers, mask, noise,
                                  use_kernel=True)
@@ -143,3 +175,82 @@ def paota_aggregate_compressed(values: torch.Tensor, idx: torch.Tensor,
     agg, raw = gather_superpose(values, idx, powers * mask, noise, d=d,
                                 scale=scale, vs_min=VARSIGMA_MIN)
     return agg, torch.clamp_min(raw, f32(VARSIGMA_MIN))
+
+
+def paota_partial_stacked(stacked, powers: torch.Tensor, mask: torch.Tensor,
+                          reducer=None, tp=None) -> torch.Tensor:
+    """The half of eq. (8) before the collective: this rank's flat
+    (d_total + 1,) f32 superposition partial (each leaf's b*p-weighted
+    sum, the sum of b*p appended), no noise, no division. ``reducer``
+    reduces it over its axes (the grouped round's intra-pod sum); ``tp``
+    embeds TP-local blocks in the full flat vector. Masked rows add exact
+    zeros, so a pod with no uploader holds an exactly zero partial."""
+    leaves = tree_leaves(stacked)
+    bp = powers * mask
+    if tp is not None:
+        flat = aircomp_partial_tree_tp(leaves, bp, tp)
+    else:
+        flat = aircomp_partial_tree(leaves, bp)
+    if reducer is not None:
+        flat = reducer.sum(flat, tag="superpose")
+    return flat
+
+
+def paota_finalize_stacked(flat: torch.Tensor, stacked, noise,
+                           reducer=None, shapes=None):
+    """Finish eq. (8) from a flat partial: ``reducer`` sums it over its
+    axes first (the one cross-pod all-reduce of a grouped window), then
+    the (d,) ``noise`` (None: noiseless) joins once, split per leaf, and
+    the clamped varsigma divides. ``stacked`` gives the structure, and
+    the leaf shapes unless ``shapes`` (full (K, ...) shapes) is given.
+    Returns (aggregate, varsigma) as ``paota_aggregate_stacked``."""
+    if reducer is not None:
+        flat = reducer.sum(flat, tag="superpose")
+    leaves = tree_leaves(stacked)
+    if shapes is None:
+        shapes = [tuple(l.shape) for l in leaves]
+    noise_leaves = None
+    if noise is not None:
+        noise_leaves, off = [], 0
+        for shape in shapes:
+            size = math.prod(shape[1:])
+            noise_leaves.append(noise[off:off + size])
+            off += size
+    agg, varsigma = aircomp_finalize_tree(flat, shapes, noise_leaves,
+                                          VARSIGMA_MIN)
+    return _like(stacked, agg), varsigma
+
+
+def paota_allreduce(local_payload, power: torch.Tensor, ready: torch.Tensor,
+                    reducer, noise=None):
+    """One payload per rank (a tree, with a scalar power p_k and ready bit
+    b_k): the PAOTA aggregate (sum b_k p_k w_k + n) / sum b_k p_k, the
+    same on every rank. ``noise`` is a tree like the payload, the same
+    realization on every rank (eq. 6 adds it once, at the server), or
+    None. One all-reduce for varsigma and one a leaf, as the
+    reference's."""
+    bp = (power * ready).reshape(1).float()
+    varsigma = torch.clamp_min(reducer.sum(bp.clone(), tag="varsigma")[0],
+                               f32(1e-12))
+    nz = (tree_map(lambda x: None, local_payload) if noise is None
+          else noise)
+
+    def agg(x, n):
+        s = reducer.sum((x * bp.to(x.dtype)).contiguous(), tag="leaf")
+        if n is not None:
+            s = s + n
+        return s / varsigma.to(x.dtype)
+
+    return tree_map(agg, local_payload, nz)
+
+
+def exact_average(local_payload, weight: torch.Tensor, reducer):
+    """Lossless weighted mean over the ranks (Local SGD's aggregation)."""
+    w = weight.reshape(1).float()
+    wsum = reducer.sum(w.clone(), tag="weight")[0]
+
+    def agg(x):
+        return (reducer.sum((x * w.to(x.dtype)).contiguous(), tag="leaf")
+                / wsum.to(x.dtype))
+
+    return tree_map(agg, local_payload)

@@ -188,17 +188,26 @@ def _grid(n: int, device) -> torch.Tensor:
 
 
 def waterfill_beta(rho, theta, p_max, b, c1: float, c0: float,
-                   grid: int = 4096, refine: int = 60):
+                   grid: int = 4096, refine: int = 60, reducer=None):
     """Returns (beta (K,), objective scalar), both f32 tensors.
 
     With no active client (b all zero) beta is arbitrary and the objective
-    degenerate; the caller's zero-uploader guard makes the round a no-op."""
+    degenerate; the caller's zero-uploader guard makes the round a no-op.
+
+    ``reducer`` (``repro_torch.launch.collectives.Reducer``): the (K,)
+    inputs are this rank's rows of a federation sharded over the reducer's
+    axes, as the reference's ``axis_name``. The reductions over K are
+    packed without changing a value: the bracket's min, max and "any
+    active" are one MAX all-reduce of [-lo, hi, any], the grid's sums of t
+    and t^2 one (2, grid) sum, each golden-section step's two pairs one
+    4-float sum, the objective's pair one more. Every rank then holds the
+    same sums, takes the same branches, and returns its slice of the same
+    beta. ``reducer=None`` is the single-device program, op for op."""
+    if reducer is not None:
+        return _waterfill_sharded(rho, theta, p_max, b, c1, c0, grid,
+                                  refine, reducer)
     c1, c0 = f32(c1), f32(c0)
-    p0 = torch.minimum(torch.clamp_min(p_max * theta, 0.0), p_max)
-    p1 = torch.minimum(torch.clamp_min(p_max * rho, 0.0), p_max)
-    lo = torch.minimum(p0, p1) * b
-    hi = torch.maximum(p0, p1) * b
-    active = b > 0
+    lo, hi, active = _lo_hi(rho, theta, p_max, b)
     any_active = active.any()
     inf = torch.full_like(lo, float("inf"))
     tau_lo = torch.where(any_active, torch.where(active, lo, inf).min(),
@@ -207,11 +216,28 @@ def waterfill_beta(rho, theta, p_max, b, c1: float, c0: float,
                          torch.ones_like(hi[0]))
 
     def ratio(t):                       # (..., K) -> (...)
-        s = _ksum(t)
-        q = _ksum_sq(t)
-        num = _fma(q, c1, c0)
-        return num / torch.clamp_min(s * s, f32(1e-30))
+        return _ratio(_ksum(t), _ksum_sq(t), c1, c0)
 
+    return _solve(ratio, tau_lo, tau_hi, lo, hi, rho, theta, p_max, b, grid,
+                  refine)
+
+
+def _lo_hi(rho, theta, p_max, b):
+    """The interval [lo_k, hi_k] of t_k = b_k p_k(beta_k), and b > 0."""
+    p0 = torch.minimum(torch.clamp_min(p_max * theta, 0.0), p_max)
+    p1 = torch.minimum(torch.clamp_min(p_max * rho, 0.0), p_max)
+    return torch.minimum(p0, p1) * b, torch.maximum(p0, p1) * b, b > 0
+
+
+def _ratio(s, q, c1, c0):
+    """P2's objective (c1 sum t^2 + c0) / (sum t)^2 from the two sums."""
+    return _fma(q, c1, c0) / torch.clamp_min(s * s, f32(1e-30))
+
+
+def _solve(ratio, tau_lo, tau_hi, lo, hi, rho, theta, p_max, b, grid,
+           refine):
+    """The grid scan over [tau_lo, tau_hi], the golden-section refine and
+    the beta recovery, with ``ratio`` mapping (..., K) t to (...)."""
     taus = _fma(tau_hi - tau_lo, _grid(grid, lo.device), tau_lo)
     vals = ratio(torch.clamp(taus[:, None], lo[None, :], hi[None, :])
                  * b[None, :])
@@ -242,6 +268,31 @@ def waterfill_beta(rho, theta, p_max, b, c1: float, c0: float,
     mix = _fma(beta, rho, (1.0 - beta) * theta)
     p = torch.minimum(torch.clamp_min(p_max * mix, 0.0), p_max) * b
     return beta, ratio(p)
+
+
+def _waterfill_sharded(rho, theta, p_max, b, c1, c0, grid, refine,
+                       reducer):
+    """``waterfill_beta`` over rows sharded across ``reducer``'s ranks."""
+    c1, c0 = f32(c1), f32(c0)
+    lo, hi, active = _lo_hi(rho, theta, p_max, b)
+    inf = torch.full_like(lo, float("inf"))
+    ends = torch.stack([-torch.where(active, lo, inf).min(),
+                        torch.where(active, hi, -inf).max(),
+                        active.any().float()])
+    ends = reducer.max(ends, tag="waterfill_bracket")
+    any_active = ends[2] > 0
+    tau_lo = torch.where(any_active, -ends[0], torch.zeros_like(ends[0]))
+    tau_hi = torch.where(any_active, ends[1], torch.ones_like(ends[1]))
+
+    def ratio(t):                       # (..., K_local) -> (...)
+        sums = torch.stack([_ksum(t), _ksum_sq(t)])
+        tag = "waterfill_grid" if t.dim() == 2 and t.shape[0] > 2 else (
+            "waterfill_refine" if t.dim() == 2 else "waterfill_objective")
+        sums = reducer.sum(sums, tag=tag)
+        return _ratio(sums[0], sums[1], c1, c0)
+
+    return _solve(ratio, tau_lo, tau_hi, lo, hi, rho, theta, p_max, b, grid,
+                  refine)
 
 
 def solve_waterfill_jnp(prob: P2Problem, device=None) -> SolveResult:

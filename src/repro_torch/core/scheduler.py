@@ -249,8 +249,10 @@ class FaultConfig:
     ``nan_frac`` overwrites the row with NaN (``nan_mode="nan"``) or +Inf
     (``"inf"``); ``byzantine_frac`` scales its delta from the global,
     w' = w_g + byzantine_scale * (w - w_g). ``deep_fade_frac`` scales a
-    client's channel draw by ``deep_fade_gain``. ``pod_blackout`` needs
-    the reference's grouped sharded driver, which the port does not have.
+    client's channel draw by ``deep_fade_gain``. ``pod_blackout`` darkens
+    whole pods for rounds [blackout_start, blackout_stop): it runs on the
+    grouped sharded driver (``repro_torch.fl.ShardedPAOTA`` with
+    ``group_period >= 1``), where it joins the availability mask.
     ``start`` / ``stop`` gate the payload and channel faults to rounds in
     [start, stop) (stop = -1: no upper bound)."""
     nan_frac: float = 0.0

@@ -9,6 +9,15 @@
 // repro_aircomp_sum replaces repro/kernels/aircomp_sum.py::
 // aircomp_sum_pallas (body _kernel), the host-path server's use_kernel
 // route: bp comes already masked, vs_min is 1e-12 and only agg is written.
+// repro_aircomp_partial computes the local half of the sharded round's
+// superposition (the reference computes it as plain dot_general,
+// repro/kernels/aircomp_sum.py::aircomp_partial_tree; no Pallas kernel):
+//     out[off(d)] = sum_k bp_k * x[k, d],    varsigma slot = sum_k bp_k
+// with no noise and no division, written at a given place in the flat
+// (d_total + 1,) f32 partial that one all-reduce then sends: column d
+// lands at (d / seg) * pitch + d % seg, so a TP rank's block of a leaf
+// embeds at its strided place in the full leaf (seg = pitch = D for a
+// whole leaf). It runs on the same body and plan as sweep 2.
 // x is f32 or bf16; bp, p, mask and noise are f32; every sum is f32.
 //
 // Bound on the H100: memory bytes. K*D payload elements are read once for
@@ -60,16 +69,17 @@ __device__ __forceinline__ float weight(const float* __restrict__ powers,
   return mask != nullptr ? __fmul_rn(powers[i], mask[i]) : powers[i];
 }
 
-// W warps a block. With a mask, bp_k = powers[k] * mask[k] and tile 0
-// writes the raw varsigma; without, powers holds bp itself and varsigma is
-// unused.
-template <typename T, int V, int W>
+// W warps a block. With a mask, bp_k = powers[k] * mask[k]; without,
+// powers holds bp itself. Tile 0 writes the raw varsigma where it is
+// given. kPartial writes the bare sums at (col / seg) * pitch + col % seg
+// (no noise, no division); otherwise agg[col] = (sum + noise) / varsigma.
+template <typename T, int V, int W, bool kPartial>
 __global__ void __launch_bounds__(W * 32)
 superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
                  const float* __restrict__ mask,
                  const float* __restrict__ noise, float* __restrict__ agg,
                  float* __restrict__ varsigma, int64_t k, int64_t d,
-                 float vs_min) {
+                 float vs_min, int64_t seg, int64_t pitch) {
   constexpr int kTile = 32 * V;
   constexpr int kThreads = W * 32;
   __shared__ float s_acc[W][kTile];
@@ -133,46 +143,57 @@ superpose_kernel(const T* __restrict__ x, const float* __restrict__ powers,
   float raw = 0.f;
 #pragma unroll
   for (int w = 0; w < W; ++w) raw += s_red[w];
-  if (mine) agg[col] = (total + noise[col]) / fmaxf(raw, vs_min);
+  if (mine) {
+    if constexpr (kPartial) {
+      agg[(col / seg) * pitch + col % seg] = total;
+    } else {
+      agg[col] = (total + noise[col]) / fmaxf(raw, vs_min);
+    }
+  }
   if (varsigma != nullptr && blockIdx.x == 0 && tid == 0) *varsigma = raw;
 }
 
-template <typename T, int V, int W>
-int launch_w(const T* x, const float* powers, const float* mask,
-             const float* noise, float* agg, float* varsigma, int64_t k,
-             int64_t d, float vs_min, cudaStream_t s) {
+// What a launch writes besides the plane it reads.
+struct Out {
+  const float* noise;   // (d,) f32, or nullptr for the partial
+  float* agg;           // the aggregate, or the partial's first column
+  float* varsigma;      // the raw sum of bp, or nullptr
+  float vs_min;
+  int64_t seg, pitch;   // the partial's column placement
+};
+
+template <typename T, int V, int W, bool kPartial>
+int launch_w(const T* x, const float* powers, const float* mask, Out o,
+             int64_t k, int64_t d, cudaStream_t s) {
   const unsigned int tiles =
       static_cast<unsigned int>((d + 32 * V - 1) / (32 * V));
-  superpose_kernel<T, V, W><<<tiles, W * 32, 0, s>>>(
-      x, powers, mask, noise, agg, varsigma, k, d, vs_min);
+  superpose_kernel<T, V, W, kPartial><<<tiles, W * 32, 0, s>>>(
+      x, powers, mask, o.noise, o.agg, o.varsigma, k, d, o.vs_min, o.seg,
+      o.pitch);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int V>
-int launch_v(const void* x, const float* powers, const float* mask,
-             const float* noise, float* agg, float* varsigma, int64_t k,
-             int64_t d, int warps, float vs_min, cudaStream_t s) {
+template <typename T, int V, bool kPartial>
+int launch_v(const void* x, const float* powers, const float* mask, Out o,
+             int64_t k, int64_t d, int warps, cudaStream_t s) {
   if (reinterpret_cast<uintptr_t>(x) % (sizeof(T) * V) != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   const T* xp = static_cast<const T*>(x);
   if (warps == 16) {
-    return launch_w<T, V, 16>(xp, powers, mask, noise, agg, varsigma, k, d,
-                              vs_min, s);
+    return launch_w<T, V, 16, kPartial>(xp, powers, mask, o, k, d, s);
   }
   if (warps == 32) {
-    return launch_w<T, V, 32>(xp, powers, mask, noise, agg, varsigma, k, d,
-                              vs_min, s);
+    return launch_w<T, V, 32, kPartial>(xp, powers, mask, o, k, d, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The plan the wrapper hands over (aircomp_sum.plan), checked: whole
 // vectors per row and a tile count the grid takes.
-template <typename T>
-int launch(const void* x, const void* powers, const void* mask,
-           const void* noise, void* agg, void* varsigma, int64_t k, int64_t d,
-           int vec, int warps, float vs_min, cudaStream_t s) {
+template <typename T, bool kPartial>
+int launch(const void* x, const void* powers, const void* mask, Out o,
+           int64_t k, int64_t d, int vec, int warps, cudaStream_t s) {
   if (k < 1 || d < 1 || vec < 1 || d % vec != 0 ||
       static_cast<int64_t>(sizeof(T)) * vec > 16 ||
       (d + 32 * vec - 1) / (32 * vec) > 2147483647LL) {
@@ -180,19 +201,16 @@ int launch(const void* x, const void* powers, const void* mask,
   }
   const float* p = static_cast<const float*>(powers);
   const float* m = static_cast<const float*>(mask);
-  const float* n = static_cast<const float*>(noise);
-  float* out = static_cast<float*>(agg);
-  float* vs = static_cast<float*>(varsigma);
   switch (vec) {
     case 1:
-      return launch_v<T, 1>(x, p, m, n, out, vs, k, d, warps, vs_min, s);
+      return launch_v<T, 1, kPartial>(x, p, m, o, k, d, warps, s);
     case 2:
-      return launch_v<T, 2>(x, p, m, n, out, vs, k, d, warps, vs_min, s);
+      return launch_v<T, 2, kPartial>(x, p, m, o, k, d, warps, s);
     case 4:
-      return launch_v<T, 4>(x, p, m, n, out, vs, k, d, warps, vs_min, s);
+      return launch_v<T, 4, kPartial>(x, p, m, o, k, d, warps, s);
     case 8:
       if constexpr (sizeof(T) == 2) {
-        return launch_v<T, 8>(x, p, m, n, out, vs, k, d, warps, vs_min, s);
+        return launch_v<T, 8, kPartial>(x, p, m, o, k, d, warps, s);
       }
       break;
     default:
@@ -219,12 +237,13 @@ extern "C" int repro_superpose_normalize(const void* x, const void* powers,
   if (mask == nullptr || varsigma == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Out o{static_cast<const float*>(noise), static_cast<float*>(agg),
+              static_cast<float*>(varsigma), vs_min, d, d};
   if (bf16) {
-    return launch<__nv_bfloat16>(x, powers, mask, noise, agg, varsigma, k, d,
-                                 vec, warps, vs_min, s);
+    return launch<__nv_bfloat16, false>(x, powers, mask, o, k, d, vec, warps,
+                                        s);
   }
-  return launch<float>(x, powers, mask, noise, agg, varsigma, k, d, vec,
-                       warps, vs_min, s);
+  return launch<float, false>(x, powers, mask, o, k, d, vec, warps, s);
 }
 
 // x: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1). bp: (k,) f32,
@@ -237,10 +256,35 @@ extern "C" int repro_aircomp_sum(const void* x, const void* bp,
                                  int64_t d, int bf16, void* stream, int vec,
                                  int warps) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Out o{static_cast<const float*>(noise), static_cast<float*>(agg),
+              nullptr, 1e-12f, d, d};
   if (bf16) {
-    return launch<__nv_bfloat16>(x, bp, nullptr, noise, agg, nullptr, k, d,
-                                 vec, warps, 1e-12f, s);
+    return launch<__nv_bfloat16, false>(x, bp, nullptr, o, k, d, vec, warps,
+                                        s);
   }
-  return launch<float>(x, bp, nullptr, noise, agg, nullptr, k, d, vec, warps,
-                       1e-12f, s);
+  return launch<float, false>(x, bp, nullptr, o, k, d, vec, warps, s);
+}
+
+// x: (k, d) row-major, f32 (bf16 == 0) or bf16 (bf16 == 1). bp: (k,) f32,
+// already masked. out: f32; column j of the (d,) sum sum_k bp_k x_k is
+// written to out[(j / seg) * pitch + j % seg] (seg divides d, pitch >=
+// seg). varsigma: one f32 for the raw sum of bp, or nullptr. No noise, no
+// division. The plan as for repro_superpose_normalize. Launches on
+// `stream`, allocates nothing, returns cudaGetLastError().
+extern "C" int repro_aircomp_partial(const void* x, const void* bp,
+                                     void* out, void* varsigma, int64_t k,
+                                     int64_t d, int64_t seg, int64_t pitch,
+                                     int bf16, void* stream, int vec,
+                                     int warps) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out == nullptr || seg < 1 || pitch < seg || d % seg != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Out o{nullptr, static_cast<float*>(out),
+              static_cast<float*>(varsigma), 0.f, seg, pitch};
+  if (bf16) {
+    return launch<__nv_bfloat16, true>(x, bp, nullptr, o, k, d, vec, warps,
+                                       s);
+  }
+  return launch<float, true>(x, bp, nullptr, o, k, d, vec, warps, s);
 }

@@ -37,6 +37,7 @@ class BatchedEngine:
         self.device = resolve_device(device)
         full_f32_matmul()
         self.fed = fed          # epoch cursors (host-mode plans) live here
+        self.loss_fn = loss_fn
         self.batch_size = batch_size
         self.lr = lr
         self.local_steps = local_steps

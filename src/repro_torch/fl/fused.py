@@ -6,14 +6,15 @@ carry (``params_mode``), f32 or bf16 plane storage (``pending_dtype``),
 the dense carry or the active cohort (``cohort_size``), the scenario
 simulator (``scenario``), compressed cohort payloads (``compress``,
 ``compress_ratio``, ``slot_dtype``, ``error_feedback``), fault injection
-(``faults``), screening (``screen``, ``screen_max_norm``), divergence
-rollback (``divergence_factor``) and checkpoints (``checkpoint_every``,
-``checkpoint_dir``, ``save_checkpoint`` / ``restore_checkpoint``, in the
-reference's file format). Every stage of a round runs on the device
-(``repro_torch.fl.runtime.paota_round_step``), the delta-plane sweeps and
-the compressed AirComp through the hand-written CUDA kernels on a GPU.
-The per-round metrics are copied to the host once per ``advance``, as the
-reference's scan outputs are.
+(``faults``; pod blackouts run on ``repro_torch.fl.ShardedPAOTA`` with
+grouped aggregation), screening (``screen``, ``screen_max_norm``),
+divergence rollback (``divergence_factor``) and checkpoints
+(``checkpoint_every``, ``checkpoint_dir``, ``save_checkpoint`` /
+``restore_checkpoint``, in the reference's file format). Every stage of a
+round runs on the device (``repro_torch.fl.runtime.paota_round_step``),
+the delta-plane sweeps and the compressed AirComp through the
+hand-written CUDA kernels on a GPU. The per-round metrics are copied to
+the host once per ``advance``, as the reference's scan outputs are.
 
 Randomness comes from a draw source (``repro_torch.fl.runtime``): by
 default ``CounterDraws`` keyed on ``sched_cfg.seed`` (latencies) and
@@ -72,12 +73,12 @@ class FusedPAOTA:
 
     ``faults`` (a ``FaultConfig``) injects NaN/Inf and Byzantine payload
     rows and deep fades from the draws' fault uniforms (pod blackouts need
-    the reference's grouped sharded driver and are refused); ``screen``
-    masks non-finite uploads, and with ``screen_max_norm`` over-norm ones,
-    out of the superposition; ``divergence_factor`` arms the rollback to
-    the last good global; ``checkpoint_every=N`` with ``checkpoint_dir``
-    saves the carry every N rounds. The validation and its messages are
-    the reference's."""
+    the grouped sharded driver, ``ShardedPAOTA(group_period >= 1)``, and
+    are refused here); ``screen`` masks non-finite uploads, and with
+    ``screen_max_norm`` over-norm ones, out of the superposition;
+    ``divergence_factor`` arms the rollback to the last good global;
+    ``checkpoint_every=N`` with ``checkpoint_dir`` saves the carry every N
+    rounds. The validation and its messages are the reference's."""
 
     def __init__(self, init_params, clients, chan: ChannelConfig,
                  sched_cfg: SchedulerConfig, cfg: PAOTAConfig, *,
@@ -114,14 +115,7 @@ class FusedPAOTA:
         if cfg.transmit not in ("model", "delta"):
             raise ValueError(f"transmit={cfg.transmit!r} (expected 'model' "
                              f"or 'delta')")
-        if isinstance(clients, BatchedEngine):
-            engine = clients
-            if engine.device != self.device:
-                raise ValueError(f"engine on {engine.device}, FusedPAOTA on "
-                                 f"{self.device}")
-        else:
-            engine = BatchedEngine.from_clients(list(clients),
-                                                device=self.device)
+        engine, self.k, n_samples = self._federation(clients)
         self.engine = engine
         params = tree_map(lambda t: torch.as_tensor(
             t, dtype=torch.float32, device=self.device), init_params)
@@ -129,7 +123,6 @@ class FusedPAOTA:
         self._init_global = (params if params_mode == "pytree"
                              else self._init_vec)
         self.d = int(self._init_vec.numel())
-        self.k = engine.n_clients
         self.scenario = scenario
         self.cohort_size = int(cohort_size) if cohort_size else 0
         if self.cohort_size and not 1 <= self.cohort_size <= self.k:
@@ -173,12 +166,7 @@ class FusedPAOTA:
                              "or None)")
         self.faults = faults
         if faults is not None and faults.has_blackout:
-            raise NotImplementedError(
-                f"pod_blackout={faults.pod_blackout} needs the grouped "
-                f"sharded driver (pods are a mesh topology): the nearest "
-                f"supported configuration is ShardedPAOTA with "
-                f"group_period >= 1 and pod_axes covering "
-                f"{len(faults.pod_blackout)}+ pods")
+            self._check_blackout(faults)
         if screen_max_norm < 0.0:
             raise ValueError(f"screen_max_norm={screen_max_norm} (expected "
                              ">= 0; 0 = finite-only screening)")
@@ -217,13 +205,14 @@ class FusedPAOTA:
             draws = CounterDraws(
                 sched_cfg.seed, cfg.seed, self.device, k=self.k, d=self.d,
                 lat_lo=sched_cfg.lat_lo, lat_hi=sched_cfg.lat_hi, chan=chan,
-                n_samples=engine.n_samples, local_steps=engine.local_steps,
+                n_samples=n_samples, local_steps=engine.local_steps,
                 batch_size=engine.batch_size, scenario=scenario,
                 m=self.cohort_size, s=self.compress_s)
         elif draws.device != self.device:
             raise ValueError(f"draws on {draws.device}, FusedPAOTA on "
                              f"{self.device}")
         self.draws = draws
+        self._draws_local = self._local_draws(draws)
         # a noiseless channel skips the AWGN draw, as the reference does
         # for a static sigma_n = 0
         self._noiseless = chan.sigma_n == 0.0
@@ -231,14 +220,39 @@ class FusedPAOTA:
                                      scenario.het_batch):
             # static per-client traits, drawn once and installed on the
             # engine (the batch fold itself is in the draws' batch plans)
-            if draws.traits is None:
+            traits = self._draws_local.traits
+            if traits is None:
                 raise ValueError("a scenario with het_steps / het_batch "
                                  "needs draws that carry the static traits")
-            engine.set_heterogeneity(draws.traits.steps_k,
-                                     draws.traits.batch_k)
+            engine.set_heterogeneity(traits.steps_k, traits.batch_k)
         self._streams = self._make_streams()
         self._carry: RoundCarry | None = None
         self.history: List[dict] = []
+
+    def _federation(self, clients):
+        """(engine, K, (K,) sample counts) of ``clients``: a list of
+        ``FLClient`` or a ``BatchedEngine`` on this driver's device."""
+        if isinstance(clients, BatchedEngine):
+            engine = clients
+            if engine.device != self.device:
+                raise ValueError(f"engine on {engine.device}, FusedPAOTA on "
+                                 f"{self.device}")
+        else:
+            engine = BatchedEngine.from_clients(list(clients),
+                                                device=self.device)
+        return engine, engine.n_clients, engine.n_samples
+
+    def _check_blackout(self, faults: FaultConfig) -> None:
+        raise NotImplementedError(
+            f"pod_blackout={faults.pod_blackout} needs the grouped "
+            f"sharded driver (pods are a mesh topology): the nearest "
+            f"supported configuration is repro_torch.fl.ShardedPAOTA with "
+            f"group_period >= 1 and pod_axes covering "
+            f"{len(faults.pod_blackout)}+ pods")
+
+    def _local_draws(self, draws):
+        """The draws this driver's rows consume: all of them."""
+        return draws
 
     def _make_streams(self) -> RoundStreams:
         """The round's callbacks. A draw the configuration does not use
@@ -247,7 +261,7 @@ class FusedPAOTA:
         cohort mode, the randmask support only below s = d, the dither
         only for int8 slots; the fault wrappers exist only while their
         fraction is above 0."""
-        draws, engine, rcfg = self.draws, self.engine, self._rcfg
+        draws, engine, rcfg = self._draws_local, self.engine, self._rcfg
         sc = self.scenario
         cohort = rcfg.cohort_size > 0
         if self.params_mode == "pytree":
@@ -288,7 +302,7 @@ class FusedPAOTA:
     def _faulty_local_train(self, train):
         """``train`` with the round's payload faults injected into the
         trained rows, what a broken client's uplink would carry."""
-        draws, fc = self.draws, self.faults
+        draws, fc = self._draws_local, self.faults
 
         def faulty(g, r):
             nm, bm = fault_payload_masks(draws.fault_uniform(r), r, fc)
@@ -299,7 +313,7 @@ class FusedPAOTA:
         """The cohort's twin: the masks are drawn for all K clients and
         gathered by the slots' global client ids, so a client suffers the
         same fault in a slot as in a dense row."""
-        draws, fc = self.draws, self.faults
+        draws, fc = self._draws_local, self.faults
 
         def faulty(g, r, ids):
             nm, bm = fault_payload_masks(draws.fault_uniform(r), r, fc)
@@ -312,7 +326,7 @@ class FusedPAOTA:
         """The channel draws with the deep fades applied: a faded client's
         |h_k| is scaled by ``deep_fade_gain``, and cap (7) then drives its
         power toward zero."""
-        draws, fc = self.draws, self.faults
+        draws, fc = self._draws_local, self.faults
 
         def faulty(t):
             h = channel(t)
@@ -418,6 +432,11 @@ class FusedPAOTA:
             carry = self._ensure_carry()
             self._carry, outs = scan_rounds(carry, n_rounds, rcfg=self._rcfg,
                                             streams=self._streams)
+        return self._history_rows(outs, n_rounds)
+
+    def _history_rows(self, outs, n_rounds: int) -> List[dict]:
+        """The per-round history dicts of a stretch's metrics (one
+        device-to-host copy), appended to ``history``."""
         names = DEVICE_METRICS + tuple(k for k in FAULT_METRICS if k in outs)
         host = torch.stack([outs[k] for k in names]).cpu().numpy()
         base = len(self.history)

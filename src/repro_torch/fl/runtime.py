@@ -47,7 +47,19 @@ zeroed before sweep 2 (0 * NaN is NaN); ``divergence_factor`` rolls w_g
 back to the carry's last good global when its norm jumps. Each knob left
 off keeps the round's program as it was without it.
 
-Left out (the reference's grouped and TP branches): they need a mesh.
+The sharded round (``repro_torch.fl.sharded.ShardedPAOTA``) runs the same
+step on each rank's rows of the federation, with a ``reducer``
+(``repro_torch.launch.collectives.Reducer``) where the reference calls
+``psum`` / ``pmin`` / ``pmax``: the superposition is one all-reduce of
+the flat (d_total + 1,) partial (``paota_partial_stacked``, the noise
+joining after it), the water-filling's sums and the round's metric sums
+are small packed all-reduces. Its two topologies are the reference's:
+``GroupTopology`` (grouped aggregation: ``scan_windows`` runs whole
+windows of ``RoundCfg.group_period`` periods, each pod superposing its
+own clients into the carry's ``held`` partial, and one cross-pod
+all-reduce at the window's sync) and ``TPTopology``
+(``repro_torch.sharding.tp``: the planes hold each rank's TP block of
+every leaf). ``reducer=None`` is the single-device round, op for op.
 """
 from __future__ import annotations
 
@@ -59,7 +71,9 @@ import torch
 
 from repro_torch.core.aggregation import (guarded_global_update,
                                           paota_aggregate_compressed,
-                                          paota_aggregate_stacked)
+                                          paota_aggregate_stacked,
+                                          paota_finalize_stacked,
+                                          paota_partial_stacked)
 from repro_torch.core.aircomp import (VARSIGMA_MIN, ChannelConfig,
                                       effective_power_cap,
                                       sample_channel_gains)
@@ -82,7 +96,9 @@ from repro_torch.core.scheduler import (TAG_COMPRESS, TAG_FAULT, TAG_NOISE,
                                         sched_advance, sched_broadcast)
 from repro_torch.data.pipeline import counter_batch_plan
 from repro_torch.device import f32, resolve_device
-from repro_torch.kernels.ops import round_stats, round_stats_compressed
+from repro_torch.kernels.ops import (round_stats, round_stats_compressed,
+                                     round_stats_tp)
+from repro_torch.sharding.tp import tp_block
 from repro_torch.tree import tree_leaves, tree_map
 
 # per-round metrics that live on the device, in the order they are stacked
@@ -130,6 +146,10 @@ class RoundCarry:
     good_global: Optional[torch.Tensor] = None  # last global that passed
                                 # the norm check (vector or params dict)
     good_norm2: Optional[torch.Tensor] = None   # f32 ||good_global||^2
+    # grouped aggregation only (RoundCfg.group_period >= 1)
+    held: Optional[torch.Tensor] = None  # (d_total + 1,) f32: the pod's
+                                # staleness-weighted partials of the window
+                                # so far (the same on every rank of a pod)
 
 
 class RoundCfg(NamedTuple):
@@ -157,6 +177,18 @@ class RoundCfg(NamedTuple):
                                 # screened too (0: finite-only)
     divergence_factor: float = 0.0  # roll back when ||w_g|| passes factor *
                                 # max(||good||, 1); 0 = off
+    group_period: int = 0       # grouped aggregation: N periods a window
+                                # (0: flat, every period a sync)
+
+
+class GroupTopology(NamedTuple):
+    """The mesh-axis split of grouped aggregation."""
+    pod_axes: tuple             # client axes indexing the pods: the sync's
+                                # all-reduce crosses them once a window
+    intra_axes: tuple           # client axes inside a pod (may be empty:
+                                # every shard its own pod)
+    intra_shards: int           # ranks a pod spans: the held partial's
+                                # replication count
 
 
 class RoundStreams(NamedTuple):
@@ -357,15 +389,21 @@ class ArrayDraws:
 # ---------------------------------------------------------------------------
 
 def round_factors(deltas, payload, global_vec, prev_global, stal, omega,
-                  eps=1e-12):
+                  eps=1e-12, tp=None, reducer=None):
     """Stage 2, one sweep of the delta plane (and the payload plane when
     given): eq.-25 staleness factors rho_k, similarity factors theta_k, and
     the payload sq-norms the power constraint (7) needs. ``payload=None``
-    means the payload IS the deltas (transmit='delta').
+    means the payload IS the deltas (transmit='delta'). With ``tp`` the
+    planes hold TP-local blocks and the sweep closes with one small
+    all-reduce over the TP ranks (``ops.round_stats_tp``, on ``reducer``).
 
     Returns (rho, theta, w_norm2)."""
     gdir = tree_map(torch.sub, global_vec, prev_global)
-    dots, dn2, pn2, gn2 = round_stats(deltas, gdir, payload)
+    if tp is not None:
+        dots, dn2, pn2, gn2 = round_stats_tp(deltas, gdir, payload, tp,
+                                             reducer)
+    else:
+        dots, dn2, pn2, gn2 = round_stats(deltas, gdir, payload)
     eps = f32(eps)
     den = torch.sqrt(torch.clamp_min(dn2, eps) * torch.clamp_min(gn2, eps))
     cos = torch.where(torch.sqrt(gn2) < f32(1e-12), torch.zeros_like(dots),
@@ -574,13 +612,23 @@ def _upload_masks(ready, streams: RoundStreams, t: int):
 
 
 def _metrics(b, stal, beta, varsigma, p2_obj, n_screened=None,
-             rolled=None):
-    n_upl = b.sum()
+             rolled=None, reducer=None):
+    """The round's metrics. With ``reducer`` the four sums over the
+    clients (uploaders, sum stal b, sum beta b, screened) are this rank's
+    and go through one packed all-reduce."""
+    n_upl, s_stal, s_beta = b.sum(), (stal * b).sum(), (beta * b).sum()
+    if reducer is not None:
+        parts = [n_upl, s_stal, s_beta] + (
+            [n_screened] if n_screened is not None else [])
+        sums = reducer.sum(torch.stack(parts), tag="metrics")
+        n_upl, s_stal, s_beta = sums[0], sums[1], sums[2]
+        if n_screened is not None:
+            n_screened = sums[3]
     denom = torch.clamp_min(n_upl, 1.0)
     out = {
         "n_participants": n_upl,
-        "mean_staleness": (stal * b).sum() / denom,
-        "beta_mean": (beta * b).sum() / denom,
+        "mean_staleness": s_stal / denom,
+        "beta_mean": s_beta / denom,
         "varsigma": torch.where(varsigma > f32(VARSIGMA_MIN), varsigma,
                                 torch.zeros_like(varsigma)),
         # a zero-uploader P2 is vacuous: report inf, like the reference
@@ -595,13 +643,46 @@ def _metrics(b, stal, beta, varsigma, p2_obj, n_screened=None,
 
 
 def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
-                     streams: RoundStreams):
+                     streams: RoundStreams, reducer=None,
+                     grouping: Optional[GroupTopology] = None,
+                     window_j: int = 0, tp=None):
     """One PAOTA aggregation period. Returns (next carry, metrics), the
     metrics being 0-d device tensors named in ``DEVICE_METRICS``. With
     ``rcfg.cohort_size`` the active-cohort form runs
-    (``_cohort_round_step``)."""
+    (``_cohort_round_step``).
+
+    ``reducer``: the (K,) and (K, ...) rows are this rank's clients and the
+    reductions over clients cross ranks on the reducer's (client) axes.
+    ``tp``: the planes hold TP-local blocks (module docstring). Grouped
+    aggregation (``grouping`` with ``rcfg.group_period`` N >= 1):
+    ``window_j`` is the period's place in its window. A non-sync period
+    (j < N - 1) water-fills per pod, sums the pod's superposition over the
+    intra-pod ranks and adds it to ``held`` weighted by the staleness
+    factor of its age at the sync, rho(N - 1 - j); the global holds. The
+    sync period adds held / intra_shards to its local partial and sends
+    it through the window's one all-reduce over every client axis, then
+    the noise and the division. At N = 1 held is 0 and the sync is the
+    flat path, bit for bit."""
     if rcfg.cohort_size:
+        if reducer is not None or grouping is not None or tp is not None:
+            raise NotImplementedError(
+                f"active-cohort mode (cohort_size={rcfg.cohort_size}) does "
+                f"not compose with the sharded round (grouping or TP) in "
+                f"the port yet: its slots are shard-local in the "
+                f"reference; the nearest supported configuration is "
+                f"cohort_size={rcfg.cohort_size} on FusedPAOTA, or the "
+                f"sharded round with cohort_size=0")
         return _cohort_round_step(carry, rcfg=rcfg, streams=streams)
+    if tp is not None and grouping is not None:
+        raise NotImplementedError(
+            f"grouped aggregation (group_period={rcfg.group_period}) does "
+            f"not compose with intra-client TP (tp axes {tp.axes}) yet: "
+            f"the held intra-pod partial is not TP-split; the nearest "
+            f"supported configurations are group_period="
+            f"{rcfg.group_period} with TP extent 1, or TP with "
+            f"group_period=0")
+    grouped = grouping is not None and rcfg.group_period >= 1
+    sync = (not grouped) or window_j == rcfg.group_period - 1
     t = carry.t
     time = _round_time(t, rcfg.delta_t)
 
@@ -617,7 +698,8 @@ def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
     payload = carry.deltas if rcfg.transmit_delta else carry.pending
     rho, theta, w_norm2 = round_factors(
         carry.deltas, None if rcfg.transmit_delta else carry.pending,
-        carry.global_vec, carry.prev_global, stal, rcfg.omega)
+        carry.global_vec, carry.prev_global, stal, rcfg.omega, tp=tp,
+        reducer=reducer)
 
     # 2b. screening: corrupt or fenced rows leave as phantom clients
     n_screened = None
@@ -625,46 +707,104 @@ def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
         payload, theta, w_norm2, b, _, n_screened = _screen(
             payload, theta, w_norm2, b, rcfg)
 
-    # 3. P2 -> beta -> powers
+    # 3. P2 -> beta -> powers; at a grouped non-sync period only the pod's
+    # clients superpose, so the water level is the pod's
+    wf_reducer = reducer if sync or reducer is None else (
+        reducer.over(grouping.intra_axes))
     p_max = torch.full_like(b, f32(rcfg.p_max_watts))
-    beta, p2_obj = waterfill_beta(rho, theta, p_max, b, rcfg.c1, rcfg.c0)
+    beta, p2_obj = waterfill_beta(rho, theta, p_max, b, rcfg.c1, rcfg.c0,
+                                  reducer=wf_reducer)
     powers = power_from_beta(beta, rho, theta, p_max)
 
     # 4. power constraint (7) under the sampled channel
     powers = constraint7_powers(powers, streams.channel(t), rcfg.p_max_watts,
                                 w_norm2)
 
-    # 5+6. AirComp superposition + AWGN + normalization (sweep 2 of 2) and
-    # the zero-uploader-guarded update
-    agg, varsigma = paota_aggregate_stacked(payload, powers, b,
-                                            streams.noise(t))
-    new_global, new_prev = guarded_global_update(
-        carry.global_vec, carry.prev_global, agg, varsigma,
-        delta=rcfg.transmit_delta)
+    # 5+6. AirComp superposition + AWGN + normalization (sweep 2 of 2, or
+    # the partial, one all-reduce and the finish) and the zero-uploader
+    # guarded update
+    held = carry.held
+    if not grouped:
+        agg, varsigma = paota_aggregate_stacked(payload, powers, b,
+                                                streams.noise(t),
+                                                reducer=reducer, tp=tp)
+        new_global, new_prev = guarded_global_update(
+            carry.global_vec, carry.prev_global, agg, varsigma,
+            delta=rcfg.transmit_delta)
+    elif sync:
+        # held is the same on the intra_shards ranks of a pod, so 1 /
+        # intra_shards of it under the all-client sum adds each pod's once;
+        # at N = 1 held is 0 and the sum is the flat path's
+        partial = paota_partial_stacked(payload, powers, b)
+        scale = f32(1.0 / grouping.intra_shards)
+        agg, varsigma = paota_finalize_stacked(partial + held * scale,
+                                               payload, streams.noise(t),
+                                               reducer=reducer)
+        new_global, new_prev = guarded_global_update(
+            carry.global_vec, carry.prev_global, agg, varsigma,
+            delta=rcfg.transmit_delta)
+        held = torch.zeros_like(held)
+    else:
+        partial = paota_partial_stacked(
+            payload, powers, b, reducer=reducer.over(grouping.intra_axes))
+        age = torch.tensor(float(rcfg.group_period - 1 - window_j))
+        weight = float(staleness_factor(age, rcfg.omega))
+        held = held + weight * partial
+        varsigma = torch.zeros((), dtype=torch.float32, device=b.device)
+        new_global, new_prev = carry.global_vec, carry.prev_global
 
     # 6b. divergence rollback, before the broadcast: a rolled-back round
-    # retrains from the restored model
+    # retrains from the restored model (a non-sync period holds the global)
     good, good_n2, rolled = carry.good_global, carry.good_norm2, None
     if rcfg.divergence_factor > 0.0:
-        new_global, new_prev, good, good_n2, rolled = _divergence_rollback(
-            new_global, new_prev, carry, rcfg)
+        if sync:
+            new_global, new_prev, good, good_n2, rolled = \
+                _divergence_rollback(new_global, new_prev, carry, rcfg)
+        else:
+            rolled = torch.zeros((), dtype=torch.float32, device=b.device)
 
     # 7. broadcast w^{r+1} to the restarters (the uploaders, and the
     # dropped uploaders whose update was lost), who restart local
     # training; their delta rows are refreshed as f32 trained - w_g^{r+1}
-    # before the storage cast
+    # before the storage cast (with TP: this rank's block of both)
     t_next = t + 1
     n_ready, n_lat, n_model = sched_broadcast(
         ready, carry.busy_lat, carry.model_round, restart,
         streams.latencies(t_next), t_next)
     trained = streams.local_train(new_global, t_next)
-    pending, deltas = _refresh_rows(carry, restart, trained, new_global)
+    g_rows = new_global
+    if tp is not None:
+        trained, g_rows = tp_block(trained, tp, 1), tp_block(new_global,
+                                                             tp, 0)
+    pending, deltas = _refresh_rows(carry, restart, trained, g_rows)
     nxt = RoundCarry(t=t_next, time=time, ready=n_ready, busy_lat=n_lat,
                      model_round=n_model, global_vec=new_global,
                      prev_global=new_prev, pending=pending, deltas=deltas,
-                     good_global=good, good_norm2=good_n2)
-    return nxt, _metrics(b, stal, beta, varsigma, p2_obj, n_screened,
-                         rolled)
+                     good_global=good, good_norm2=good_n2, held=held)
+    out = _metrics(b, stal, beta, varsigma, p2_obj, n_screened, rolled,
+                   reducer)
+    if not sync:
+        out["p2_objective"] = _pod_mean_objective(b, p2_obj, out, reducer,
+                                                  grouping)
+    return nxt, out
+
+
+def _pod_mean_objective(b, p2_obj, out, reducer, grouping):
+    """A non-sync period's P2 objective: the water level is per pod, so
+    the mean over the pods that had uploaders (inf when none had)."""
+    pod_upl = b.sum()
+    intra = reducer.over(grouping.intra_axes)
+    if intra is not None:
+        pod_upl = intra.sum(pod_upl.reshape(1), tag="metrics_pod")[0]
+    has = pod_upl > 0
+    pods = reducer.over(grouping.pod_axes)
+    pair = torch.stack([torch.where(has, p2_obj, torch.zeros_like(p2_obj)),
+                        has.float()])
+    if pods is not None:
+        pair = pods.sum(pair, tag="metrics_pod")
+    return torch.where(out["n_participants"] > 0,
+                       pair[0] / torch.clamp_min(pair[1], 1.0),
+                       torch.full_like(p2_obj, float("inf")))
 
 
 def _refresh_rows(carry: RoundCarry, take, trained, new_global):
@@ -931,15 +1071,34 @@ def init_cohort_carry(vec, *, streams: RoundStreams, k: int, m: int,
 
 
 def scan_rounds(carry: RoundCarry, n_rounds: int, *, rcfg: RoundCfg,
-                streams: RoundStreams):
+                streams: RoundStreams, reducer=None, tp=None):
     """``n_rounds`` periods in a Python loop. Returns (carry, metrics):
     ``metrics`` maps each of ``DEVICE_METRICS`` (and of ``FAULT_METRICS``
     whose branch is on) to an (n_rounds,) device tensor, plus ``"time"``
-    to a host list."""
+    to a host list. ``reducer`` and ``tp``: the sharded round's."""
+    return _stack_rounds(carry, [dict(window_j=0)] * n_rounds, rcfg=rcfg,
+                         streams=streams, reducer=reducer, tp=tp)
+
+
+def scan_windows(carry: RoundCarry, n_windows: int, *, rcfg: RoundCfg,
+                 streams: RoundStreams, reducer, grouping: GroupTopology):
+    """Grouped aggregation: ``n_windows`` windows of ``rcfg.group_period``
+    periods, each period with its place in the window, so a window holds
+    exactly one cross-pod model-sized all-reduce (at its sync). Returns
+    (carry, metrics) on the flat (n_windows * N,) timeline, as
+    ``scan_rounds``."""
+    steps = [dict(window_j=j, grouping=grouping)
+             for _ in range(n_windows) for j in range(rcfg.group_period)]
+    return _stack_rounds(carry, steps, rcfg=rcfg, streams=streams,
+                         reducer=reducer, tp=None)
+
+
+def _stack_rounds(carry, steps, *, rcfg, streams, reducer, tp):
     outs = {}
     times = []
-    for _ in range(n_rounds):
-        carry, out = paota_round_step(carry, rcfg=rcfg, streams=streams)
+    for kw in steps:
+        carry, out = paota_round_step(carry, rcfg=rcfg, streams=streams,
+                                      reducer=reducer, tp=tp, **kw)
         for k, v in out.items():
             outs.setdefault(k, []).append(v)
         times.append(carry.time)

@@ -54,6 +54,67 @@ def round_stats(deltas, g, payload=None):
     return dots, dn2, pn2, gn2
 
 
+def round_stats_tp(deltas, g, payload, tp, reducer):
+    """``round_stats`` over TP-local blocks (the reference's
+    ``round_stats_tp``): the stacked leaves hold this rank's block of each
+    split leaf while ``g`` is whole, so g is sliced to the block, the
+    sweep (``round_stats``, one launch a leaf) runs over the split and the
+    replicated leaves apart, and one packed ``[dots | dn2 (| pn2) | gn2]``
+    all-reduce over ``tp.axes`` closes the split group; the replicated
+    leaves add after it, so they count once."""
+    from repro_torch.sharding.tp import tp_slice
+    d_leaves = tree_leaves(deltas)
+    g_leaves = tree_leaves(g)
+    have_p = payload is not None
+    p_leaves = tree_leaves(payload) if have_p else [None] * len(d_leaves)
+    k = d_leaves[0].shape[0]
+    sh, rep = ([], [], []), ([], [], [])
+    for dl, gl, pl, dim in zip(d_leaves, g_leaves, p_leaves, tp.leaf_dims):
+        dst = sh if dim >= 0 else rep
+        dst[0].append(dl)
+        dst[1].append(tp_slice(gl, dim, tp) if dim >= 0 else gl)
+        dst[2].append(pl)
+
+    def run(group):
+        def tree(leaves):          # a list as a dict tree, in list order
+            return {f"{i:06d}": l for i, l in enumerate(leaves)}
+        return round_stats(tree(group[0]), tree(group[1]),
+                           tree(group[2]) if have_p else None)
+
+    if sh[0]:
+        dots, dn2, pn2, gn2 = run(sh)
+    else:
+        dev = d_leaves[0].device
+        dots = dn2 = torch.zeros((k,), dtype=torch.float32, device=dev)
+        pn2 = dots if have_p else None
+        gn2 = torch.zeros((), dtype=torch.float32, device=dev)
+    parts = [dots, dn2] + ([pn2] if have_p else []) + [gn2.reshape(1)]
+    flat = reducer.sum(torch.cat(parts), axes=tp.axes, tag="stats_tp")
+    dots, dn2 = flat[:k], flat[k:2 * k]
+    if have_p:
+        pn2 = flat[2 * k:3 * k]
+    gn2 = flat[-1]
+    if rep[0]:
+        r_dots, r_dn2, r_pn2, r_gn2 = run(rep)
+        dots, dn2, gn2 = dots + r_dots, dn2 + r_dn2, gn2 + r_gn2
+        if have_p:
+            pn2 = pn2 + r_pn2
+    return dots, dn2, (pn2 if have_p else None), gn2
+
+
+def aircomp_partial(stacked, bp, out, offset: int = 0, *, seg=None,
+                    pitch=None, write_varsigma: bool = True):
+    """The local superposition partial of a (K, D) payload into the flat
+    f32 ``out`` at ``offset`` (``aircomp_sum.aircomp_partial_*``: column j
+    at offset + (j // seg) * pitch + j % seg, the raw sum of bp into the
+    last slot when ``write_varsigma``); returns ``out``."""
+    fn = (_ac.aircomp_partial_cuda
+          if _route(stacked.device, "aircomp_partial")
+          else _ac.aircomp_partial_plain)
+    return fn(stacked, bp, out, offset, seg=seg, pitch=pitch,
+              write_varsigma=write_varsigma)
+
+
 def superpose_normalize(stacked, powers, mask, noise, vs_min: float = 1e-12):
     """Fused eqs. (6)+(8) for the raveled (K, D) payload:
     ``(agg (D,) f32, raw varsigma f32 scalar)``."""

@@ -18,9 +18,18 @@ writes the trajectory CSV with the reference's columns.
 ``--engine batched`` (default) runs PAOTA on the host-path
 ``PAOTAServer``; ``--engine fused`` runs the fused on-device round
 (``FusedPAOTA``, counter draws), with the baselines on the batched engine
-as the reference does. The reference's ``legacy`` and ``sharded`` engines
-are not ported and are refused by name, and so are its ``--group-period``
-and ``--tp`` (both need the sharded engine).
+as the reference does. ``--engine sharded`` runs PAOTA's round over the
+ranks of a process group (``ShardedPAOTA``), one process a rank:
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.fl_train --engine sharded \
+        --dist-backend gloo --device cuda:0 [--group-period N] \
+        [--tp T --params-mode pytree]
+
+``--dist-backend nccl`` with ``--device cuda`` gives each rank
+``cuda:LOCAL_RANK``; ranks that share one card need gloo. Rank 0 runs the
+baselines, prints and writes the CSV. The reference's ``legacy`` engine
+is not ported and is refused by name.
 
 The fused round's knobs need ``--engine fused``: ``--params-mode
 pytree`` (the params dict carry, the sweeps launched per leaf),
@@ -38,8 +47,10 @@ baselines write no rows), as in the reference.
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.bench.common import (ENGINES, NOT_PORTED_ENGINES,
                                       BenchSetting, build_world,
@@ -74,9 +85,14 @@ def main(argv=None):
                     help="fused: storage of the (K, ...) planes (f32 "
                          "accumulation, f32 globals)")
     ap.add_argument("--group-period", type=int, default=0,
-                    help="the reference's grouped sharded engine: refused")
+                    help="sharded: grouped aggregation, N periods a window")
     ap.add_argument("--tp", type=int, default=1,
-                    help="the reference's sharded TP extent: refused")
+                    help="sharded + --params-mode pytree: intra-client TP "
+                         "extent")
+    ap.add_argument("--dist-backend", default="nccl",
+                    choices=["nccl", "gloo"],
+                    help="sharded: the process group's backend (gloo for "
+                         "ranks that share one card, and on the CPU)")
     ap.add_argument("--cohort-size", type=int, default=0,
                     help="fused: active-cohort round with m slots")
     ap.add_argument("--compress", default="", choices=["", "topk",
@@ -97,8 +113,8 @@ def main(argv=None):
                          "(Byzantine deltas), fade:F + gain:G (deep-fade "
                          "channel outliers), start:R / stop:R (active "
                          "window); pods:0|2 + bstart:R + bstop:R (pod "
-                         "blackout) needs the reference's grouped sharded "
-                         "driver and is refused. E.g. 'nan:0.05,start:1'")
+                         "blackout) needs --engine sharded with "
+                         "--group-period. E.g. 'nan:0.05,start:1'")
     ap.add_argument("--screen", action="store_true",
                     help="mask non-finite uploads out of the AirComp "
                          "superposition")
@@ -119,9 +135,19 @@ def main(argv=None):
                     help="checkpoint path to restore before training: the "
                          "resumed PAOTA run continues the saved one bit "
                          "for bit, then runs --rounds more rounds")
-    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda, cuda:N or cpu (sharded with cuda: "
+                         "cuda:LOCAL_RANK)")
     ap.add_argument("--out", default="fl_noniid_torch.csv")
     args = ap.parse_args(argv)
+    rank = 0
+    if args.engine == "sharded" and "WORLD_SIZE" in os.environ:
+        if not dist.is_initialized():
+            dist.init_process_group(backend=args.dist_backend,
+                                    init_method="env://")
+        rank = dist.get_rank()
+        if args.device == "cuda":
+            args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
     s = BenchSetting.from_env(n_rounds=args.rounds, n_clients=args.clients,
                               n0_dbm_hz=args.n0, solver=args.solver,
                               engine=args.engine, transmit=args.transmit,
@@ -141,30 +167,34 @@ def main(argv=None):
                               resume=args.resume)
     dev = resolve_device(args.device)
     clients, params, data = build_world(s)
+    say = print if rank == 0 else (lambda *a, **k: None)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"PAOTA vs Local SGD vs COTAF on {dev} ({name}): "
-          f"K={s.n_clients}, rounds={s.n_rounds}, engine={s.engine}, "
-          f"transmit={s.paota_transmit}"
-          + (f", params={s.params_mode}, pending={s.pending_dtype}"
-             if s.engine == "fused" else "")
-          + (f", cohort={s.cohort_size}, compress={s.compress or 'none'}"
-             if s.cohort_size else ""))
+    say(f"PAOTA vs Local SGD vs COTAF on {dev} ({name}): "
+        f"K={s.n_clients}, rounds={s.n_rounds}, engine={s.engine}, "
+        f"transmit={s.paota_transmit}"
+        + (f", params={s.params_mode}, pending={s.pending_dtype}"
+           if s.engine != "batched" else "")
+        + (f", cohort={s.cohort_size}, compress={s.compress or 'none'}"
+           if s.cohort_size else ""))
     all_rows = []
     for algo in ALGORITHMS:
+        if rank and algo != "paota":
+            continue        # the baselines need no collective: rank 0's
         rows = run_algorithm(algo, s, clients, params, data, device=dev)
         if not rows:
             continue        # fault-tolerance sweeps skip the baselines
         all_rows.extend(rows)
         for r in rows:
-            print(f"{algo:>9} {r['round']:>5} {r['time']:>9.2f} "
-                  f"{r['accuracy']:>7.4f} {r['loss']:>8.4f}")
+            say(f"{algo:>9} {r['round']:>5} {r['time']:>9.2f} "
+                f"{r['accuracy']:>7.4f} {r['loss']:>8.4f}")
         tta = time_to_accuracy(rows)
-        print(f"\n=== {algo} === final acc {rows[-1]['accuracy']:.3f} "
-              f"@ sim {rows[-1]['time']:.0f}s")
+        say(f"\n=== {algo} === final acc {rows[-1]['accuracy']:.3f} "
+            f"@ sim {rows[-1]['time']:.0f}s")
         for tgt, (rnd, tm) in tta.items():
-            print(f"  target {tgt:.0%}: round={rnd} time={tm}")
-    write_csv(args.out, all_rows)
-    print(f"\ntrajectories -> {args.out}")
+            say(f"  target {tgt:.0%}: round={rnd} time={tm}")
+    if rank == 0:
+        write_csv(args.out, all_rows)
+        say(f"\ntrajectories -> {args.out}")
 
 
 if __name__ == "__main__":

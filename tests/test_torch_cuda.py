@@ -1511,3 +1511,80 @@ def test_ssd_autograd_on_card_matches_cpu(cuda, case):
         scale = max(1.0, float(w.abs().max()))
         torch.testing.assert_close(a, w, rtol=2e-5, atol=2e-5 * scale,
                                    msg=name)
+
+
+# The sharded round's partial entry (aircomp_sum.cu repro_aircomp_partial):
+# the flat and TP shapes of the sharded paths (K_local = 25 and 250 of the
+# paper's d = 8070 at K = 100 and 1000 over 4 ranks; a TP rank's block of
+# the MLP's first layer), ragged D, an offset into the flat buffer, and a
+# plane one element off 16-byte alignment.
+PARTIAL_CASES = [(25, 8070, 0, 1, 0), (250, 8070, 0, 1, 0),
+                 (25, 7840, 8070 - 7840 - 10, 2, 0), (2, 3925, 5, 1, 0),
+                 (7, 511, 13, 1, 1), (25, 100, 17, 2, 0), (1, 1, 0, 1, 0),
+                 (300, 8192, 3, 4, 1)]
+
+
+@pytest.mark.parametrize("k,d,offset,blocks,misalign", PARTIAL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_aircomp_partial_kernel_matches_twin(cuda, k, d, offset, blocks,
+                                             misalign, dtype):
+    """The kernel against its twin (``bp @ x.float()`` into the same
+    places): a whole leaf (blocks = 1) or one TP rank's block of a leaf
+    split ``blocks`` ways along its last dim (seg = D / 10 rows of 10,
+    pitch = blocks * seg); the raw sum of bp in the last slot; bit-equal
+    on repeat; untouched slots stay as they were. The sums are held
+    divided by sum bp, as sweep 2's aggregate is (the partial is sweep 2
+    before its division), at sweep 2's 3e-5 / 2e-2."""
+    from repro_torch.kernels import aircomp_sum as ac
+    gen = torch.Generator(device=cuda).manual_seed(7 * k + d)
+    x = _plane(gen, k, d, dtype, misalign, cuda)
+    m = (torch.rand((k,), generator=gen, device=cuda) < 0.6).float()
+    bp = (0.1 + 15.0 * torch.rand((k,), generator=gen, device=cuda)) * m
+    seg = d if blocks == 1 or d % 10 else 10
+    pitch = seg * blocks
+    n = offset + (d // seg - 1) * pitch + seg + 1
+    fill = torch.full((n,), -7.0, device=cuda)
+    got, again, want = fill.clone(), fill.clone(), fill.clone()
+    before = ac.partial_launches
+    ac.aircomp_partial_cuda(x, bp, got, offset, seg=seg, pitch=pitch)
+    ac.aircomp_partial_cuda(x, bp, again, offset, seg=seg, pitch=pitch)
+    torch.cuda.synchronize()
+    assert ac.partial_launches == before + 2
+    ac.aircomp_partial_plain(x, bp, want, offset, seg=seg, pitch=pitch)
+    tol = _tol(dtype) if dtype == torch.bfloat16 else dict(rtol=3e-5,
+                                                           atol=3e-5)
+    vs = torch.clamp_min(want[-1], 1e-12)
+    torch.testing.assert_close(got[:-1] / vs, want[:-1] / vs, **tol)
+    torch.testing.assert_close(got[-1], want[-1], rtol=3e-5, atol=0.0)
+    assert torch.equal(got, again)
+    placed = torch.zeros((n,), dtype=torch.bool, device=cuda)
+    placed[-1] = True
+    placed.as_strided((d // seg, seg), (pitch, 1), offset).fill_(True)
+    assert torch.equal(got[~placed], fill[~placed])
+
+
+def test_aircomp_partial_tree_on_card_matches_cpu(cuda):
+    """The tree entries around the kernel: the flat partial of the MLP's
+    six leaves and a TP rank's embedded blocks, on the card against the
+    same entry on the CPU (the twin), one launch a leaf."""
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.sharding.tp import TPTopology
+    gen = torch.Generator().manual_seed(3)
+    shapes = [(25, 10), (25, 784, 10), (25, 10), (25, 10, 10), (25, 10),
+              (25, 10, 10)]
+    leaves = [torch.randn(s, generator=gen) for s in shapes]
+    bp = torch.rand((25,), generator=gen)
+    tp = TPTopology(axes=("tp",), extents=(2,), shards=2,
+                    leaf_dims=(0, 1, 0, 1, 0, 1), index=1)
+    blocks = [leaf.narrow(dim + 1, leaf.shape[dim + 1] // 2,
+                          leaf.shape[dim + 1] // 2).contiguous()
+              for leaf, dim in zip(leaves, tp.leaf_dims)]
+    for fn, args in ((ac.aircomp_partial_tree, (leaves,)),
+                     (ac.aircomp_partial_tree_tp, (blocks,))):
+        extra = (tp,) if fn is ac.aircomp_partial_tree_tp else ()
+        want = fn(*args, bp, *extra)
+        before = ac.partial_launches
+        got = fn([t.to(cuda) for t in args[0]], bp.to(cuda), *extra)
+        torch.cuda.synchronize()
+        assert ac.partial_launches == before + 6
+        torch.testing.assert_close(got.cpu(), want, rtol=3e-5, atol=3e-5)
