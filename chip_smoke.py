@@ -24,7 +24,15 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
   with pod 1 blacked out, each against a single-process FusedPAOTA on
   the same counter draws round for round, with the reducer's calls and
   each rank's launches of sweep 1 and of the partial entry (once a leaf
-  a round); then the partial entry against its twin and ``torch.mv``;
+  a round); the sharded active cohort (m = K at K = 100 against the
+  fused dense round; m = 64 at K = 1000 uncompressed, randmask f32 and
+  top-k int8, the first two against their own rerun on the plain twins),
+  the compressed partial ``gather_superpose_partial`` once a round a
+  rank; the million-client state plane on 4 ranks; a kill at round 5 of
+  10 and a restore in fresh ranks, bit-identical, on four layouts (flat
+  with faults, grouped with a dark pod, compressed int8, TP); the
+  ``fl_train --engine sharded`` CLI with checkpoints and its resume;
+  then both partial entries against their twins and yardsticks;
 - the host-path ``PAOTAServer`` (30 rounds without and 30 with
   ``use_kernel``, the ``aircomp_sum`` kernel's route), held against the
   fused round on the same counter draws;
@@ -129,8 +137,8 @@ paths at the paper's size (K = 100 clients, the 784-10-10-10 MLP):
 
 It times the seven kernels (the two sweeps also in bf16, as the pytree
 carry's six per-leaf launches and at the train store's leaves), the
-attention backward, the SSD backward and the sharded round's partial
-entry with ``repro_torch.bench.timing``,
+attention backward, the SSD backward and the sharded round's two partial
+entries with ``repro_torch.bench.timing``,
 the benches' own method, and prints one JSON record per phase. Its last
 three lines are the ``kernels`` record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
@@ -146,6 +154,8 @@ import csv
 import dataclasses
 import json
 import os
+import signal
+import subprocess
 import sys
 import tempfile
 import time
@@ -4693,21 +4703,139 @@ SHARDED_CASES = (
     ("blackout", 100, "paper", "model", [("pod", 2), ("data", 2)],
      {"group_period": 2, "faults": {"pod_blackout": (1,),
                                     "blackout_start": 2,
-                                    "blackout_stop": 5}}, 8, 2, None))
+                                    "blackout_stop": 5}}, 8, 2, None),
+    # the sharded active cohort: m = K at K = 100 against the fused dense
+    # round; at the cohort path's K = 1000, m = 64 (16 slots a rank), the
+    # uncompressed and two compressed payloads
+    ("cohort_full_k100", 100, "paper", "model", [("data", 4)],
+     {"cohort_size": 100}, 10, 1, "model"),
+    ("cohort_k1000_m64", COHORT_K, "fast", "delta", [("data", 4)],
+     {"cohort_size": COHORT_M}, 10, 1, None),
+    ("compressed_k1000_randmask", COHORT_K, "fast", "delta", [("data", 4)],
+     {"cohort_size": COHORT_M, "compress": "randmask",
+      "compress_ratio": 1 / 16}, 10, 1, None),
+    ("compressed_k1000_topk_int8", COHORT_K, "fast", "delta", [("data", 4)],
+     {"cohort_size": COHORT_M, "compress": "topk", "compress_ratio": 1 / 16,
+      "slot_dtype": "int8"}, 10, 1, None))
+# with no fused twin (m < K refills per rank) these run a second time in
+# the same ranks on the plain twins, the kernel run's oracle every round;
+# int8 top-k gets only the structural checks: its int8 floor turns ulp
+# differences into steps (ROADMAP Queue 3 item 3)
+SHARDED_TWIN_RERUN = ("cohort_k1000_m64", "compressed_k1000_randmask")
+SHARDED_TWIN_TOL = dict(rtol=1e-4, atol=5e-5)
+# kill at round `kill` of `rounds`, restore in fresh ranks, the rest
+# bit-identical: (name, K, sizes, transmit, mesh, knobs, rounds, kill);
+# the grouped case kills at a window boundary, inside pod 1's dark rounds
+SHARDED_RESUME = (
+    ("flat_faults_k100", 100, "paper", "model", [("data", 4)],
+     {"faults": {"nan_frac": 0.1, "byzantine_frac": 0.1,
+                 "deep_fade_frac": 0.1}, "screen": True}, 10, 5),
+    ("grouped_blackout", 100, "paper", "model", [("pod", 2), ("data", 2)],
+     {"group_period": 2, "faults": {"pod_blackout": (1,),
+                                    "blackout_start": 3,
+                                    "blackout_stop": 7}}, 10, 4),
+    ("compressed_k1000_topk_int8", COHORT_K, "fast", "delta", [("data", 4)],
+     {"cohort_size": COHORT_M, "compress": "topk", "compress_ratio": 1 / 16,
+      "slot_dtype": "int8"}, 10, 5),
+    ("tp_2x2", 100, "paper", "model", [("data", 2), ("tp", 2)],
+     {"params_mode": "pytree"}, 10, 5))
 # the partial entry's shapes on the sharded paths: a rank's rows of the
 # raveled plane (K = 100 and 1000 over 4 ranks) and a TP rank's block of
 # the MLP's first layer ((25, 784, 5) of (25, 784, 10): seg 5, pitch 10)
 PARTIAL_SHAPES = ((25, 8070, 8070, 8070), (250, 8070, 8070, 8070),
                   (25, 3920, 5, 10))
+# the compressed partial's: a rank's 16 of the cohort's 64 slots at K =
+# 1000 (s = 504 of d = 8070), and its 64 of the state plane's 256
+GS_PARTIAL_SHAPES = ((16, 504, 8070), (64, 1024, 16384))
 
 
 def partial_times(dev, bw, flops):
-    """The partial entry against its twin at the sharded paths' shapes, f32
-    and bf16 (3e-5 / 2e-2), bit-identical on repeat, timed beside the twin
-    and ``torch.mv``; the bound is its bytes (x once, bp, the placed
-    columns and the varsigma slot) over the card's rate."""
-    from repro_torch.kernels import aircomp_sum as ac
+    """Both partial entries against their twins at the sharded paths'
+    shapes, bit-identical on repeat, timed beside the twin and a
+    yardstick, their bounds their bytes over the card's rate. Returns
+    {"aircomp_partial": [...], "gather_superpose_partial": [...]}."""
     flush = l2_flush(dev)
+    return {"aircomp_partial": aircomp_partial_times(dev, bw, flops, flush),
+            "gather_superpose_partial": gs_partial_times(dev, bw, flops,
+                                                         flush)}
+
+
+def gs_partial_times(dev, bw, flops, flush):
+    """The compressed partial (``gather_superpose_partial``) against its
+    twin at GS_PARTIAL_SHAPES, f32 / bf16 / int8 + scale, dead rows
+    included: the sums divided by Σ bp within 3e-5 (f32, int8: exact
+    values) / 2e-2 (bf16), Σ bp at 3e-5, bit-identical on repeat; timed
+    beside the twin and the ``zeros`` + ``mul`` + ``index_add_`` composite
+    (row 3's yardstick) with the Σ bp slot. Bytes: the values and indices
+    once, bp (and the scales), the (d + 1,) buffer written."""
+    from repro_torch.kernels import gather_superpose as gs
+    recs = []
+    for m, s, d in GS_PARTIAL_SHAPES:
+        for dtype, with_scale in ((torch.float32, False),
+                                  (torch.bfloat16, False),
+                                  (torch.int8, True)):
+            v, idx, bp, _, scale = gs_inputs(dev, m, s, d, dtype,
+                                             with_scale, m * s + d)
+            got, again, want = (torch.full((d + 1,), -7.0, device=dev)
+                                for _ in range(3))
+            gs.gather_superpose_partial_cuda(v, idx, bp, got, d=d,
+                                             scale=scale)
+            gs.gather_superpose_partial_cuda(v, idx, bp, again, d=d,
+                                             scale=scale)
+            gs.gather_superpose_partial_plain(v, idx, bp, want, d=d,
+                                              scale=scale)
+            torch.cuda.synchronize()
+            vs = torch.clamp_min(want[-1], 1e-12)
+            tol = (_tol(dtype) if dtype == torch.bfloat16
+                   else dict(rtol=3e-5, atol=3e-5))
+            torch.testing.assert_close(got[:d] / vs, want[:d] / vs, **tol)
+            torch.testing.assert_close(got[-1], want[-1], rtol=3e-5,
+                                       atol=0.0)
+            if not torch.equal(got, again):
+                raise AssertionError(f"gather_superpose_partial {m}x{s}: "
+                                     f"a repeat differs")
+            err = float(((got[:d] - want[:d]) / vs).abs().max())
+            w = bp if scale is None else bp * scale
+            idx64 = idx.long().reshape(-1)
+
+            def composite():
+                out = torch.zeros((d + 1,), device=dev)
+                out[:d].index_add_(0, idx64,
+                                   (w[:, None] * v.float()).reshape(-1))
+                out[d] = bp.sum()
+                return out
+            nbytes = (m * s * (v.element_size() + 4)
+                      + 4 * m * (1 if scale is None else 2) + 4 * (d + 1))
+            nops = 2 * m * s + m
+            rec = {"shape": [m, s, d], "dtype": str(dtype).replace(
+                       "torch.", "") + (" + scale" if with_scale else ""),
+                   "max_abs_err_over_varsigma": err,
+                   "repeat_bit_identical": True,
+                   "ms": time_ms(lambda: gs.gather_superpose_partial_cuda(
+                       v, idx, bp, got, d=d, scale=scale), flush),
+                   "plain_ms": time_ms(
+                       lambda: gs.gather_superpose_partial_plain(
+                           v, idx, bp, want, d=d, scale=scale), flush),
+                   "yardstick_ms": time_ms(composite, flush),
+                   "yardstick": "torch.zeros(d + 1); [:d].index_add_(0, "
+                                "idx, (w[:, None] * v).flatten()); [d] = "
+                                "bp.sum()",
+                   "library_ms": None,
+                   "bound_ms": max(nbytes / bw, nops / flops) * 1e3,
+                   "bound_by": "bytes" if nbytes / bw >= nops / flops
+                   else "operations"}
+            log({"phase": "kernel_time", "kernel": "gather_superpose_partial",
+                 **rec})
+            recs.append(rec)
+    return recs
+
+
+def aircomp_partial_times(dev, bw, flops, flush):
+    """The dense partial entry against its twin at the sharded paths'
+    shapes, f32 and bf16 (3e-5 / 2e-2), bit-identical on repeat, timed
+    beside the twin and ``torch.mv``; the bound is its bytes (x once, bp,
+    the placed columns and the varsigma slot) over the card's rate."""
+    from repro_torch.kernels import aircomp_sum as ac
     recs = []
     for k, d, seg, pitch in PARTIAL_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -4752,31 +4880,46 @@ def partial_times(dev, bw, flops):
     return recs
 
 
+def _sharded_case(case, fed, mesh, transmit, knobs, **kw):
+    return {"name": case, "fed": fed, "mesh": mesh, "sched": SCHED,
+            "chan": CHAN, "cfg": {"transmit": transmit, "seed": 0},
+            "knobs": knobs, **kw}
+
+
 def sharded(dev, data, tmpdir, name, smi):
     """The sharded round (``ShardedPAOTA``) on SHARDED_RANKS ranks that
     share cuda:0 over gloo (NCCL refuses two ranks on one device), every
     case of SHARDED_CASES in one group of ranks
     (``repro_torch.launch.sharded_cases``), each held against a
     single-process FusedPAOTA on the same CounterDraws round for round
-    (rtol 1e-4 / atol 1e-5, delta 5e-5). The kernels are built before the
-    ranks start, so each only loads them. Per case: the gap to fused, the
-    ranks' globals bit-identical, the reducer's calls a round (and the
-    model-sized ones), each rank's launches of round_stats and the partial
-    entry (once a leaf a round), ms a round on rank 0 after the first
-    step, labelled as what it is: 4 ranks sharing one H100 over gloo."""
+    (rtol 1e-4 / atol 1e-5, delta 5e-5) or, where it has none (the m < K
+    cohort), against its own rerun on the plain twins (SHARDED_TWIN_RERUN,
+    rtol 1e-4 / atol 5e-5). The kernels are built before the ranks start,
+    so each only loads them. Per case: the gap to its oracle, the ranks'
+    globals bit-identical, the reducer's calls a round (and the
+    model-sized ones), each rank's launches (sweep 1 and the dense partial
+    once a leaf a round, or the compressed partial once a round; the
+    fused sweep 2 and gather_superpose never), ms a round on rank 0 after
+    the first step, labelled as what it is: 4 ranks sharing one H100 over
+    gloo. The same group runs the million-client state plane on the
+    sharded runtime and, for SHARDED_RESUME, each layout whole and again
+    to its kill, saving; a fresh group restores each file and finishes,
+    bit-identical. Last, ``fl_train --engine sharded`` with checkpoints
+    and its resume (``sharded_cli``)."""
     from repro_torch.data.partition import FAST_SIZES, PAPER_SIZES
     from repro_torch.launch.mesh import start_ranks
     from repro_torch.launch.sharded_cases import run_cases
     from repro_torch.models.mlp import init_mlp_params
     from repro_torch.tree import tree_map
     from repro_torch.data.partition import partition_noniid
+    t_phase = time.perf_counter()
     x, y, _, _ = data
     xp, yp = os.path.join(tmpdir, "x.npy"), os.path.join(tmpdir, "y.npy")
     np.save(xp, x)
     np.save(yp, y)
     feds, cases = {}, [{"name": "gloo_probe", "kind": "probe"}]
-    for (case, k, sizes, transmit, mesh, knobs, rounds, step,
-         _) in SHARDED_CASES:
+
+    def fed(k, sizes):
         key = f"{k}-{sizes}"
         if key not in feds:
             feds[key] = {"x_path": xp, "y_path": yp,
@@ -4784,10 +4927,26 @@ def sharded(dev, data, tmpdir, name, smi):
                              y, n_clients=k, seed=0,
                              sizes=PAPER_SIZES if sizes == "paper"
                              else FAST_SIZES)}
-        cases.append({"name": case, "fed": key, "mesh": mesh,
-                      "rounds": rounds, "step": step, "sched": SCHED,
-                      "chan": CHAN, "cfg": {"transmit": transmit,
-                                            "seed": 0}, "knobs": knobs})
+        return key
+
+    for (case, k, sizes, transmit, mesh, knobs, rounds, step,
+         _) in SHARDED_CASES:
+        cases.append(_sharded_case(case, fed(k, sizes), mesh, transmit,
+                                   knobs, rounds=rounds, step=step,
+                                   twin_rerun=case in SHARDED_TWIN_RERUN))
+    cases.append({"name": "state_plane_sharded", "kind": "state_plane",
+                  "mesh": [("data", SHARDED_RANKS)], "k": PLANE_K,
+                  "m": PLANE_M, "d": PLANE_D, "ratio": 1 / 16,
+                  "slot_dtype": "int8", "rounds": PLANE_ROUNDS,
+                  "chan": CHAN})
+    resume = []
+    for (case, k, sizes, transmit, mesh, knobs, rounds,
+         kill) in SHARDED_RESUME:
+        resume.append(_sharded_case(
+            f"resume_{case}", fed(k, sizes), mesh, transmit, knobs,
+            rounds=rounds, kill=kill,
+            path=os.path.join(tmpdir, f"resume_{case}.npz")))
+    cases += [dict(c, kind="resume") for c in resume]
     spec = {"feds": feds, "cases": cases,
             "params": tree_map(lambda t: t.numpy(), init_mlp_params(0))}
     t0 = time.perf_counter()
@@ -4820,6 +4979,13 @@ def sharded(dev, data, tmpdir, name, smi):
         del drv, clients
     got = ranks.wait()
     ranks_s = time.perf_counter() - t0
+    # the resumed halves, in fresh ranks
+    t0 = time.perf_counter()
+    spec["cases"] = [dict(c, kind="restore") for c in resume]
+    restored = start_ranks(run_cases, SHARDED_RANKS, backend="gloo",
+                           device=str(dev), timeout_s=300, threads=2,
+                           args=(spec,)).wait()
+    restore_ranks_s = time.perf_counter() - t0
     probe = got[0]["gloo_probe"]
     want = {"SUM": [10.0, 14.0], "MIN": [1.0, 2.0], "MAX": [4.0, 5.0]}
     log({"phase": "sharded_probe", "backend": "gloo", "device": str(dev),
@@ -4830,6 +4996,15 @@ def sharded(dev, data, tmpdir, name, smi):
         raise AssertionError(f"gloo on CUDA tensors gave {probe}")
 
     by_path, records = {}, []
+
+    def finish(case, rec, checks):
+        rec["checks"] = checks
+        log(rec)
+        records.append(rec)
+        failed = [c for c, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"sharded {case}: failed {failed}")
+
     for (case, k, sizes, transmit, mesh, knobs, rounds, step,
          twin) in SHARDED_CASES:
         res = [r[case] for r in got]
@@ -4843,20 +5018,20 @@ def sharded(dev, data, tmpdir, name, smi):
                  for cs in r0["calls"]]
         cross = [sum(1 for c in cs if c[2] == r0["d"] + 1 and "pod" in c[1])
                  for cs in r0["calls"]]
-        per_round = rounds
         launches = [r["launches"] for r in res]
+        compressed = bool(knobs.get("compress"))
+        want_launches = {
+            "round_stats": 0 if compressed else leaves * rounds,
+            "aircomp_partial": 0 if compressed else leaves * rounds,
+            "gather_superpose_partial": rounds if compressed else 0,
+            "superpose_normalize": 0, "gather_superpose": 0}
         checks = {
             "ranks_bit_identical": same,
             "finite": bool(np.isfinite(r0["globals"][-1]).all()),
             "some_uploaders": any(row["n_participants"] > 0
                                   for row in r0["rows"]),
-            "round_stats_once_a_leaf_a_round": all(
-                la["round_stats"] == leaves * per_round for la in launches),
-            "partial_once_a_leaf_a_round": all(
-                la["aircomp_partial"] == leaves * per_round
-                for la in launches),
-            "no_fused_sweep2": all(la["superpose_normalize"] == 0
-                                   for la in launches),
+            "launches_as_expected_on_every_rank": all(
+                la == want_launches for la in launches),
         }
         rec = {"phase": "sharded", "case": case, "clients": k,
                "k_pad": r0["k_pad"], "k_local": r0["k_local"],
@@ -4867,10 +5042,18 @@ def sharded(dev, data, tmpdir, name, smi):
                "cross_pod_model_sized_per_step": cross,
                "bytes_per_step": sum(c[3] for c in r0["calls"][0]),
                "launches_per_rank": launches,
+               "launches_expected_per_rank": want_launches,
                "ms_per_round_4_ranks_on_one_h100_over_gloo": (
                    sum(r0["seconds"][1:]) * 1e3
                    / (rounds - step)),
                "first_step_s": r0["seconds"][0]}
+        if knobs.get("cohort_size"):
+            m = knobs["cohort_size"]
+            rec.update(m_local=r0["m_local"], compress_s=r0["compress_s"],
+                       mean_participants=float(np.mean(
+                           [row["n_participants"] for row in r0["rows"]])))
+            checks["participants_at_most_m"] = all(
+                row["n_participants"] <= m for row in r0["rows"])
         if "grouped" in case or case == "blackout":
             n = knobs["group_period"]
             checks["one_cross_pod_all_reduce_a_window"] = all(
@@ -4897,6 +5080,16 @@ def sharded(dev, data, tmpdir, name, smi):
             checks["participants_equal_fused"] = [
                 row["n_participants"] for row in r0["rows"]] == [
                 row["n_participants"] for row in hist[:rounds]]
+        if case in SHARDED_TWIN_RERUN:
+            rec["max_gap_to_twin_rerun"] = max(
+                float(np.abs(a - b).max())
+                for a, b in zip(r0["globals"], r0["twin_globals"]))
+            checks["allclose_to_twin_rerun_every_round"] = all(
+                np.allclose(a, b, **SHARDED_TWIN_TOL)
+                for a, b in zip(r0["globals"], r0["twin_globals"]))
+            checks["participants_equal_twin_rerun"] = [
+                row["n_participants"] for row in r0["rows"]] == [
+                row["n_participants"] for row in r0["twin_rows"]]
         if case == "grouped_n1":
             flat = got[0]["flat_model"]["globals"]
             checks["bit_equal_to_flat"] = all(
@@ -4909,20 +5102,141 @@ def sharded(dev, data, tmpdir, name, smi):
             checks["lit_pod_restarts"] = sum(
                 sum(r["restarted"]) for r in res
                 if r["coords"]["pod"] == 0) > 0
-        rec["checks"] = checks
-        log(rec)
-        records.append(rec)
         by_path[f"sharded {case}"] = {
-            "round_stats": sum(la["round_stats"] for la in launches),
-            "aircomp_partial": sum(la["aircomp_partial"]
-                                   for la in launches),
-            "superpose_normalize": 0}
-        failed = [c for c, ok in checks.items() if not ok]
-        if failed:
-            raise AssertionError(f"sharded {case}: failed {failed}")
-    log({"phase": "sharded_done", "ranks_s": ranks_s, "nvidia_smi": smi,
+            kk: sum(la[kk] for la in launches) for kk in want_launches}
+        finish(case, rec, checks)
+
+    res = [r["state_plane_sharded"] for r in got]
+    r0 = res[0]
+    checks = {
+        "ranks_bit_identical": all(np.array_equal(r["global"], r0["global"])
+                                   for r in res[1:]),
+        "finite": r0["finite"],
+        "some_uploaders": any(n > 0 for n in r0["n_participants"]),
+        "participants_at_most_m": all(n <= PLANE_M
+                                      for n in r0["n_participants"]),
+        "gather_superpose_partial_once_a_round": all(
+            r["launches"] == {"round_stats": 0, "aircomp_partial": 0,
+                              "superpose_normalize": 0,
+                              "gather_superpose": 0,
+                              "gather_superpose_partial": PLANE_ROUNDS}
+            for r in res),
+        "one_model_sized_all_reduce_a_round":
+            r0["model_sized"] == PLANE_ROUNDS}
+    by_path["sharded state_plane_sharded"] = {
+        kk: sum(r["launches"][kk] for r in res)
+        for kk in r0["launches"]}
+    finish("state_plane_sharded", {
+        "phase": "sharded", "case": "state_plane_sharded",
+        "clients": PLANE_K, "cohort_size": PLANE_M,
+        "m_local": r0["m_local"], "k_local": r0["k_local"],
+        "model_dim": PLANE_D, "compress_s": r0["compress_s"],
+        "slot_dtype": "int8", "rounds": PLANE_ROUNDS,
+        "ms_per_round_4_ranks_on_one_h100_over_gloo": r0["ms_per_round"],
+        "calls_per_round": r0["calls_per_round"],
+        "mean_participants": float(np.mean(r0["n_participants"])),
+        "global_norm": r0["global_norm"],
+        "launches_per_rank": [r["launches"] for r in res]}, checks)
+
+    for c in resume:
+        full = [r[c["name"]] for r in got]
+        back = [r[c["name"]] for r in restored]
+        checks = {
+            "restored_at_the_kill": all(b["step"] == c["kill"] for b in back),
+            "rest_bit_identical": all(
+                np.array_equal(b["global"], f["global"])
+                and b["history"] == f["history"]
+                for f, b in zip(full, back)),
+            "ranks_bit_identical": all(
+                np.array_equal(b["global"], back[0]["global"])
+                for b in back[1:]),
+            "some_uploaders_after_the_kill": any(
+                row["n_participants"] > 0
+                for row in back[0]["history"][c["kill"]:])}
+        finish(c["name"], {
+            "phase": "sharded_resume", "case": c["name"], "mesh": c["mesh"],
+            "rounds": c["rounds"], "kill": c["kill"],
+            **{kk: vv for kk, vv in c["knobs"].items() if kk != "faults"},
+            "faults": c["knobs"].get("faults"),
+            "file_bytes": full[0]["file_bytes"],
+            "save_s": max(f["save_s"] for f in full),
+            "restore_s": max(b["restore_s"] for b in back),
+            "n_screened": sum(row["n_screened"]
+                              for row in full[0]["history"])}, checks)
+    cli = sharded_cli(dev, tmpdir)
+    log({"phase": "sharded_done", "ranks_s": ranks_s,
+         "restore_ranks_s": restore_ranks_s, "cli_s": cli["seconds"],
+         "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi,
          "device": name, "label": "4 ranks on one H100 over gloo"})
     return by_path, records
+
+
+CLI_TIMEOUT_S = 300
+
+
+def sharded_cli(dev, tmpdir):
+    """``fl_train --engine sharded`` on SHARDED_RANKS gloo ranks sharing
+    ``dev`` (``torch.distributed.run``): the sharded compressed cohort at
+    K = 1000 (m = 64, top-k int8) for 10 rounds with a checkpoint every 5,
+    then a fresh run resumed from round 5's file for the last 5; rank 0's
+    last CSV rows must match (every column but the wall clock)."""
+    from repro_torch.launch.mesh import free_init_method
+    ckdir = os.path.join(tmpdir, "cli_checkpoints")
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2",
+               REPRO_BENCH_OUT=os.path.join(tmpdir, "cli_bench"))
+
+    def run(tag, extra):
+        port = free_init_method().rsplit(":", 1)[1]
+        out = os.path.join(tmpdir, f"cli_{tag}.csv")
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc-per-node", str(SHARDED_RANKS), "--master-port", port,
+               "-m", "repro_torch.launch.fl_train", "--engine", "sharded",
+               "--dist-backend", "gloo", "--device", str(dev), "--clients",
+               str(COHORT_K), "--cohort-size", str(COHORT_M), "--compress",
+               "topk", "--slot-dtype", "int8", "--out", out, *extra]
+        logpath = os.path.join(tmpdir, f"cli_{tag}.log")
+        t1 = time.perf_counter()
+        # its own session, so a timeout kills the launcher's ranks too
+        with open(logpath, "w") as logf:
+            proc = subprocess.Popen(cmd, env=env, cwd=str(ROOT),
+                                    stdout=logf, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            try:
+                rc = proc.wait(timeout=CLI_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                rc = f"killed after {CLI_TIMEOUT_S} s"
+        if rc != 0:
+            with open(logpath) as f:
+                tail = f.read()[-4000:]
+            raise RuntimeError(f"fl_train --engine sharded ({tag}): exit "
+                               f"{rc}:\n{tail}")
+        with open(out, newline="") as f:
+            rows = list(csv.DictReader(f))
+        return rows, time.perf_counter() - t1
+
+    full, full_s = run("full", ["--checkpoint-every", "5", "--rounds", "10",
+                                "--checkpoint-dir", ckdir])
+    res, res_s = run("resumed", ["--resume",
+                                 os.path.join(ckdir, "round_000005.npz"),
+                                 "--rounds", "5"])
+
+    def strip(row):
+        return {k: v for k, v in row.items() if k != "wall_s"}
+    rec = {"phase": "sharded_cli", "clients": COHORT_K,
+           "cohort_size": COHORT_M, "compress": "topk",
+           "slot_dtype": "int8", "checkpoints": sorted(os.listdir(ckdir)),
+           "full_s": full_s, "resumed_s": res_s,
+           "seconds": full_s + res_s, "last_row": strip(full[-1]),
+           "checks": {"last_rows_match": strip(full[-1]) == strip(res[-1]),
+                      "resumed_from_round_5": strip(res[0])["round"] == "5",
+                      "two_files": len(os.listdir(ckdir)) == 2}}
+    log(rec)
+    failed = [c for c, ok in rec["checks"].items() if not ok]
+    if failed:
+        raise AssertionError(f"sharded_cli: failed {failed}")
+    return rec
 
 
 def stage_times(drv, flush):
@@ -5062,10 +5376,10 @@ def main() -> int:
     # 5b. the sharded round: 4 ranks over gloo on this card, each case
     # against the fused round; the partial entry against its twin
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
-        sharded_paths, _ = sharded(dev, data, tmpdir, name, smi)
+        sharded_paths, sharded_recs = sharded(dev, data, tmpdir, name, smi)
     by_path.update(sharded_paths)
-    launches["aircomp_partial"] = sum(v["aircomp_partial"]
-                                      for v in sharded_paths.values())
+    for kname in ("aircomp_partial", "gather_superpose_partial"):
+        launches[kname] = sum(v[kname] for v in sharded_paths.values())
     partial = partial_times(dev, bw, flops)
 
     # 6-8. the host-path server (both aggregation routes), the cosine
@@ -5098,6 +5412,13 @@ def main() -> int:
         by_path[f"state_plane {slot_dtype}"] = rec["launches"]
         gs_launches += rec["launches"]["gather_superpose"]
     launches["gather_superpose"] = gs_launches
+    plane = next(r for r in sharded_recs
+                 if r["case"] == "state_plane_sharded")
+    log({"phase": "state_plane_sharded_vs_single", "slot_dtype": "int8",
+         "clients": PLANE_K, "cohort_size": PLANE_M, "model_dim": PLANE_D,
+         "single_device_ms_per_round": rec["ms_per_round"],
+         "sharded_ms_per_round_4_ranks_on_one_h100_over_gloo":
+             plane["ms_per_round_4_ranks_on_one_h100_over_gloo"]})
 
     # 12-15. the LM slice: both kernels against their twins, the SWA
     # kernel's own entry point, mamba2-370m serving at full width
@@ -5311,13 +5632,32 @@ def main() -> int:
         "launches_by_path": {p: v["aircomp_partial"]
                              for p, v in by_path.items()
                              if "aircomp_partial" in v},
-        **{key: partial[0][key] for key in (
+        **{key: partial["aircomp_partial"][0][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library", "shape", "dtype")},
         "other_shapes": [{key: o[key] for key in (
             "shape", "seg", "pitch", "dtype", "max_abs_err", "ms",
             "plain_ms", "library_ms", "bound_ms", "bound_by")}
-            for o in partial[1:]]})
+            for o in partial["aircomp_partial"][1:]]})
+    gsp = partial["gather_superpose_partial"]
+    kernels.append({
+        "name": "gather_superpose_partial", "route": "cuda",
+        "source": "src/repro_torch/csrc/gather_superpose.cu",
+        "replaces": "src/repro/kernels/aircomp_sum.py:438 "
+                    "(gather_superpose_psum, plain jnp; no Pallas kernel)",
+        "launches": launches["gather_superpose_partial"],
+        "launches_by_path": {p: v["gather_superpose_partial"]
+                             for p, v in by_path.items()
+                             if "gather_superpose_partial" in v},
+        "max_abs_err": gsp[0]["max_abs_err_over_varsigma"],
+        "max_abs_err_of": "the sums divided by sum bp",
+        **{key: gsp[0][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "yardstick_ms", "yardstick", "shape", "dtype")},
+        "other_shapes": [{key: o[key] for key in (
+            "shape", "dtype", "max_abs_err_over_varsigma", "ms", "plain_ms",
+            "yardstick_ms", "library_ms", "bound_ms", "bound_by")}
+            for o in gsp[1:]]})
     main_bwd, other_bwd = swa_bwd[0], swa_bwd[1:]
     kernels.append({
         "name": "swa_attention_bwd", "route": "cuda",

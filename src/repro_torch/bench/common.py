@@ -6,10 +6,11 @@ MNIST-like, non-IID partition per Section IV-A) and runs PAOTA / Local SGD
 loss, test accuracy) trajectories.
 
 ``BenchSetting`` carries the reference's fields. ``engine="sharded"``
-(``ShardedPAOTA``, with ``group_period`` and ``tp``) runs once a process
-group is up, e.g. under ``python -m torch.distributed.run``; without one
-it is refused with that command. The ``legacy`` engine is refused by
-name.
+(``ShardedPAOTA``, with ``group_period`` and ``tp``, and the fused
+round's knobs: the cohort, compression, faults and checkpoints) runs
+once a process group is up, e.g. under ``python -m
+torch.distributed.run``; without one it is refused with that command.
+The ``legacy`` engine is refused by name.
 Beside the reference's fields it keeps the port's ``transmit`` (unset:
 "delta" under ``compress``, "model" otherwise) and ``slot_dtype``.
 Artifacts go to ``out_dir()``: ``$REPRO_BENCH_OUT``, by default
@@ -116,22 +117,22 @@ class BenchSetting:
     engine: str = "batched"      # batched: host-path PAOTAServer; fused:
                                  # FusedPAOTA; sharded: ShardedPAOTA over
                                  # the process group (baselines batched)
-    params_mode: str = "raveled"   # fused: raveled | pytree carry
-    pending_dtype: str = "float32"  # fused: (K, ...) plane storage
+    params_mode: str = "raveled"   # fused / sharded: raveled | pytree
+    pending_dtype: str = "float32"  # fused / sharded: (K, ...) storage
     group_period: int = 0        # sharded: grouped aggregation window N
-    cohort_size: int = 0         # fused: m in-flight slots (0: dense)
-    compress: str = ""           # fused cohort: "" | topk | randmask;
+    cohort_size: int = 0         # fused / sharded: m in-flight slots
+    compress: str = ""           # cohort: "" | topk | randmask;
                                  # switches transmit to "delta"
     compress_ratio: float = 1.0  # kept fraction s/d
     error_feedback: bool = True  # compress: per-client EF residuals
     tp: int = 1                  # sharded + pytree: intra-client TP extent
-    faults: str = ""             # fused: parse_faults spec
-    screen: bool = False         # fused: mask non-finite uploads
+    faults: str = ""             # fused / sharded: parse_faults spec
+    screen: bool = False         # fused / sharded: screen the uploads
     screen_max_norm: float = 0.0  # screening norm fence (0: finite-only)
     divergence_factor: float = 0.0  # rollback detector (0: off)
-    checkpoint_every: int = 0    # fused: snapshot every N rounds
+    checkpoint_every: int = 0    # fused / sharded: snapshot every N
     checkpoint_dir: str = ""     # default <out_dir()>/checkpoints
-    resume: str = ""             # fused: checkpoint to restore first
+    resume: str = ""             # fused / sharded: file to restore first
     transmit: str = ""           # PAOTA payload: "" (delta under compress,
                                  # else model) | model | delta
     slot_dtype: str = ""         # compressed slot storage: "" | float32 |
@@ -165,7 +166,8 @@ class BenchSetting:
             raise ValueError(
                 "params_mode, pending_dtype, cohort_size, compress, "
                 "slot_dtype and the fault and checkpoint knobs are options "
-                "of the fused round: pass engine='fused' (--engine fused)")
+                "of the fused and sharded rounds: pass engine='fused' "
+                "(--engine fused) or engine='sharded'")
 
     @classmethod
     def from_env(cls, **kw):
@@ -268,35 +270,27 @@ def make_server(name: str, s: BenchSetting, clients, params,
         if s.engine == "batched":
             return PAOTAServer(params, clients, chan, sched, cfg,
                                device=dev, draws=draws)
-        kw = {}
+        kw = dict(draws=draws, params_mode=s.params_mode,
+                  pending_dtype=s.pending_dtype, cohort_size=s.cohort_size,
+                  compress=s.compress or None,
+                  compress_ratio=s.compress_ratio,
+                  slot_dtype=s.slot_dtype or None,
+                  error_feedback=s.error_feedback, screen=s.screen,
+                  screen_max_norm=s.screen_max_norm,
+                  divergence_factor=s.divergence_factor)
         if s.faults:
             kw["faults"] = parse_faults(s.faults)
-        if s.engine == "sharded":
-            return ShardedPAOTA(params, clients, chan, sched, cfg,
-                                mesh=sharded_mesh(s), device=dev,
-                                draws=draws, params_mode=s.params_mode,
-                                pending_dtype=s.pending_dtype,
-                                group_period=s.group_period,
-                                cohort_size=s.cohort_size,
-                                compress=s.compress or None,
-                                checkpoint_every=s.checkpoint_every,
-                                screen=s.screen,
-                                screen_max_norm=s.screen_max_norm,
-                                divergence_factor=s.divergence_factor, **kw)
         if s.checkpoint_every:
             kw.update(checkpoint_every=s.checkpoint_every,
                       checkpoint_dir=s.checkpoint_dir
                       or os.path.join(out_dir(), "checkpoints"))
-        srv = FusedPAOTA(params, clients, chan, sched, cfg, device=dev,
-                         draws=draws, params_mode=s.params_mode,
-                         pending_dtype=s.pending_dtype,
-                         cohort_size=s.cohort_size,
-                         compress=s.compress or None,
-                         compress_ratio=s.compress_ratio,
-                         slot_dtype=s.slot_dtype or None,
-                         error_feedback=s.error_feedback, screen=s.screen,
-                         screen_max_norm=s.screen_max_norm,
-                         divergence_factor=s.divergence_factor, **kw)
+        if s.engine == "sharded":
+            srv = ShardedPAOTA(params, clients, chan, sched, cfg,
+                               mesh=sharded_mesh(s), device=dev,
+                               group_period=s.group_period, **kw)
+        else:
+            srv = FusedPAOTA(params, clients, chan, sched, cfg, device=dev,
+                             **kw)
         if s.resume:
             done = srv.restore_checkpoint(s.resume)
             print(f"resumed {name} from {s.resume} (round {done})")

@@ -31,7 +31,9 @@ from repro_torch.device import f32
 from repro_torch.kernels.aircomp_sum import (aircomp_finalize_tree,
                                              aircomp_partial_tree,
                                              aircomp_partial_tree_tp)
-from repro_torch.kernels.ops import gather_superpose, superpose_normalize
+from repro_torch.kernels.ops import (gather_superpose,
+                                     gather_superpose_partial,
+                                     superpose_normalize)
 from repro_torch.tree import (build, leaf2d, leaves_with_paths, tree_leaves,
                               tree_map)
 
@@ -161,7 +163,8 @@ def _like(tree, leaves):
 
 def paota_aggregate_compressed(values: torch.Tensor, idx: torch.Tensor,
                                powers: torch.Tensor, mask: torch.Tensor,
-                               noise: torch.Tensor, d: int, scale=None):
+                               noise: torch.Tensor, d: int, scale=None,
+                               reducer=None):
     """Eq. (8) over the (m, s) compressed cohort plane: each slot's stored
     values on its own support superpose straight into d-space
     (``repro_torch.kernels.ops.gather_superpose``), with the same (d,)
@@ -169,9 +172,22 @@ def paota_aggregate_compressed(values: torch.Tensor, idx: torch.Tensor,
     dequantization into the weights; varsigma sums the raw b*p and is
     clamped here, after the call. ``noise=None`` (the noiseless channel)
     superposes zeros, as the reference does. Returns ((d,) f32 aggregate,
-    clamped varsigma)."""
+    clamped varsigma).
+
+    ``reducer`` (the sharded cohort: the rows are this rank's m_local
+    slots): the reference's ``gather_superpose_psum`` order, the local
+    flat (d + 1,) partial (``ops.gather_superpose_partial``, Σ b*p in its
+    last slot), ONE all-reduce of it, then the noise and the division."""
     if noise is None:
         noise = torch.zeros((d,), dtype=torch.float32, device=values.device)
+    if reducer is not None:
+        flat = torch.empty((d + 1,), dtype=torch.float32,
+                           device=values.device)
+        gather_superpose_partial(values, idx, powers * mask, flat, d=d,
+                                 scale=scale)
+        flat = reducer.sum(flat, tag="superpose")
+        varsigma = torch.clamp_min(flat[d], f32(VARSIGMA_MIN))
+        return (flat[:d] + noise) / varsigma, varsigma
     agg, raw = gather_superpose(values, idx, powers * mask, noise, d=d,
                                 scale=scale, vs_min=VARSIGMA_MIN)
     return agg, torch.clamp_min(raw, f32(VARSIGMA_MIN))

@@ -8,6 +8,14 @@
 // values are f32, bf16 or int8; idx is i32 in [0, d), distinct within a
 // row; bp, scale and noise are f32; every sum is f32.
 //
+// The partial entry, repro_gather_superpose_partial, is the local half of
+// the sharded round's compressed superposition (the reference computes it
+// as plain jnp in repro/kernels/aircomp_sum.py::gather_superpose_psum; it
+// replaces no Pallas kernel): the same body with no noise and no
+// division, writing the raw f32 sum_k w_k scatter(v_k, idx_k) into a
+// caller's flat buffer and the raw sum_k bp_k into its varsigma slot, which
+// one all-reduce then sends. Same bound, with 4d written in place of 8d.
+//
 // Bound on the H100: memory. m*s values and indices are read once and
 // one d-vector is written: m*s*(sizeof(v) + 4) + 8m + 8d bytes (0.32 MB
 // at the cohort path's (64, 504, 8070), 2.1 MB at the state plane's
@@ -96,7 +104,7 @@ gather_superpose_kernel(const T* __restrict__ values,
                         float* __restrict__ partial,
                         int* __restrict__ arrived, int64_t m, int64_t s,
                         int64_t d, int stripe, int splits, int seg,
-                        float vs_min) {
+                        float vs_min, bool normalize) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* acc = reinterpret_cast<float*>(smem);               // [16][stripe]
   int32_t* ring = reinterpret_cast<int32_t*>(acc + kWarps * stripe);
@@ -202,13 +210,15 @@ gather_superpose_kernel(const T* __restrict__ values,
   cp_wait<0>();
   __syncthreads();
 
+  // normalize: (noise + sum) / varsigma; the partial entry: the raw sum
+  // (no noise: noise is null)
   const float denom = fmaxf(raw, vs_min);
   if (splits == 1) {
     for (int c = tid; c < width; c += kThreads) {
-      float v = noise[lo + c];
+      float v = noise == nullptr ? 0.f : noise[lo + c];
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) v += acc[w * stripe + c];
-      agg[lo + c] = v / denom;
+      agg[lo + c] = normalize ? v / denom : v;
     }
   } else {
     // Row splits: each block writes its partial stripe; the last of the
@@ -229,11 +239,11 @@ gather_superpose_kernel(const T* __restrict__ values,
     if (last) {
       __threadfence();
       for (int c = tid; c < width; c += kThreads) {
-        float v = noise[lo + c];
+        float v = noise == nullptr ? 0.f : noise[lo + c];
         for (int r = 0; r < splits; ++r) {
           v += __ldcg(partial + static_cast<int64_t>(r) * d + lo + c);
         }
-        agg[lo + c] = v / denom;
+        agg[lo + c] = normalize ? v / denom : v;
       }
     }
   }
@@ -244,7 +254,8 @@ template <typename T>
 int launch(const void* values, const int32_t* ix, const float* w,
            const float* sc, const float* n, float* out, float* vs,
            float* partial, int* arrived, int64_t m, int64_t s, int64_t d,
-           int stripe, int splits, float vs_min, cudaStream_t st) {
+           int stripe, int splits, float vs_min, bool normalize,
+           cudaStream_t st) {
   const int seg = static_cast<int>(s < kSeg ? (s + 3) / 4 * 4 : kSeg);
   const size_t bytes = sizeof(float) * kWarps * stripe +
                        sizeof(int32_t) * kWarps * kStages * seg;
@@ -264,32 +275,24 @@ int launch(const void* values, const int32_t* ix, const float* w,
                   static_cast<unsigned int>(splits));
   kern<<<grid, kThreads, bytes, st>>>(static_cast<const T*>(values), ix, w,
                                       sc, n, out, vs, partial, arrived, m, s,
-                                      d, stripe, splits, seg, vs_min);
+                                      d, stripe, splits, seg, vs_min,
+                                      normalize);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+bool bad_plan(int64_t d, int64_t stripe, int64_t splits, const void* partial,
+              const void* arrived) {
+  return stripe < kStripe || stripe > kMaxStripe || stripe % kStripe != 0 ||
+         splits < 1 || splits > 65535 ||
+         (d + stripe - 1) / stripe > 2147483647LL ||
+         (splits > 1 && (partial == nullptr || arrived == nullptr));
+}
 
-// values: (m, s) row-major, dtype 0 = f32, 1 = bf16, 2 = int8. idx: (m, s)
-// i32. bp: (m,) f32. scale: (m,) f32 or null. noise: (d,) f32. agg: (d,)
-// f32. raw: one f32. stripe: columns per block, a multiple of 64 up to
-// 1024; splits: row splits (a second grid axis). With splits > 1, partial
-// is (splits, d) f32 scratch and arrived one int per stripe, which this
-// function zeroes on `stream` before the launch; else both may be null. Launches on `stream`, allocates nothing, returns
-// cudaGetLastError() (cudaErrorInvalidValue for a plan it cannot run).
-extern "C" int repro_gather_superpose(const void* values, const void* idx,
-                                      const void* bp, const void* scale,
-                                      const void* noise, void* agg, void* raw,
-                                      void* partial, void* arrived, int64_t m,
-                                      int64_t s, int64_t d, int64_t stripe,
-                                      int64_t splits, float vs_min, int dtype,
-                                      void* stream) {
-  if (stripe < kStripe || stripe > kMaxStripe || stripe % kStripe != 0 ||
-      splits < 1 || splits > 65535 ||
-      (d + stripe - 1) / stripe > 2147483647LL ||
-      (splits > 1 && (partial == nullptr || arrived == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+int dispatch(const void* values, const void* idx, const void* bp,
+             const void* scale, const void* noise, void* agg, void* raw,
+             void* partial, void* arrived, int64_t m, int64_t s, int64_t d,
+             int64_t stripe, int64_t splits, float vs_min, bool normalize,
+             int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const float* w = static_cast<const float*>(bp);
@@ -302,12 +305,51 @@ extern "C" int repro_gather_superpose(const void* values, const void* idx,
   const int sw = static_cast<int>(stripe), sp = static_cast<int>(splits);
   if (dtype == 1) {
     return launch<__nv_bfloat16>(values, ix, w, sc, n, out, vs, pa, ar, m, s,
-                                 d, sw, sp, vs_min, st);
+                                 d, sw, sp, vs_min, normalize, st);
   }
   if (dtype == 2) {
     return launch<int8_t>(values, ix, w, sc, n, out, vs, pa, ar, m, s, d, sw,
-                          sp, vs_min, st);
+                          sp, vs_min, normalize, st);
   }
   return launch<float>(values, ix, w, sc, n, out, vs, pa, ar, m, s, d, sw, sp,
-                       vs_min, st);
+                       vs_min, normalize, st);
+}
+
+}  // namespace
+
+// values: (m, s) row-major, dtype 0 = f32, 1 = bf16, 2 = int8. idx: (m, s)
+// i32. bp: (m,) f32. scale: (m,) f32 or null. noise: (d,) f32. agg: (d,)
+// f32. raw: one f32. stripe: columns per block, a multiple of 64 up to
+// 1024; splits: row splits (a second grid axis). With splits > 1, partial
+// is (splits, d) f32 scratch and arrived one int per stripe, which this
+// function zeroes on `stream` before the launch; else both may be null.
+// Launches on `stream`, allocates nothing, returns cudaGetLastError()
+// (cudaErrorInvalidValue for a plan it cannot run).
+extern "C" int repro_gather_superpose(const void* values, const void* idx,
+                                      const void* bp, const void* scale,
+                                      const void* noise, void* agg, void* raw,
+                                      void* partial, void* arrived, int64_t m,
+                                      int64_t s, int64_t d, int64_t stripe,
+                                      int64_t splits, float vs_min, int dtype,
+                                      void* stream) {
+  if (noise == nullptr || bad_plan(d, stripe, splits, partial, arrived)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch(values, idx, bp, scale, noise, agg, raw, partial, arrived,
+                  m, s, d, stripe, splits, vs_min, true, dtype, stream);
+}
+
+// The sharded round's partial: out[c] = sum_k w_k sum_j f32(v[k, j])
+// [idx[k, j] == c] for c in [0, d) (out points at the flat buffer's
+// offset), *raw = sum_k bp_k (the buffer's varsigma slot); no noise, no
+// division. Arguments and plan as repro_gather_superpose's.
+extern "C" int repro_gather_superpose_partial(
+    const void* values, const void* idx, const void* bp, const void* scale,
+    void* out, void* raw, void* partial, void* arrived, int64_t m, int64_t s,
+    int64_t d, int64_t stripe, int64_t splits, int dtype, void* stream) {
+  if (bad_plan(d, stripe, splits, partial, arrived)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch(values, idx, bp, scale, nullptr, out, raw, partial, arrived,
+                  m, s, d, stripe, splits, 0.f, false, dtype, stream);
 }

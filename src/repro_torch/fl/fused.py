@@ -349,6 +349,11 @@ class FusedPAOTA:
         g = self._init_global if self._carry is None else self._carry.global_vec
         return g if self.params_mode == "pytree" else self.unravel(g)
 
+    def _cohort_extents(self):
+        """(client rows, slots, real rows) of this driver's cohort carry:
+        the whole federation here."""
+        return self.k, self.cohort_size, None
+
     def _ensure_carry(self) -> RoundCarry:
         # transmit='delta' never reads the full local models: the carry is
         # the delta plane alone
@@ -356,10 +361,10 @@ class FusedPAOTA:
             keep = not self._rcfg.transmit_delta
             with torch.no_grad():
                 if self.cohort_size:
+                    k, m, n_real = self._cohort_extents()
                     self._carry = init_cohort_carry(
-                        self._init_global, streams=self._streams, k=self.k,
-                        m=self.cohort_size, keep_pending=keep,
-                        rcfg=self._rcfg)
+                        self._init_global, streams=self._streams, k=k, m=m,
+                        n_real=n_real, keep_pending=keep, rcfg=self._rcfg)
                 else:
                     self._carry = init_round_carry(
                         self._init_global, streams=self._streams,

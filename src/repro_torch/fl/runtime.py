@@ -59,7 +59,11 @@ windows of ``RoundCfg.group_period`` periods, each pod superposing its
 own clients into the carry's ``held`` partial, and one cross-pod
 all-reduce at the window's sync) and ``TPTopology``
 (``repro_torch.sharding.tp``: the planes hold each rank's TP block of
-every leaf). ``reducer=None`` is the single-device round, op for op.
+every leaf). The active cohort shards too: each rank runs its own
+shard-local slots over its own rows, and its superposition goes through
+the same one all-reduce (the compressed plane's partial from
+``ops.gather_superpose_partial``). ``reducer=None`` is the single-device
+round, op for op.
 """
 from __future__ import annotations
 
@@ -129,6 +133,11 @@ class RoundCarry:
     deltas: torch.Tensor        # (K, d): pending - start model; (m, d) slot
                                 # rows in cohort mode, or the (m, s)
                                 # compressed values (f32 / bf16 / int8)
+    # grouped aggregation only (RoundCfg.group_period >= 1), in the
+    # reference's field order (a checkpoint's leaves follow it)
+    held: Optional[torch.Tensor] = None  # (d_total + 1,) f32: the pod's
+                                # staleness-weighted partials of the window
+                                # so far (the same on every rank of a pod)
     # active-cohort mode only (RoundCfg.cohort_size m >= 1); None otherwise
     slot_client: Optional[torch.Tensor] = None  # (m,) i32: each slot's
                                 # client (a dead slot keeps its last one)
@@ -146,10 +155,6 @@ class RoundCarry:
     good_global: Optional[torch.Tensor] = None  # last global that passed
                                 # the norm check (vector or params dict)
     good_norm2: Optional[torch.Tensor] = None   # f32 ||good_global||^2
-    # grouped aggregation only (RoundCfg.group_period >= 1)
-    held: Optional[torch.Tensor] = None  # (d_total + 1,) f32: the pod's
-                                # staleness-weighted partials of the window
-                                # so far (the same on every rank of a pod)
 
 
 class RoundCfg(NamedTuple):
@@ -664,15 +669,17 @@ def paota_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
     the noise and the division. At N = 1 held is 0 and the sync is the
     flat path, bit for bit."""
     if rcfg.cohort_size:
-        if reducer is not None or grouping is not None or tp is not None:
+        if grouping is not None or tp is not None:
             raise NotImplementedError(
                 f"active-cohort mode (cohort_size={rcfg.cohort_size}) does "
-                f"not compose with the sharded round (grouping or TP) in "
-                f"the port yet: its slots are shard-local in the "
-                f"reference; the nearest supported configuration is "
-                f"cohort_size={rcfg.cohort_size} on FusedPAOTA, or the "
-                f"sharded round with cohort_size=0")
-        return _cohort_round_step(carry, rcfg=rcfg, streams=streams)
+                f"not compose with grouped aggregation or intra-client TP "
+                f"yet, as in the reference: the held-window partials are "
+                f"dense-plane accumulators and the cohort payload plane is "
+                f"raveled (m, d) slots; the nearest supported configuration "
+                f"is the flat sharded round with cohort_size="
+                f"{rcfg.cohort_size}")
+        return _cohort_round_step(carry, rcfg=rcfg, streams=streams,
+                                  reducer=reducer)
     if tp is not None and grouping is not None:
         raise NotImplementedError(
             f"grouped aggregation (group_period={rcfg.group_period}) does "
@@ -823,7 +830,7 @@ def _refresh_rows(carry: RoundCarry, take, trained, new_global):
 
 
 def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
-                       streams: RoundStreams):
+                       streams: RoundStreams, reducer=None):
     """Active-cohort form of the round: the (K,) state plane advances as
     in the dense round, and the per-row stages (stats, P2, (7), AirComp)
     run over the m slot rows. Slot turnover: departing occupants
@@ -833,7 +840,17 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
     idle at ``busy_lat = +inf``. With compression the stats and AirComp
     run on the (m, s) plane, and the EF residuals are handed off through
     the (K, s) parked plane: park, then resume, then consume. Stage for
-    stage ``repro.fl.runtime._cohort_round_step``."""
+    stage ``repro.fl.runtime._cohort_round_step``.
+
+    ``reducer`` (the sharded round, the reference's ``axis_name``): the
+    (K,) plane is this rank's rows and the m slots its m_local shard-local
+    slots. The water-filling and the metric sums cross ranks, and the
+    superposition is one all-reduce of the flat (d + 1,) partial
+    (``ops.aircomp_partial`` on the slot plane, or
+    ``ops.gather_superpose_partial`` on the compressed one). Slot turnover
+    stays rank-local: each rank refills its slots from its own idle rows,
+    the reference's documented policy difference from the fused driver's
+    global priority order."""
     t = carry.t
     time = _round_time(t, rcfg.delta_t)
     k = carry.ready.shape[0]
@@ -887,7 +904,8 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
                 scale_s = torch.where(ok, scale_s, torch.zeros_like(scale_s))
             v_id = _zero_rows(v_id, ok)
     p_max = torch.full((m,), f32(rcfg.p_max_watts), device=dev)
-    beta, p2_obj = waterfill_beta(rho, theta, p_max, b, rcfg.c1, rcfg.c0)
+    beta, p2_obj = waterfill_beta(rho, theta, p_max, b, rcfg.c1, rcfg.c0,
+                                  reducer=reducer)
     powers = power_from_beta(beta, rho, theta, p_max)
     h = torch.where(live, streams.channel(t)[occ_l],
                     torch.zeros((m,), device=dev))
@@ -898,10 +916,11 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
     if rcfg.compress and not identity:
         agg, varsigma = paota_aggregate_compressed(
             vals_s, carry.slot_idx, powers, b, streams.noise(t),
-            d_model, scale=scale_s)
+            d_model, scale=scale_s, reducer=reducer)
     else:
         agg, varsigma = paota_aggregate_stacked(
-            v_id if rcfg.compress else payload, powers, b, streams.noise(t))
+            v_id if rcfg.compress else payload, powers, b, streams.noise(t),
+            reducer=reducer)
     new_global, new_prev = guarded_global_update(
         carry.global_vec, carry.prev_global, agg, varsigma,
         delta=rcfg.transmit_delta)
@@ -991,7 +1010,7 @@ def _cohort_round_step(carry: RoundCarry, *, rcfg: RoundCfg,
         nxt.pending, nxt.deltas = _refresh_rows(carry, take, trained,
                                                 new_global)
     return nxt, _metrics(b, stal, beta, varsigma, p2_obj, n_screened,
-                         rolled)
+                         rolled, reducer)
 
 
 def _init_planes(vec, trained, keep_pending: bool, rcfg):
@@ -1028,21 +1047,27 @@ def init_round_carry(vec, *, streams: RoundStreams,
 
 
 def init_cohort_carry(vec, *, streams: RoundStreams, k: int, m: int,
+                      n_real: Optional[int] = None,
                       keep_pending: bool = True,
                       rcfg: Optional[RoundCfg] = None) -> RoundCarry:
-    """Round-0 kick-off of the active-cohort carry: clients 0..m-1 fill the
-    slots and get the broadcast; everyone else idles at busy_lat = +inf
-    until a slot frees. With ``rcfg.compress`` the round-0 deltas go
-    through the same ``_compress_plane`` the rounds use, with empty (K, s)
-    parked-residual planes when error feedback is on."""
+    """Round-0 kick-off of the active-cohort carry: clients 0..n-1 fill
+    the first n = min(m, ``n_real``) slots and get the broadcast; everyone
+    else idles at busy_lat = +inf until a slot frees. ``k`` and ``m`` are
+    a rank's own extents under the sharded round, where ``n_real`` (its
+    real client rows; default ``k``) keeps the phantom rows out of every
+    live slot, and a rank of phantoms alone starts with every slot dead.
+    With ``rcfg.compress`` the round-0 deltas go through the same
+    ``_compress_plane`` the rounds use, with empty (K, s) parked-residual
+    planes when error feedback is on."""
     if not 1 <= m <= k:
         raise ValueError(f"cohort_size={m} must lie in [1, K={k}]")
+    n_live = min(m, k if n_real is None else max(int(n_real), 0))
     dev = tree_leaves(vec)[0].device
     occ = torch.arange(m, dtype=torch.int32, device=dev)
-    live = torch.ones((m,), dtype=torch.bool, device=dev)
+    live = occ < n_live
     lat = streams.latencies(0)
     busy = torch.full_like(lat, float("inf"))
-    busy[:m] = lat[:m]
+    busy[:n_live] = lat[:n_live]
     trained = streams.cohort_train(vec, 0, occ)
     compress = rcfg is not None and bool(rcfg.compress)
     pending, deltas, good, good_n2 = _init_planes(

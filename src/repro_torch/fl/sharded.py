@@ -45,16 +45,41 @@ the one chosen by ``repro_torch.sharding.rules.stack_client_specs``, so
 placement and slicing cannot disagree (``repro_torch.sharding.tp``).
 Extent 1 is the flat program bit for bit.
 
-Refused by name: the active cohort and compressed payloads under
-sharding, and periodic checkpoints of a sharded carry.
+Active cohort (``cohort_size`` m): the slots split shard-locally, as the
+reference's do. m must tile the client shards; each rank runs the cohort
+round over its m / n_shards slots and refills them from its own idle
+rows by its rows of the full-K priority draw (phantoms at -inf never
+win a slot), the reference's documented policy difference from the fused
+driver's global order (at m = K both pin every client to a slot). Slot
+ids are shard-local. Compressed payloads (``compress``) shard the (m, s)
+slot planes and the (K, s) parked residuals the same way; the randmask
+support is the full draw on every rank, the int8 dither the rank's rows
+of the full (m, s) draw (each shard its own stream), and the compressed
+superposition is still one all-reduce (``ops.gather_superpose_partial``,
+Σ b*p in the flat partial's last slot). Neither composes with TP, nor
+the cohort with grouped aggregation, as in the reference.
+
+Checkpoints (``save_checkpoint``, ``restore_checkpoint``,
+``checkpoint_every``) write the file the reference's ``ShardedPAOTA``
+writes of its global carry, in the npz layout of
+``repro_torch.checkpoint.io``: K_pad rows in global client order,
+phantoms included, ``held`` as (n_pods, d + 1), the cohort's slot planes
+as (m, ...) in shard order with shard-local ``slot_client`` ids, the
+parked residuals as (K_pad, s), and TP leaves whole. Every rank sends its
+part to rank 0 as host tensors over a gloo group (gloo gathers no CUDA
+tensors), rank 0 writes, and on restore every rank reads the file and
+takes its rows, its slots and its TP block. None of it passes through
+the round's ``Reducer``, so its log stays the round's.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.aircomp import ChannelConfig
 from repro_torch.core.scheduler import (FaultConfig, ScenarioTraits,
@@ -62,33 +87,44 @@ from repro_torch.core.scheduler import (FaultConfig, ScenarioTraits,
 from repro_torch.data.pipeline import ClientData
 from repro_torch.fl.engine import BatchedEngine
 from repro_torch.fl.fused import FusedPAOTA
-from repro_torch.fl.runtime import (GroupTopology, RoundStreams, scan_rounds,
-                                    scan_windows)
+from repro_torch.fl.runtime import (GroupTopology, RoundCarry, RoundStreams,
+                                    scan_rounds, scan_windows)
 from repro_torch.fl.server import PAOTAConfig
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.launch.collectives import Reducer
 from repro_torch.launch.mesh import data_axes
 from repro_torch.sharding.rules import stack_client_specs
 from repro_torch.sharding.tp import TPTopology, tp_block
-from repro_torch.tree import build, leaves_with_paths, tree_leaves
+from repro_torch.tree import build, leaves_with_paths, tree_leaves, tree_map
 
 __all__ = ["ShardedPAOTA", "ShardDraws"]
 
 # a uniform no fault band reaches (the bands lie in [0, 1])
 _NEVER_FAULTS = 2.0
+# the carry's (K,)-row fields and its cohort slot fields; pending and
+# deltas are client rows in the dense carry and slot rows in the cohort's
+_CLIENT_ROWS = ("ready", "busy_lat", "model_round", "resid_val", "resid_idx")
+_SLOT_ROWS = ("slot_client", "slot_live", "slot_idx", "slot_scale",
+              "slot_resid", "slot_resid_idx")
+_PLANES = ("pending", "deltas")
 
 
 class ShardDraws:
     """One rank's rows of a full-K draw source: each (K,) draw padded to
     K_pad with its phantom fill, then sliced at the rank's offset. The
-    noise is the full draw, the same on every rank."""
+    noise and the randmask support are the full draws, the same on every
+    rank; the int8 dither is the rank's ``m_local`` rows of the full
+    (m, s) draw, from row ``shard * m_local``."""
 
-    def __init__(self, full, offset: int, k_local: int, k: int):
+    def __init__(self, full, offset: int, k_local: int, k: int,
+                 shard: int = 0, m_local: int = 0):
         self.full = full
         self.device = full.device
         self.offset, self.k_local, self.k = offset, k_local, k
+        self.shard, self.m_local = shard, m_local
         traits = full.traits
         self.traits = None if traits is None else ScenarioTraits(
-            *(self._rows(a, 1) for a in traits))
+            *(None if a is None else self._rows(a, 1) for a in traits))
 
     def _rows(self, full_k, fill):
         """Rows [offset, offset + k_local) of ``full_k`` padded with
@@ -124,6 +160,17 @@ class ShardDraws:
     def fade_uniform(self, t: int):
         return self._rows(self.full.fade_uniform(t), _NEVER_FAULTS)
 
+    def sched_priority(self, r: int):
+        # -inf: a phantom row never wins a slot
+        return self._rows(self.full.sched_priority(r), float("-inf"))
+
+    def compress_mask(self, t: int):
+        return self.full.compress_mask(t)
+
+    def quant_uniform(self, t: int):
+        lo = self.shard * self.m_local
+        return self.full.quant_uniform(t)[lo:lo + self.m_local]
+
 
 def _phantom(like: ClientData) -> ClientData:
     """A phantom client's dataset: one zero row."""
@@ -144,8 +191,11 @@ class ShardedPAOTA(FusedPAOTA):
     is the whole federation (a list of ``FLClient`` or a
     ``BatchedEngine``): each rank keeps its own rows. ``device`` defaults
     to ``cuda:LOCAL_RANK``. ``draws`` is a full-K draw source. See the
-    module docstring for ``group_period`` / ``pod_axes`` and ``tp_axes``
-    (with ``model_cfg`` for an architecture's placement)."""
+    module docstring for ``group_period`` / ``pod_axes``, ``tp_axes``
+    (with ``model_cfg`` for an architecture's placement), the cohort and
+    compression knobs (``FusedPAOTA``'s, slots shard-local) and the
+    checkpoints (``checkpoint_every`` must be a multiple of
+    ``group_period``)."""
 
     def __init__(self, init_params, clients, chan: ChannelConfig,
                  sched_cfg: SchedulerConfig, cfg: PAOTAConfig, *, mesh,
@@ -156,17 +206,9 @@ class ShardedPAOTA(FusedPAOTA):
                  screen: bool = False, screen_max_norm: float = 0.0,
                  divergence_factor: float = 0.0, device=None, draws=None,
                  cohort_size: int | None = None, compress: str | None = None,
-                 checkpoint_every: int = 0):
-        for name, value in (("cohort_size", cohort_size),
-                            ("compress", compress),
-                            ("checkpoint_every", checkpoint_every)):
-            if value:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported to the sharded round "
-                    f"yet (ShardedPAOTA; the sharded cohort's slots are "
-                    f"shard-local and its checkpoints sharded); the "
-                    f"nearest supported configuration is FusedPAOTA with "
-                    f"{name}={value!r}, or ShardedPAOTA without it")
+                 compress_ratio: float = 1.0, slot_dtype: str | None = None,
+                 error_feedback: bool = True, checkpoint_every: int = 0,
+                 checkpoint_dir: str | None = None):
         self.mesh = mesh
         axes = mesh.axes(client_axes) if client_axes else data_axes(mesh)
         if not axes:
@@ -193,6 +235,24 @@ class ShardedPAOTA(FusedPAOTA):
                     f"over one mesh axis; the nearest supported "
                     f"configuration merges them into one 'tp' axis of "
                     f"extent {self.tp_shards}")
+            if compress:
+                raise NotImplementedError(
+                    f"compress='{compress}' does not compose with "
+                    f"intra-client TP (tp axes {tp_ax}, extent "
+                    f"{self.tp_shards}) yet: the (m, s) compressed slot "
+                    f"planes are raveled coordinate sets with no per-leaf "
+                    f"TP split; the nearest supported configurations are "
+                    f"compress='{compress}' on a client-axes-only mesh, or "
+                    f"TP with compress=None")
+            if cohort_size:
+                raise NotImplementedError(
+                    f"cohort_size={cohort_size} does not compose with "
+                    f"intra-client TP (tp axes {tp_ax}, extent "
+                    f"{self.tp_shards}) yet: the cohort payload plane is "
+                    f"raveled (m, d) slots; the nearest supported "
+                    f"configurations are cohort_size={cohort_size} on a "
+                    f"client-axes-only mesh, or TP with cohort_size=None "
+                    f"(dense payload planes)")
             if group_period:
                 raise NotImplementedError(
                     f"group_period={group_period} does not compose with "
@@ -238,6 +298,11 @@ class ShardedPAOTA(FusedPAOTA):
                 pod_axes=pods, intra_axes=intra,
                 intra_shards=mesh.extent(intra) if intra else 1)
             self.n_pod_groups = mesh.extent(pods)
+        if cohort_size and group_period:
+            raise NotImplementedError(
+                "active-cohort mode does not compose with grouped "
+                "aggregation yet: the held-window partials are dense-plane "
+                "accumulators (pass cohort_size=None or group_period=0)")
         self.group_period = int(group_period)
         self.reducer = Reducer(mesh, axes)
         self._model_cfg = model_cfg
@@ -247,9 +312,22 @@ class ShardedPAOTA(FusedPAOTA):
                          pending_dtype=pending_dtype, scenario=scenario,
                          faults=faults, screen=screen,
                          screen_max_norm=screen_max_norm,
-                         divergence_factor=divergence_factor)
+                         divergence_factor=divergence_factor,
+                         cohort_size=cohort_size, compress=compress,
+                         compress_ratio=compress_ratio,
+                         slot_dtype=slot_dtype,
+                         error_feedback=error_feedback,
+                         checkpoint_every=checkpoint_every,
+                         checkpoint_dir=checkpoint_dir)
         self._rcfg = self._rcfg._replace(group_period=self.group_period)
+        if group_period and self.checkpoint_every % group_period:
+            raise ValueError(
+                f"checkpoint_every={self.checkpoint_every} must be a "
+                f"multiple of group_period={group_period}: the grouped "
+                f"round advances whole windows, so snapshots land on "
+                f"window boundaries only")
         self._tp = self._derive_tp() if self.tp_shards > 1 else None
+        self._cpu_group = None
 
     # -- the rank's federation ----------------------------------------
     def _federation(self, clients):
@@ -300,7 +378,38 @@ class ShardedPAOTA(FusedPAOTA):
                 f"configuration reorders client_axes to put {pods} first")
 
     def _local_draws(self, draws):
-        return ShardDraws(draws, self.offset, self.k_local, self.k)
+        """This rank's rows of ``draws``, once its slots are known (the
+        reference's checks after its super().__init__)."""
+        self._shard_slots()
+        return ShardDraws(draws, self.offset, self.k_local, self.k,
+                          shard=self.mesh.index(self.client_axes),
+                          m_local=self.m_local)
+
+    def _shard_slots(self) -> None:
+        """``m_local``, the rank's share of the cohort's slots: m must tile
+        the client shards, and a shard's slots cannot outnumber its rows."""
+        self.m_local = 0
+        m, n = self.cohort_size, self.n_shards
+        if not m:
+            return
+        if m % n:
+            lo = (m // n) * n
+            near = f"{lo + n}" if lo == 0 else f"{lo} and {lo + n}"
+            raise ValueError(
+                f"cohort_size={m} must be divisible by the {n} client "
+                f"shards (slots are shard-local); the nearest valid cohort "
+                f"sizes are {near}")
+        self.m_local = m // n
+        if self.m_local > self.k_local:
+            raise ValueError(
+                f"cohort_size={m} gives {self.m_local} slots per shard but "
+                f"each shard holds only {self.k_local} client rows")
+
+    def _cohort_extents(self):
+        """The rank's rows and slots; its real rows keep the phantoms out
+        of every live slot."""
+        n_real = min(max(self.k - self.offset, 0), self.k_local)
+        return self.k_local, self.m_local, n_real
 
     def _make_streams(self) -> RoundStreams:
         streams = super()._make_streams()
@@ -393,17 +502,116 @@ class ShardedPAOTA(FusedPAOTA):
         self._carry = carry
         return self._history_rows(outs, n_rounds)
 
+    # -- checkpoints of the sharded carry ------------------------------
+    def _pod(self) -> int:
+        if self._grouping is None:
+            return 0
+        return self.mesh.index(self._grouping.pod_axes)
+
+    def _host_group(self):
+        """A group over every rank that carries host tensors: the default
+        group under gloo, else a gloo group made at first use (every rank
+        saves together, so every rank makes it)."""
+        if dist.get_backend() == "gloo":
+            return None
+        if self._cpu_group is None:
+            self._cpu_group = dist.new_group(backend="gloo")
+        return self._cpu_group
+
     def save_checkpoint(self, path: str):
-        raise NotImplementedError(
-            "checkpoints of a sharded carry are not ported yet (each rank "
-            "holds its rows); the nearest supported configuration is "
-            "FusedPAOTA.save_checkpoint")
+        """Write the global carry (module docstring) and the history;
+        every rank calls it, rank 0 writes, and it returns once the file
+        is in place. Builds the round-0 carry first if the driver has not
+        advanced yet."""
+        rec = self._carry_record(self._ensure_carry())
+        mine = {"shard": self.mesh.index(self.client_axes),
+                "tp": 0 if self._tp is None else self._tp.index,
+                "pod": self._pod(),
+                "carry": dataclasses.replace(rec, **{
+                    f.name: tree_map(lambda x: x.detach().cpu(),
+                                     getattr(rec, f.name))
+                    for f in dataclasses.fields(rec)
+                    if getattr(rec, f.name) is not None})}
+        if not dist.is_initialized():
+            parts = [mine]
+        else:
+            group = self._host_group()
+            parts = [None] * dist.get_world_size() if dist.get_rank() == 0 \
+                else None
+            dist.gather_object(mine, parts, dst=0, group=group)
+        if parts is not None:
+            ckpt_io.save_checkpoint(path, self._global_record(parts),
+                                    step=len(self.history),
+                                    extra={"history": self.history})
+        if dist.is_initialized():
+            dist.barrier(group=self._host_group())
+
+    def _global_record(self, parts) -> RoundCarry:
+        """The reference's global carry from every rank's part: row fields
+        concatenated in shard order (TP leaves joined along their split
+        dim first), ``held`` one row a pod, the rest rank 0's."""
+        shards = {}
+        for p in parts:
+            shards.setdefault(p["shard"], {})[p["tp"]] = p["carry"]
+        rec = parts[0]["carry"]
+
+        def shard_part(name, blocks):
+            """A client shard's ``name``: its TP blocks of each split leaf
+            joined along the split dim (the whole leaf), else lead's."""
+            if self._tp is None or name not in _PLANES:
+                return getattr(blocks[0], name)
+            trees = [getattr(blocks[i], name) for i in range(self.tp_shards)]
+            per_leaf = zip(*(tree_leaves(t) for t in trees))
+            return build([q for q, _ in leaves_with_paths(trees[0])], [
+                torch.cat(ls, dim + 1) if dim >= 0 else ls[0]
+                for ls, dim in zip(per_leaf, self._tp.leaf_dims)])
+
+        out = {}
+        for name in _CLIENT_ROWS + _SLOT_ROWS + _PLANES:
+            if getattr(rec, name) is not None:
+                out[name] = tree_map(
+                    lambda *ls: torch.cat(ls),
+                    *(shard_part(name, shards[i])
+                      for i in range(self.n_shards)))
+        if rec.held is not None:
+            pods = {p["pod"]: p["carry"].held for p in parts}
+            out["held"] = torch.stack([pods[i]
+                                       for i in range(self.n_pod_groups)])
+        return dataclasses.replace(rec, **out)
 
     def restore_checkpoint(self, path: str) -> int:
-        raise NotImplementedError(
-            "checkpoints of a sharded carry are not ported yet (each rank "
-            "holds its rows); the nearest supported configuration is "
-            "FusedPAOTA.restore_checkpoint")
+        """Rebind every rank to a file ``save_checkpoint`` (or the
+        reference's ``ShardedPAOTA``) wrote: each rank takes its rows, its
+        slots, its pod's held partial and its TP block; the history
+        replaces this driver's. Returns the file's step."""
+        template = self._carry_record(self._ensure_carry())
+        rec, step, extra = ckpt_io.load_checkpoint(path, template)
+        k0 = self.offset
+        m0 = self.mesh.index(self.client_axes) * self.m_local
+
+        def rows(tree, lo, n):
+            return tree_map(lambda x: x[lo:lo + n], tree)
+
+        mine = {}
+        for f in dataclasses.fields(rec):
+            v = getattr(rec, f.name)
+            if v is None or f.name in ("t", "time"):
+                continue
+            if f.name in _SLOT_ROWS or (f.name in _PLANES
+                                        and self.cohort_size):
+                v = rows(v, m0, self.m_local)
+            elif f.name in _CLIENT_ROWS + _PLANES:
+                v = rows(v, k0, self.k_local)
+                if self._tp is not None and f.name in _PLANES:
+                    v = tp_block(v, self._tp, 1)
+            elif f.name == "held":
+                v = v[self._pod()]
+            mine[f.name] = tree_map(
+                lambda x: x.contiguous().to(self.device), v)
+        self._carry = dataclasses.replace(rec, t=int(rec.t),
+                                          time=float(rec.time), **mine)
+        self.history = list(extra.get("history", []))
+        return step
 
 
 class _Shape:

@@ -156,6 +156,19 @@ def gather_superpose(values, idx, bp, noise, *, d: int, scale=None,
     return fn(values, idx, bp, noise, d=d, scale=scale, vs_min=vs_min)
 
 
+def gather_superpose_partial(values, idx, bp, out, offset: int = 0, *,
+                             d: int, scale=None):
+    """The local half of the sharded compressed superposition into the
+    flat f32 ``out``: the raw sum_k w_k scatter(v_k, idx_k) at ``offset``
+    (d columns), the raw sum of bp into the last slot, no noise, no
+    division (``gather_superpose.gather_superpose_partial_*``); returns
+    ``out``."""
+    fn = (_gs.gather_superpose_partial_cuda
+          if _route(values.device, "gather_superpose_partial")
+          else _gs.gather_superpose_partial_plain)
+    return fn(values, idx, bp, out, offset, d=d, scale=scale)
+
+
 def round_stats_compressed(values, idx, resid, resid_idx, g, scale=None):
     """Round stats over the compressed plane and its EF residuals,
     ``(dots, dn2, pn2, gn2)``. Plain torch on both devices, as the

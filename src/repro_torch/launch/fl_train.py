@@ -31,8 +31,10 @@ ranks of a process group (``ShardedPAOTA``), one process a rank:
 baselines, prints and writes the CSV. The reference's ``legacy`` engine
 is not ported and is refused by name.
 
-The fused round's knobs need ``--engine fused``: ``--params-mode
-pytree`` (the params dict carry, the sweeps launched per leaf),
+The fused round's knobs need ``--engine fused`` or ``--engine sharded``
+(the sharded cohort's slots are shard-local, and ``--cohort-size`` must
+tile the ranks): ``--params-mode pytree`` (the params dict carry, the
+sweeps launched per leaf),
 ``--pending-dtype bfloat16`` (bf16 planes, f32 accumulation),
 ``--cohort-size m`` (model rows only for the m in-flight slots),
 ``--compress topk|randmask`` with ``--compress-ratio s/d`` (default
@@ -78,12 +80,12 @@ def main(argv=None):
                          "model otherwise)")
     ap.add_argument("--params-mode", default="raveled",
                     choices=["raveled", "pytree"],
-                    help="fused: model carry, the raveled (K, d) plane or "
-                         "the params dict (sweeps per leaf)")
+                    help="fused or sharded: model carry, the raveled (K, d) "
+                         "plane or the params dict (sweeps per leaf)")
     ap.add_argument("--pending-dtype", default="float32",
                     choices=["float32", "bfloat16"],
-                    help="fused: storage of the (K, ...) planes (f32 "
-                         "accumulation, f32 globals)")
+                    help="fused or sharded: storage of the (K, ...) planes "
+                         "(f32 accumulation, f32 globals)")
     ap.add_argument("--group-period", type=int, default=0,
                     help="sharded: grouped aggregation, N periods a window")
     ap.add_argument("--tp", type=int, default=1,
@@ -94,11 +96,13 @@ def main(argv=None):
                     help="sharded: the process group's backend (gloo for "
                          "ranks that share one card, and on the CPU)")
     ap.add_argument("--cohort-size", type=int, default=0,
-                    help="fused: active-cohort round with m slots")
+                    help="fused or sharded: active-cohort round with m "
+                         "slots (sharded: shard-local, m a multiple of the "
+                         "ranks)")
     ap.add_argument("--compress", default="", choices=["", "topk",
                                                        "randmask"],
-                    help="fused cohort: compressed slot payloads; switches "
-                         "PAOTA's payload to delta")
+                    help="fused or sharded cohort: compressed slot "
+                         "payloads; switches PAOTA's payload to delta")
     ap.add_argument("--compress-ratio", type=float, default=1.0 / 16.0,
                     help="s/d for --compress (default 1/16)")
     ap.add_argument("--slot-dtype", default="",
@@ -107,7 +111,8 @@ def main(argv=None):
     ap.add_argument("--no-error-feedback", action="store_true",
                     help="drop the compressed slots' EF residuals")
     ap.add_argument("--faults", default="",
-                    help="fused PAOTA only: fault-injection spec, comma-"
+                    help="fused or sharded PAOTA only: fault-injection "
+                         "spec, comma-"
                          "separated kind:value pairs — nan:F / inf:F "
                          "(NaN/+Inf payload fraction), byz:F + scale:S "
                          "(Byzantine deltas), fade:F + gain:G (deep-fade "
@@ -126,8 +131,9 @@ def main(argv=None):
                          "a post-update norm jump exceeds this factor "
                          "(0 = detector off)")
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="fused PAOTA: snapshot the full round carry every "
-                         "N rounds (0 = off)")
+                    help="fused or sharded PAOTA: snapshot the full round "
+                         "carry every N rounds (0 = off; sharded: rank 0 "
+                         "writes the global carry)")
     ap.add_argument("--checkpoint-dir", default="",
                     help="where --checkpoint-every snapshots go (default "
                          "<bench out dir>/checkpoints)")

@@ -13,10 +13,11 @@ builds every group once, in the same order, as ``new_group`` requires.
 host (``spawn``, never ``fork``: the parent may hold a CUDA context), runs
 a function on each and returns what each returned.
 A rank that fails, or a world that outlives ``timeout_s``, kills the other
-ranks and raises with that rank's traceback. The backend is the caller's:
-``"nccl"`` when each rank owns ``cuda:LOCAL_RANK``, ``"gloo"`` on the CPU
-and for ranks that share one card (NCCL refuses two ranks on one device;
-gloo reduces CUDA tensors with ``all_reduce`` and ``broadcast`` only).
+ranks and raises with the failed ranks' tracebacks. The backend is the
+caller's: ``"nccl"`` when each rank owns ``cuda:LOCAL_RANK``, ``"gloo"`` on
+the CPU and for ranks that share one card (NCCL refuses two ranks on one
+device; gloo reduces CUDA tensors with ``all_reduce`` and ``broadcast``
+only).
 Nothing here picks a backend or a device by itself.
 
 Nothing runs at import time.
@@ -214,11 +215,34 @@ class RankGroup:
             p.start()
         self._deadline = time.monotonic() + timeout_s
 
+    def _failures(self, rank, out, grace_s: float = 5.0) -> str:
+        """The report of a failed world: every rank that fails within
+        ``grace_s`` of the first, with its traceback, and every rank that
+        died without one. A rank's failure takes down its peers'
+        collectives, and the first report to arrive need not be the
+        cause."""
+        failed = {rank: out}
+        end = time.monotonic() + grace_s
+        while len(failed) < self.world and time.monotonic() < end:
+            try:
+                r, fine, msg = self._results.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            if not fine:
+                failed[r] = msg
+        dead = [r for r, p in enumerate(self._procs)
+                if p.exitcode not in (None, 0) and r not in failed]
+        lines = [f"rank {r} of {self.world} failed:\n{failed[r]}"
+                 for r in sorted(failed)]
+        lines += [f"rank {r} exited with code {self._procs[r].exitcode} "
+                  f"without a report" for r in dead]
+        return "\n".join(lines)
+
     def wait(self) -> list:
         """The ranks' results in rank order. A rank that raised or died,
         or a world still running ``timeout_s`` seconds after its start,
-        kills every rank and raises (RuntimeError with the failed rank's
-        traceback, or TimeoutError)."""
+        kills every rank and raises (RuntimeError with every failed rank's
+        traceback, ``_failures``, or TimeoutError)."""
         world, procs = self.world, self._procs
         got: Dict[int, object] = {}
         ok = False
@@ -241,8 +265,7 @@ class RankGroup:
                             f"{procs[dead[0]].exitcode} before reporting")
                     continue
                 if not fine:
-                    raise RuntimeError(f"rank {rank} of {world} failed:\n"
-                                       f"{out}")
+                    raise RuntimeError(self._failures(rank, out))
                 got[rank] = out
             ok = True
         finally:

@@ -11,16 +11,25 @@ It imports no JAX: a spawned rank imports it by name.
 ``spec``: ``feds`` (name -> {"x", "y"} arrays or {"x_path", "y_path"}
 ``.npy`` files, and ``parts``, one index array a client), ``params`` (a
 numpy params dict) and ``cases``. A case is a dict with ``name`` and
-``kind`` ("paota", "waterfill", "refusals", "harness", "allreduce" or
-"probe"); a
+``kind`` ("paota", "resume", "restore", "state_plane", "waterfill",
+"refusals", "harness", "allreduce" or "probe"); a
 "paota" case names its ``fed``, ``mesh`` ((axis, extent) pairs),
 ``rounds``, ``step`` (rounds an ``advance``), ``sched`` / ``chan`` /
 ``cfg`` keyword dicts, ``knobs`` for ``ShardedPAOTA`` (a ``faults`` dict
 becomes a ``FaultConfig``), ``client`` hyperparameters and optional
-``draws`` (the arrays of an ``ArrayDraws``; default ``CounterDraws``).
+``draws`` (the arrays of an ``ArrayDraws``; default ``CounterDraws``);
+``state`` keeps the rank's (K,) state plane and slot maps every step, and
+``twin_rerun`` runs the case again with the kernels' plain twins patched
+in where ``ops`` routes to the kernels (on the card: the kernel run's
+oracle). A "resume" case runs ``rounds`` and, in a second driver, stops
+at ``kill`` and saves to ``path``; a "restore" case (in fresh ranks)
+restores ``path`` and runs to ``rounds``. A "state_plane" case is the
+million-client cohort harness on the sharded runtime.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import numpy as np
@@ -29,6 +38,9 @@ import torch
 from repro_torch.tree import tree_leaves
 
 __all__ = ["run_cases"]
+
+# the carry fields a "state" case keeps every step
+STATE = ("slot_client", "slot_live", "ready", "model_round", "busy_lat")
 
 
 def _federation(fed, client):
@@ -54,15 +66,41 @@ def _params(params, device):
 
 def _counters():
     from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import gather_superpose as gs
     from repro_torch.kernels import round_stats as rs
     return {"round_stats": rs.launches, "aircomp_partial": ac.partial_launches,
-            "superpose_normalize": ac.launches}
+            "superpose_normalize": ac.launches,
+            "gather_superpose": gs.launches,
+            "gather_superpose_partial": gs.partial_launches}
 
 
 def _zero_counters():
     from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import gather_superpose as gs
     from repro_torch.kernels import round_stats as rs
     rs.launches = ac.partial_launches = ac.launches = 0
+    gs.launches = gs.partial_launches = 0
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Every kernel wrapper the sharded round reaches replaced by its plain
+    twin, so ``ops`` routes a CUDA tensor to the twin (on the CPU the twins
+    run anyway); restored on exit."""
+    from repro_torch.kernels import aircomp_sum as ac
+    from repro_torch.kernels import gather_superpose as gs
+    from repro_torch.kernels import round_stats as rs
+    swaps = [(ac, "aircomp_partial"), (ac, "superpose_normalize"),
+             (gs, "gather_superpose"), (gs, "gather_superpose_partial"),
+             (rs, "round_stats")]
+    saved = [(mod, name, getattr(mod, f"{name}_cuda")) for mod, name in swaps]
+    try:
+        for mod, name in swaps:
+            setattr(mod, f"{name}_cuda", getattr(mod, f"{name}_plain"))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, f"{name}_cuda", fn)
 
 
 def _sync(device):
@@ -90,17 +128,11 @@ def _driver(case, spec, device, mesh):
         draws=draws, **knobs)
 
 
-def _paota(case, spec, device):
-    from repro_torch.launch.mesh import Mesh
-    mesh = Mesh(case["mesh"])
-    drv = _driver(case, spec, device, mesh)
+def _run(drv, case, device, out):
+    """``case["rounds"]`` rounds of ``drv`` in steps of ``case["step"]``,
+    per step: the history rows, the reducer's calls, the wall seconds, the
+    global, the clients restarted and (``case["state"]``) the state."""
     step = case.get("step", 1)
-    out = {"d": drv.d, "k_local": drv.k_local, "k_pad": drv.k_pad,
-           "offset": drv.offset, "coords": mesh.coords, "globals": [],
-           "rows": [], "calls": [], "seconds": [], "restarted": [],
-           "leaves": len(tree_leaves(drv._init_global))}
-    _sync(device)
-    _zero_counters()
     for _ in range(case["rounds"] // step):
         mark = drv.reducer.mark()
         t0 = time.perf_counter()
@@ -111,8 +143,142 @@ def _paota(case, spec, device):
         out["globals"].append(drv.global_vec.copy())
         carry = drv._carry
         out["restarted"].append(int((carry.model_round == carry.t).sum()))
-    out["launches"] = _counters()
+        if case.get("state"):
+            out["state"].append({f: getattr(carry, f).cpu().numpy()
+                                 for f in STATE})
     return out
+
+
+def _paota(case, spec, device):
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(case["mesh"])
+    drv = _driver(case, spec, device, mesh)
+    out = {"d": drv.d, "k_local": drv.k_local, "k_pad": drv.k_pad,
+           "offset": drv.offset, "coords": mesh.coords, "globals": [],
+           "rows": [], "calls": [], "seconds": [], "restarted": [],
+           "state": [], "m_local": drv.m_local,
+           "compress_s": drv.compress_s,
+           "leaves": len(tree_leaves(drv._init_global))}
+    _sync(device)
+    _zero_counters()
+    _run(drv, case, device, out)
+    out["launches"] = _counters()
+    if case.get("twin_rerun"):
+        del drv
+        with plain_twins():
+            twin = _run(_driver(case, spec, device, mesh), case, device,
+                        {"globals": [], "rows": [], "calls": [],
+                         "seconds": [], "restarted": [], "state": []})
+        out["twin_globals"], out["twin_rows"] = twin["globals"], twin["rows"]
+    return out
+
+
+def _resume(case, spec, device):
+    """The uninterrupted run, then a second driver killed at ``kill``
+    rounds after saving ``path``: the full run's globals and history,
+    the file's bytes and the save's seconds."""
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(case["mesh"])
+    full = _driver(case, spec, device, mesh)
+    full.advance(case["rounds"])
+    part = _driver(case, spec, device, mesh)
+    part.advance(case["kill"])
+    _sync(device)
+    t0 = time.perf_counter()
+    part.save_checkpoint(case["path"])
+    save_s = time.perf_counter() - t0
+    return {"global": full.global_vec.copy(), "history": full.history,
+            "file_bytes": os.path.getsize(case["path"]), "save_s": save_s}
+
+
+def _restore(case, spec, device):
+    """A fresh driver restored from ``path`` and run to ``rounds``."""
+    from repro_torch.launch.mesh import Mesh
+    drv = _driver(case, spec, device, Mesh(case["mesh"]))
+    t0 = time.perf_counter()
+    step = drv.restore_checkpoint(case["path"])
+    _sync(device)
+    restore_s = time.perf_counter() - t0
+    drv.advance(case["rounds"] - step)
+    return {"step": step, "global": drv.global_vec.copy(),
+            "history": drv.history, "restore_s": restore_s}
+
+
+def _state_plane(case, spec, device):
+    """The million-client cohort harness (``benchmarks/cohort_round_bench
+    .py`` ``_synth_scan``) on the sharded runtime: ``k`` clients over the
+    mesh's ranks, ``m`` slots (m / ranks a rank), fabricated updates
+    g + 1e-3 N(0, 1), each rank its rows of one full (m, d) draw a round,
+    the counter latency / channel / priority draws and the availability
+    cycle + dropout scenario over all k, randmask ``ratio``, ``slot_dtype``
+    slots, no error feedback; ``rounds`` rounds after the round-0 carry.
+    Returns ms a round, the launches, the uploaders a round, the global's
+    norm and whether it is finite, and the reducer's calls a round."""
+    from repro_torch.core import ChannelConfig, ScenarioConfig
+    from repro_torch.core.power_control import p2_constants
+    from repro_torch.core.scheduler import round_tag_generator
+    from repro_torch.fl.runtime import (CounterDraws, RoundCfg, RoundStreams,
+                                        init_cohort_carry, scan_rounds)
+    from repro_torch.fl.sharded import ShardDraws
+    from repro_torch.launch.collectives import Reducer
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(case["mesh"])
+    red = Reducer(mesh)
+    k, m, d = case["k"], case["m"], case["d"]
+    n = mesh.size
+    s = round(d * case["ratio"])
+    k_local, m_local = k // n, m // n
+    shard = mesh.index(mesh.axis_names)
+    chan = ChannelConfig(**case.get("chan", {}))
+    sc = ScenarioConfig(availability="cycle", avail_period=4,
+                        avail_duty=0.5, dropout_prob=0.05)
+    full = CounterDraws(0, 0, device, k=k, d=d, lat_lo=5.0, lat_hi=15.0,
+                        chan=chan, n_samples=np.ones(1, np.int64),
+                        local_steps=1, batch_size=1, scenario=sc, m=m, s=s)
+    draws = ShardDraws(full, shard * k_local, k_local, k, shard=shard,
+                       m_local=m_local)
+    c1, c0 = p2_constants(10.0, 0.05, k, d, chan.sigma_n2)
+    rcfg = RoundCfg(omega=3.0, c1=c1, c0=c0, p_max_watts=chan.p_max_watts,
+                    delta_t=8.0, transmit_delta=True, cohort_size=m,
+                    compress="randmask", compress_s=s,
+                    slot_dtype=case["slot_dtype"], error_feedback=False)
+
+    def fan(g, r, ids):
+        # tag 12: clear of the scheduler's draw tags (0-10)
+        gen = round_tag_generator(0, r, 12, device)
+        z = torch.randn((m, d), generator=gen, device=device)
+        lo = shard * m_local
+        return g[None, :] + 1e-3 * z[lo:lo + m_local]
+
+    streams = RoundStreams(
+        local_train=None, latencies=draws.latencies, channel=draws.channel,
+        noise=full.noise, scenario=draws.scenario_masks, cohort_train=fan,
+        sched_priority=draws.sched_priority,
+        compress_mask=draws.compress_mask,
+        quant_uniform=(draws.quant_uniform
+                       if case["slot_dtype"] == "int8" else None))
+    with torch.no_grad():
+        carry = init_cohort_carry(torch.zeros((d,), device=device),
+                                  streams=streams, k=k_local, m=m_local,
+                                  keep_pending=False, rcfg=rcfg)
+        _sync(device)
+        _zero_counters()
+        mark = red.mark()
+        t0 = time.perf_counter()
+        carry, outs = scan_rounds(carry, case["rounds"], rcfg=rcfg,
+                                  streams=streams, reducer=red)
+        _sync(device)
+        t1 = time.perf_counter()
+    calls = [tuple(c) for c in red.calls_since(mark)]
+    g = carry.global_vec
+    return {"ms_per_round": (t1 - t0) * 1e3 / case["rounds"],
+            "launches": _counters(), "compress_s": s, "k_local": k_local,
+            "m_local": m_local,
+            "n_participants": outs["n_participants"].cpu().tolist(),
+            "finite": bool(torch.isfinite(g).all()),
+            "global_norm": float(g.norm()), "global": g.cpu().numpy(),
+            "calls_per_round": len(calls) / case["rounds"],
+            "model_sized": sum(1 for c in calls if c[2] == d + 1)}
 
 
 def _waterfill(case, spec, device):
@@ -196,8 +362,10 @@ def _probe(case, spec, device):
     return out
 
 
-_KINDS = {"paota": _paota, "waterfill": _waterfill, "refusals": _refusals,
-          "harness": _harness, "probe": _probe, "allreduce": _allreduce}
+_KINDS = {"paota": _paota, "resume": _resume, "restore": _restore,
+          "state_plane": _state_plane, "waterfill": _waterfill,
+          "refusals": _refusals, "harness": _harness, "probe": _probe,
+          "allreduce": _allreduce}
 
 
 def run_cases(rank, world, device, spec):

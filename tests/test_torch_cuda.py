@@ -949,6 +949,88 @@ def test_gather_superpose_all_dead_rows_at_the_state_plane_shape(cuda):
     torch.testing.assert_close(got, noise / 1e-12, rtol=3e-5, atol=0.0)
 
 
+# The sharded compressed round's partial entry (gather_superpose.cu
+# repro_gather_superpose_partial): a rank's slots of the cohort at K =
+# 1000, m = 64 over 4 ranks and of the state plane's m = 256, stripe edges
+# with row splits merged by a stripe's last block, the one-element case,
+# and an offset into the flat buffer.
+GS_PARTIAL_CASES = [(16, 504, 8070, 0), (64, 1024, 16384, 0),
+                    (40, 64, 65, 3), (50, 2048, 20000, 1), (1, 1, 1, 0),
+                    (3, 37, 1000, 5)]
+
+
+@pytest.mark.parametrize("m,s,d,offset", GS_PARTIAL_CASES)
+@pytest.mark.parametrize("dtype,with_scale", [
+    (torch.float32, False), (torch.float32, True), (torch.bfloat16, False),
+    (torch.int8, True)])
+def test_gather_superpose_partial_kernel_matches_twin(cuda, m, s, d, offset,
+                                                      dtype, with_scale):
+    """The partial entry against its twin (a dense scatter_add, w @ dense,
+    Σ bp appended): the sums held divided by Σ bp, as the finished
+    aggregate is, at 3e-5 (f32, int8: exact values) and 2e-2 (bf16); the
+    raw Σ bp in the last slot; bit-identical on repeat; the rest of the
+    buffer untouched."""
+    from repro_torch.kernels import gather_superpose as gs
+    v, idx, bp, _, scale = _gs_case(cuda, m, s, d, dtype, with_scale,
+                                    dead=m > 2)
+    n = offset + d + 3
+    fill = torch.full((n,), -7.0, device=cuda)
+    got, again, want = fill.clone(), fill.clone(), fill.clone()
+    before = gs.partial_launches
+    gs.gather_superpose_partial_cuda(v, idx, bp, got, offset, d=d,
+                                     scale=scale)
+    gs.gather_superpose_partial_cuda(v, idx, bp, again, offset, d=d,
+                                     scale=scale)
+    torch.cuda.synchronize()
+    assert gs.partial_launches == before + 2
+    gs.gather_superpose_partial_plain(v, idx, bp, want, offset, d=d,
+                                      scale=scale)
+    tol = (_tol(dtype) if dtype == torch.bfloat16
+           else dict(rtol=3e-5, atol=3e-5))
+    vs = torch.clamp_min(want[-1], 1e-12)
+    cols = slice(offset, offset + d)
+    torch.testing.assert_close(got[cols] / vs, want[cols] / vs, **tol)
+    torch.testing.assert_close(got[-1], want[-1], rtol=3e-5, atol=0.0)
+    assert torch.equal(got, again)
+    rest = torch.ones((n,), dtype=torch.bool, device=cuda)
+    rest[cols] = False
+    rest[-1] = False
+    assert torch.equal(got[rest], fill[rest])
+
+
+def test_gather_superpose_partial_all_dead_rows_give_zeros(cuda):
+    from repro_torch.kernels import gather_superpose as gs
+    v, idx, bp, _, _ = _gs_case(cuda, 64, 1024, 16384, torch.float32, False)
+    out = torch.full((16385,), -7.0, device=cuda)
+    gs.gather_superpose_partial_cuda(v, idx, torch.zeros_like(bp), out,
+                                     d=16384)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_compressed_aggregate_through_a_reducer_launches_the_partial(cuda):
+    """``paota_aggregate_compressed(reducer=)`` on a one-rank mesh (the
+    all-reduce is the identity): one partial launch, none of the fused
+    kernel, and the fused route's aggregate and varsigma at 3e-5."""
+    from repro_torch.core.aggregation import paota_aggregate_compressed
+    from repro_torch.kernels import gather_superpose as gs
+    from repro_torch.launch.collectives import Reducer
+    from repro_torch.launch.mesh import Mesh
+    v, idx, bp, noise, scale = _gs_case(cuda, 16, 504, 8070, torch.int8,
+                                        True, dead=True)
+    mask = (bp > 0).float()
+    want, want_vs = paota_aggregate_compressed(v, idx, bp, mask, noise,
+                                               8070, scale=scale)
+    fused, part = gs.launches, gs.partial_launches
+    got, got_vs = paota_aggregate_compressed(
+        v, idx, bp, mask, noise, 8070, scale=scale,
+        reducer=Reducer(Mesh((("data", 1),))))
+    torch.cuda.synchronize()
+    assert (gs.launches - fused, gs.partial_launches - part) == (0, 1)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(got_vs, want_vs, rtol=3e-5, atol=0.0)
+
+
 def _mlp_leaves(gen, k, dtype, device):
     """A stacked MLP tree as the pytree carry holds it: one contiguous
     tensor per leaf, each its own allocation."""

@@ -227,9 +227,15 @@ def _cases(draws8, draws10):
         dict(name="waterfill", kind="waterfill", mesh=[("data", 4)],
              **_waterfill_inputs()),
         dict(base, name="refusals", kind="refusals", tries=[
-            ("cohort_size", [("data", 4)], dict(cohort_size=4)),
-            ("compress", [("data", 4)], dict(compress="topk")),
-            ("checkpoint_every", [("data", 4)], dict(checkpoint_every=2)),
+            ("cohort_grouped", pods, dict(cohort_size=4, group_period=2)),
+            ("cohort_tp", [("data", 2), ("tp", 2)],
+             dict(params_mode="pytree", cohort_size=4)),
+            ("compress_tp", [("data", 2), ("tp", 2)],
+             dict(params_mode="pytree", cohort_size=4, compress="topk")),
+            ("cohort_tiling", [("data", 4)], dict(cohort_size=6)),
+            ("checkpoint_window", pods,
+             dict(group_period=2, checkpoint_every=3,
+                  checkpoint_dir="checkpoints")),
             ("tp_grouped", [("data", 2), ("tp", 2)],
              dict(params_mode="pytree", group_period=2)),
             ("tp_raveled", [("data", 2), ("tp", 2)], {}),
@@ -444,11 +450,23 @@ def test_waterfill_over_ranks_matches_single_device(world):
 
 
 def test_refusals_name_their_knobs(world):
+    """What the sharded round still refuses, with the reference's words:
+    the cohort with grouped aggregation, the cohort or compression with
+    TP, a cohort that does not tile the client shards (naming the nearest
+    sizes that do), and periodic checkpoints off the window."""
     got, _, _ = world
     msgs = got[0]["refusals"]
-    for knob in ("cohort_size", "compress", "checkpoint_every"):
-        assert msgs[knob].startswith("NotImplementedError")
-        assert knob in msgs[knob] and "ShardedPAOTA" in msgs[knob]
+    assert msgs["cohort_grouped"].startswith("NotImplementedError")
+    assert "grouped aggregation" in msgs["cohort_grouped"]
+    for name, knob in (("cohort_tp", "cohort_size=4"),
+                       ("compress_tp", "compress='topk'")):
+        assert msgs[name].startswith("NotImplementedError")
+        assert knob in msgs[name] and "intra-client TP" in msgs[name]
+    assert msgs["cohort_tiling"].startswith("ValueError")
+    assert "nearest valid cohort sizes are 4 and 8" in msgs["cohort_tiling"]
+    assert msgs["checkpoint_window"].startswith("ValueError")
+    assert ("checkpoint_every=3 must be a multiple of group_period=2"
+            in msgs["checkpoint_window"])
     assert "group_period" in msgs["tp_grouped"]
     assert "intra-client TP" in msgs["tp_grouped"]
     assert "params_mode='raveled'" in msgs["tp_raveled"]
